@@ -11,7 +11,10 @@ its warm-up, then:
    with the tri-plane encode and the fused MLP inside it, composites, loss,
    Adam; the backward is the rest of the step);
 2. traces 3 more steps with ``torch.profiler`` and reports the device-busy
-   share of that window and the kernels that took the most device time.
+   share of that window and the kernels that took the most device time;
+3. times the tri-plane table gradient (dT) on the last traced step's own
+   inputs, in the step (profiler) and replayed alone (CUDA events), with
+   the share of samples whose cotangent is nonzero.
 
 Prints one JSON line and writes it to ``chiprun_out/step_profile.json``.
 Needs a CUDA device.
@@ -24,16 +27,17 @@ import collections
 import contextlib
 import json
 import os
-import subprocess
 import time
 
 import torch
 
 from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
 from customnerf_torch.data.base import NeRFDataset
+from customnerf_torch.engine.measure import captured_calls, card_line, device_ms
 from customnerf_torch.engine.trainer import Trainer
 from customnerf_torch.models import field as field_mod
 from customnerf_torch.models import renderer
+from customnerf_torch.ops import triplane
 from customnerf_torch.ops.occupancy import WARMUP_UPDATES
 
 
@@ -71,13 +75,6 @@ def _wrap(owner, attr, spans, name):
             return fn(*args, **kwargs)
 
     setattr(owner, attr, timed)
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None):
@@ -135,28 +132,51 @@ def main(argv=None):
                                       - mean["triplane_encode_fwd"]
                                       - mean["fused_mlp_fwd"])
 
-    # profiler window: 3 steps, no refresh inside
+    # profiler window: 3 steps, no refresh inside; the dT calls of its last
+    # step are kept (references only: no work is added to the window)
     while trainer.global_step % opt.update_extra_interval != 1:
         step()
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with captured_calls(triplane, "plane_dtable", keep=6) as dt_calls, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step()
         torch.cuda.synchronize()
     window_ms = (time.perf_counter() - t0) * 1e3
+    dtable = triplane.plane_dtable
     # kernels only (an op's row in key_averages repeats its kernels' time)
     kernels = collections.defaultdict(lambda: [0, 0.0])
+    dt_events = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.name][0] += 1
             kernels[e.name][1] += e.time_range.elapsed_us() / 1e3
+            if "plane_dtable_kernel" in e.name:
+                dt_events.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
     busy_ms = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:15]
 
+    # dT on the last step's own inputs: in the step (profiler) and replayed
+    # alone (CUDA events, host ahead) into a fresh [R·R, C] block and into
+    # a block with the flat table gradient's row stride
+    dtable_calls = []
+    for (args, kwargs), (_, in_step) in zip(dt_calls, sorted(dt_events)[-6:]):
+        u0, v0, fu, fv, g, R, C = args[:7]
+        ld = kwargs["out"].stride(0)
+        wide = torch.zeros(R * R, ld, device=g.device)
+        dtable_calls.append({
+            "R": R, "C": C,
+            "live_share": float((g != 0).any(dim=1).float().mean()),
+            "in_step_ms": in_step,
+            "replay_fresh_ms": device_ms(lambda: dtable(u0, v0, fu, fv, g, R, C), 20),
+            "replay_table_ld_ms": device_ms(
+                lambda: dtable(u0, v0, fu, fv, g, R, C, out=wide), 20),
+        })
+
     result = {
-        "card": _card(),
+        "card": card_line(),
         "torch": torch.__version__,
         "rays_per_step": opt.h * opt.w,
         "stage_ms_per_step": mean,
@@ -166,8 +186,10 @@ def main(argv=None):
         "profile_window_ms": window_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / window_ms,
+        "dtable_calls": dtable_calls,
         "top_kernels": [{"name": name[:90], "launches_per_step": n / 3,
-                         "device_ms_per_step": ms / 3}
+                         "device_ms_per_step": ms / 3,
+                         "device_ms_per_launch": ms / n}
                         for name, (n, ms) in top],
     }
     os.makedirs("chiprun_out", exist_ok=True)

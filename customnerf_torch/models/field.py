@@ -115,26 +115,32 @@ class NeRFField(nn.Module):
         return (self.feature_net.kernels() + self.density_net.kernels()
                 + self.rgb_net.kernels())
 
+    def _encode(self, x):
+        """x [..., 3] → (flattened x [N, 3], x_en [N, grid.output_dim])."""
+        c = self.cfg
+        xf = x.reshape(-1, 3)
+        x01 = (xf + c.bound) / (2.0 * c.bound)
+        return xf, triplane_encode(x01, self.grid_table, c.grid).contiguous()
+
     def forward(self, x, d):
         """x, d: [..., 3] positions / view directions → (sigma [...],
         radiance [..., 3 + conf_channels])."""
-        c = self.cfg
         prefix = x.shape[:-1]
-        xf = x.reshape(-1, 3)
-        x01 = (xf + c.bound) / (2.0 * c.bound)
-        x_en = triplane_encode(x01, self.grid_table, c.grid)
-        view_en = freq_encode(d.reshape(-1, 3), c.dir_multires)
-        sigma_raw, rgb_raw = fused_field_mlp(x_en.contiguous(),
-                                             view_en.contiguous(), self.weights())
+        xf, x_en = self._encode(x)
+        view_en = freq_encode(d.reshape(-1, 3), self.cfg.dir_multires)
+        sigma_raw, rgb_raw = fused_field_mlp(x_en, view_en.contiguous(),
+                                             self.weights())
         sigma = trunc_exp(sigma_raw + self.gaussian_blob(xf))
         radiance = torch.sigmoid(rgb_raw)
         return sigma.reshape(prefix), radiance.reshape(*prefix, radiance.shape[-1])
 
     def density(self, x):
-        """x: [..., 3] world coords → sigma [...].  Reuses the fused kernel
-        with zero directions, as ``make_pallas_apply`` does."""
-        sigma, _ = self.forward(x, torch.zeros_like(x))
-        return sigma
+        """x: [..., 3] world coords → sigma [...].  The fused kernel without
+        its rgb head: the same sigma as ``make_pallas_apply``'s density,
+        which runs the full head on zero directions."""
+        xf, x_en = self._encode(x)
+        sigma_raw, _ = fused_field_mlp(x_en, None, self.weights(), with_rgb=False)
+        return trunc_exp(sigma_raw + self.gaussian_blob(xf)).reshape(x.shape[:-1])
 
 
 def param_groups(field: NeRFField):

@@ -19,40 +19,42 @@ import torch
 from customnerf_torch.ops import kernels
 
 HIDDEN = 64
+MAX_DIR = 32        # the kernel holds view_en as at most four k8 blocks
 
 
-def reference_forward(x_en, view_en, weights):
-    """Plain PyTorch version of the kernel: (sigma_raw [B], rgb_raw [B, n_out])."""
+def reference_forward(x_en, view_en, weights, with_rgb: bool = True):
+    """Plain PyTorch version of the kernel: (sigma_raw [B], rgb_raw
+    [B, n_out]), or (sigma_raw, None) without the rgb head."""
     w1, w2, w3, wd1, wd2, wr1, wr2 = weights
     h = torch.relu(x_en @ w1)
     h = torch.relu(h @ w2)
     fea = h @ w3
     sigma_raw = (torch.relu(fea @ wd1) @ wd2)[..., 0]
+    if not with_rgb:
+        return sigma_raw, None
     rgb_in = torch.cat([view_en, fea], dim=-1)
     rgb_raw = torch.relu(rgb_in @ wr1) @ wr2
     return sigma_raw, rgb_raw
 
 
-def _check(x_en, view_en, weights):
+def _check(x_en, view_en, weights, with_rgb):
     B, in_dim = x_en.shape
-    dir_dim = view_en.shape[1]
     n_out = weights[6].shape[1]
+    dir_dim = weights[5].shape[0] - HIDDEN
     shapes = [(in_dim, HIDDEN), (HIDDEN, HIDDEN), (HIDDEN, HIDDEN),
               (HIDDEN, HIDDEN), (HIDDEN, 1), (dir_dim + HIDDEN, HIDDEN),
               (HIDDEN, n_out)]
-    for t in (x_en, view_en, *weights):
+    tensors = (x_en, *weights) + ((view_en,) if with_rgb else ())
+    for t in tensors:
         if t.device != x_en.device:
             raise ValueError("fused_mlp_forward: all tensors must share a device")
         if t.dtype != torch.float32:
             raise TypeError(f"fused_mlp_forward: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("fused_mlp_forward: tensors must be contiguous")
-    for w in weights:
-        # the kernel stages weights with 16-byte loads
-        if w.data_ptr() % 16:
-            raise ValueError("fused_mlp_forward: weights must be 16-byte aligned")
-    if view_en.shape[0] != B:
-        raise ValueError("fused_mlp_forward: x_en and view_en batch differ")
+    if with_rgb and tuple(view_en.shape) != (B, dir_dim):
+        raise ValueError(f"fused_mlp_forward: view_en shape {tuple(view_en.shape)}"
+                         f" != {(B, dir_dim)}")
     for w, shape in zip(weights, shapes):
         if tuple(w.shape) != shape:
             raise ValueError(f"fused_mlp_forward: weight shape {tuple(w.shape)} "
@@ -61,26 +63,48 @@ def _check(x_en, view_en, weights):
         raise ValueError(f"fused_mlp_forward: n_out={n_out} not in [1, 8]")
 
 
-def fused_mlp_forward(x_en, view_en, weights):
-    """Forward only.  x_en [B, in] f32, view_en [B, dir] f32, contiguous.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+def _check_kernel(x_en, view_en, with_rgb):
+    """What the kernel needs beyond the function's contract."""
+    in_dim = x_en.shape[1]
+    # it copies x_en and view_en rows in 16-byte chunks
+    if in_dim % 4 or x_en.data_ptr() % 16:
+        raise ValueError(f"fused_mlp_forward: the kernel needs in_dim % 4 == 0 "
+                         f"and a 16-byte aligned x_en (in_dim={in_dim})")
+    if with_rgb and (view_en.shape[1] > MAX_DIR or view_en.data_ptr() % 16):
+        raise ValueError(f"fused_mlp_forward: the kernel needs dir_dim <= "
+                         f"{MAX_DIR} and a 16-byte aligned view_en")
+
+
+def fused_mlp_forward(x_en, view_en, weights, with_rgb: bool = True):
+    """Forward only.  x_en [B, in] f32, view_en [B, dir] f32, contiguous
+    (``view_en`` is not read, and may be None, when ``with_rgb`` is False:
+    rgb_raw is then None).  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
     weights = tuple(weights)
-    _check(x_en, view_en, weights)
+    _check(x_en, view_en, weights, with_rgb)
     if x_en.device.type == "cpu":
-        return reference_forward(x_en, view_en, weights)
+        return reference_forward(x_en, view_en, weights, with_rgb)
     if x_en.device.type != "cuda":
         raise ValueError(f"fused_mlp_forward: unsupported device {x_en.device}")
+    _check_kernel(x_en, view_en, with_rgb)
     B, in_dim = x_en.shape
     n_out = weights[6].shape[1]
     sigma = torch.empty(B, device=x_en.device, dtype=torch.float32)
-    rgb = torch.empty(B, n_out, device=x_en.device, dtype=torch.float32)
+    rgb = (torch.empty(B, n_out, device=x_en.device, dtype=torch.float32)
+           if with_rgb else None)
+    dir_dim = weights[5].shape[0] - HIDDEN
     lib = kernels.library()
+    # the kernel packs the weights here once a call, in the order its
+    # blocks copy them into shared memory
+    packed = torch.empty(
+        lib.cn_fused_mlp_packed_floats(in_dim, dir_dim, n_out, int(with_rgb)),
+        device=x_en.device, dtype=torch.float32)
     with torch.cuda.device(x_en.device):
         err = lib.cn_fused_mlp_forward(
-            x_en.data_ptr(), view_en.data_ptr(),
-            *[w.data_ptr() for w in weights],
-            sigma.data_ptr(), rgb.data_ptr(),
-            B, in_dim, view_en.shape[1], n_out,
+            x_en.data_ptr(), view_en.data_ptr() if with_rgb else None,
+            *[w.data_ptr() for w in weights], packed.data_ptr(),
+            sigma.data_ptr(), rgb.data_ptr() if with_rgb else None,
+            B, in_dim, dir_dim, n_out, int(with_rgb),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "fused_mlp_forward")
     fused_mlp_forward.launches += 1
@@ -92,32 +116,39 @@ fused_mlp_forward.launches = 0
 
 class _FusedFieldMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_en, view_en, *weights):
+    def forward(ctx, x_en, view_en, with_rgb, *weights):
+        ctx.with_rgb = with_rgb
         ctx.save_for_backward(x_en, view_en, *weights)
-        return fused_mlp_forward(x_en, view_en, weights)
+        sigma, rgb = fused_mlp_forward(x_en, view_en, weights, with_rgb)
+        return (sigma, rgb) if with_rgb else sigma
 
     @staticmethod
-    def backward(ctx, g_sigma, g_rgb):
+    def backward(ctx, *grads):
         x_en, view_en, *weights = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip((x_en, view_en, *weights), ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
+        needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                 *ctx.needs_input_grad[3:])
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip((x_en, view_en, *weights), needs)]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
         if not wanted:
-            return (None,) * len(inputs)
+            return (None,) * (len(inputs) + 1)
         with torch.enable_grad():
-            outs = reference_forward(inputs[0], inputs[1], inputs[2:])
+            outs = reference_forward(inputs[0], inputs[1], inputs[2:],
+                                     ctx.with_rgb)
             # an output that depends on none of the wanted inputs (sigma when
             # only the rgb head's weights train) has no graph: leave it out
-            pairs = [(o, g) for o, g in zip(outs, (g_sigma, g_rgb))
-                     if o.requires_grad]
-            grads = torch.autograd.grad([o for o, _ in pairs],
-                                        wanted, [g for _, g in pairs],
-                                        allow_unused=True)
-        it = iter(grads)
-        return tuple(next(it) if t.requires_grad else None for t in inputs)
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if o is not None and o.requires_grad and g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], wanted,
+                                      [g for _, g in pairs], allow_unused=True)
+        it = iter(got)
+        out = [next(it) if t is not None and t.requires_grad else None
+               for t in inputs]
+        return (out[0], out[1], None, *out[2:])
 
 
-def fused_field_mlp(x_en, view_en, weights):
-    """sigma_raw [B], rgb_raw [B, n_out]: kernel forward, autograd-of-the-
-    plain-version backward."""
-    return _FusedFieldMLP.apply(x_en, view_en, *weights)
+def fused_field_mlp(x_en, view_en, weights, with_rgb: bool = True):
+    """sigma_raw [B], rgb_raw [B, n_out] (None without the rgb head):
+    kernel forward, autograd-of-the-plain-version backward."""
+    out = _FusedFieldMLP.apply(x_en, view_en, with_rgb, *weights)
+    return out if with_rgb else (out, None)

@@ -39,10 +39,13 @@ _SIGNATURES = {
     "cn_fused_mlp_forward": [
         _vp, _vp,                                  # x_en, view_en
         _vp, _vp, _vp, _vp, _vp, _vp, _vp,         # w1 w2 w3 wd1 wd2 wr1 wr2
+        _vp,                                       # packed weights (scratch)
         _vp, _vp,                                  # sigma_raw, rgb_raw
         _i64, _i32, _i32, _i32,                    # B, in_dim, dir_dim, n_out
+        _i32,                                      # with_rgb
         _vp,                                       # stream
     ],
+    "cn_fused_mlp_packed_floats": [_i32, _i32, _i32, _i32],  # in, dir, out, rgb
     "cn_plane_dtable": [
         _vp, _vp, _vp, _vp,                        # u0, v0, fu, fv
         _vp, _i64,                                 # g, g row stride

@@ -7,11 +7,14 @@ Contract, per plane of resolution R with C channels::
     dT[u·R + v, c] = Σ_b U[b, u] · V[b, v] · g[b, c]
 
 U and V are the 2-nonzero bilinear weights of (u0, fu) and (v0, fv).  The
-kernel (``csrc/triplane_dtable.cu``) scatters each sample's 4 corner
-contributions with f32 atomics; the plain version is the same scatter as one
-``index_add_``.  Both accumulate INTO ``out`` when it is given (a
-``[R·R, ≥C]`` view with unit column stride, e.g. a row block of the flat
-``[table_size, max_C]`` table gradient: columns ≥ C are left untouched).
+kernel (``csrc/triplane_dtable.cu``) sums runs of consecutive samples that
+share a cell in registers and scatters the 4 corners with 128-bit float4
+atomics; the plain version is the same scatter as one ``index_add_``.  Both
+accumulate INTO ``out`` when it is given (a ``[R·R, ≥C]`` view with unit
+column stride, e.g. a row block of the flat ``[table_size, max_C]`` table
+gradient: columns ≥ C are left untouched).  The kernel's float4 accesses
+need C, both row strides and both base addresses of g and out aligned to
+4 floats; the wrapper raises otherwise.
 """
 
 from __future__ import annotations
@@ -66,6 +69,17 @@ def _check(u0, v0, fu, fv, g, R, C, out):
                              "view with unit column stride on g's device")
 
 
+def _check_kernel(g, C, out):
+    """The kernel's float4 alignment (beyond the function's contract)."""
+    for name, t in (("g", g), ("out", out)):
+        if t.data_ptr() % 16 or t.stride(0) % 4:
+            raise ValueError(f"plane_dtable: the kernel needs {name} 16-byte "
+                             f"aligned with a row stride that is a multiple "
+                             f"of 4 floats (stride {t.stride(0)})")
+    if C % 4:
+        raise ValueError(f"plane_dtable: the kernel needs C % 4 == 0 (C={C})")
+
+
 def plane_dtable(u0, v0, fu, fv, g, R: int, C: int, out=None):
     """Table gradient of one plane, [R·R, C] f32 (or accumulated into ``out``).
 
@@ -79,6 +93,7 @@ def plane_dtable(u0, v0, fu, fv, g, R: int, C: int, out=None):
         raise ValueError(f"plane_dtable: unsupported device {g.device}")
     if out is None:
         out = torch.zeros(R * R, C, device=g.device, dtype=torch.float32)
+    _check_kernel(g, C, out)
     lib = kernels.library()
     with torch.cuda.device(g.device):
         err = lib.cn_plane_dtable(

@@ -132,3 +132,33 @@ def test_unported_variants_raise(variant):
                              **{variant: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfield.NeRFField(cfg, device="cpu")
+
+
+def test_density_only_head_matches_pallas_density(fields, monkeypatch):
+    """``NeRFField.density`` runs the fused head without its rgb part; the
+    JAX ``make_pallas_apply`` density runs the full Pallas head (interpret
+    mode) on zero directions.  Same converted parameters, same inputs."""
+    orig = fmp.pl.pallas_call
+
+    def interp_call(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(fmp.pl, "pallas_call", interp_call)
+    calls = []
+    fused = tfield.fused_field_mlp
+
+    def recording(*args, **kwargs):
+        calls.append(kwargs.get("with_rgb", True))
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(tfield, "fused_field_mlp", recording)
+    jf, params, tf = fields
+    _, density = jfield.make_pallas_apply(jf, params)
+    x, _ = _inputs(333, 4)
+    jd = density(jnp.asarray(x.reshape(9, 37, 3)))
+    with torch.no_grad():
+        td = tf.density(torch.tensor(x.reshape(9, 37, 3)))
+    assert calls == [False]
+    assert td.shape == (9, 37)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)

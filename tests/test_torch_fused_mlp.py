@@ -105,7 +105,46 @@ def _fea(x, ws):
     return h @ torch.tensor(ws[2])
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "layout", "device_mix"])
+def test_density_only_reference_is_the_full_calls_sigma(problem):
+    x, v, ws = problem
+    x, v, ws = torch.tensor(x), torch.tensor(v), [torch.tensor(w) for w in ws]
+    s_full, _ = fused_mlp.reference_forward(x, v, ws)
+    s_dens, rgb = fused_mlp.reference_forward(x, v, ws, with_rgb=False)
+    assert rgb is None
+    assert torch.equal(s_full, s_dens)
+    # the wrapper on the CPU: no view_en needed without the rgb head
+    s_wrap, rgb = fused_mlp.fused_mlp_forward(x, None, ws, with_rgb=False)
+    assert rgb is None and torch.equal(s_wrap, s_full)
+
+
+def test_density_only_gradients_match_pallas_vjp(problem, interpret):
+    """σ alone through ``fused_field_mlp(with_rgb=False)``: the gradients
+    of x and the five weights σ depends on, against the JAX custom VJP of
+    the full head with a zero rgb cotangent."""
+    x, v, ws = problem
+    cs, _ = _loss_weights(x.shape[0])
+
+    def jloss(xx, w):
+        s, _ = fmp.fused_field_mlp(xx, jnp.asarray(v), w)
+        return jnp.sum(s * cs)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                         [jnp.asarray(w) for w in ws])
+    xt = torch.tensor(x, requires_grad=True)
+    wt = [torch.tensor(w, requires_grad=True) for w in ws]
+    s, rgb = fused_mlp.fused_field_mlp(xt, None, wt, with_rgb=False)
+    assert rgb is None
+    (s * torch.tensor(cs)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg[0]), rtol=1e-5,
+                               atol=1e-5)
+    for i in range(5):
+        np.testing.assert_allclose(wt[i].grad.numpy(), np.asarray(jg[1][i]),
+                                   rtol=1e-5, atol=1e-4, err_msg=f"weight {i}")
+    assert wt[5].grad is None and wt[6].grad is None
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "layout", "device_mix",
+                                 "view_width"])
 def test_wrapper_rejects_bad_inputs(problem, bad):
     x, v, ws = problem
     x, v, ws = torch.tensor(x), torch.tensor(v), [torch.tensor(w) for w in ws]
@@ -115,6 +154,8 @@ def test_wrapper_rejects_bad_inputs(problem, bad):
         ws[1] = ws[1][:, :32].contiguous()
     elif bad == "layout":
         ws[0] = ws[0].t().contiguous().t()      # same shape, not contiguous
+    elif bad == "view_width":
+        v = v[:, :20].contiguous()              # wr1 expects 27 + 64 rows
     else:
         x = x.to("meta")
     with pytest.raises((TypeError, ValueError)):

@@ -1,7 +1,8 @@
-"""The port stands alone: ``customnerf_torch`` and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package, and the entry points run on
-the card unless the caller asks for the CPU.  Plus a tiny end-to-end run of
-the trainer loop on the CPU (control flow, not speed)."""
+"""The port stands alone: ``customnerf_torch``, ``chip_smoke.py`` and the
+study tools in ``tools/`` import nothing of JAX and nothing of the JAX
+package, and the entry points run on the card unless the caller asks for the
+CPU.  Plus a tiny end-to-end run of the trainer loop on the CPU (control
+flow, not speed)."""
 
 import math
 import os
@@ -23,6 +24,7 @@ mods = [m.name for m in pkgutil.walk_packages(customnerf_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import tools.device_probe, tools.kernel_study
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("customnerf_tpu", "jax", "jaxlib", "flax", "optax")
              and sys.modules[m] is not None)
