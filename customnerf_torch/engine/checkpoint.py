@@ -1,0 +1,129 @@
+"""Checkpoint I/O with the JAX package's ``.pth`` contract (counterpart of
+``customnerf_tpu/engine/checkpoint.py``).
+
+A ``.pth`` is one ``torch.save`` dict: ``epoch``, ``global_step``,
+``stats`` and ``model``, a flat ``{dotted.flax.path: tensor}`` dict of the
+flax param tree (``params.feature_net.hidden_0.kernel``, Dense kernels
+``[in, out]``).  The occupancy grid's ``density_grid`` / ``density_bitfield``
+go under ``model`` (the reference keeps them as model buffers) and
+``mean_density`` / ``iter_density`` at the top level.  Files are
+``df_ep{epoch:04d}.pth`` under ``{workspace}/checkpoints`` with a 5-deep
+ring that spares ``*0.pth``.
+
+The JAX package's Adam state (``optimizer``: numpy leaves and a pickled JAX
+treedef) is neither written nor read here; the port keeps its own Adam state
+under ``torch_optimizer``, which the JAX loader ignores.  JAX files hold
+numpy arrays, so loading needs ``torch.load(..., weights_only=False)``.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+OCC_ARRAY_KEYS = ("density_grid", "density_bitfield")
+OCC_SCALAR_KEYS = ("mean_count", "mean_density", "iter_density")
+TORCH_OPTIMIZER_KEY = "torch_optimizer"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue A, item '{item}')")
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            flat.update(flatten(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def _to_numpy(v):
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def save_checkpoint(path: str, params, epoch: int, global_step: int,
+                    stats: dict, optimizer_state: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> str:
+    """``params``: the flax-layout tree (``{"params": {…}}``) of numpy
+    arrays; ``optimizer_state``: the port's ``torch.optim`` state dict;
+    ``extra``: occupancy entries (arrays go under ``model``)."""
+    state: Dict[str, Any] = {"epoch": epoch, "global_step": global_step,
+                             "stats": stats}
+    state["model"] = {k: torch.from_numpy(np.array(v, copy=True))
+                      for k, v in flatten(params).items()}
+    if optimizer_state is not None:
+        state[TORCH_OPTIMIZER_KEY] = optimizer_state
+    if extra:
+        extra = dict(extra)
+        for k in OCC_ARRAY_KEYS:
+            if extra.get(k) is not None:
+                state["model"][k] = torch.from_numpy(
+                    np.array(_to_numpy(extra.pop(k)), copy=True))
+        state.update(extra)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(state, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Tuple[dict, dict]:
+    """→ (params tree of numpy arrays, meta).  meta holds epoch,
+    global_step, stats, the occupancy entries found, and the port's Adam
+    state when the file has one."""
+    path = str(path)
+    if path.endswith(".orbax"):
+        raise _not_ported(".orbax checkpoints", ".orbax")
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "model" not in ckpt:
+        return unflatten({k: _to_numpy(v) for k, v in ckpt.items()}), {}
+    model = dict(ckpt["model"])
+    if any(k.endswith(".params") for k in model) or "pos_en.embeddings" in model:
+        raise _not_ported("reference-format (tcnn) checkpoints",
+                          "dense path and hash grid")
+    meta = {"epoch": ckpt.get("epoch", 0),
+            "global_step": ckpt.get("global_step", 0),
+            "stats": ckpt.get("stats", {})}
+    for k in OCC_ARRAY_KEYS:
+        if k in model:
+            meta[k] = _to_numpy(model.pop(k))
+    for k in OCC_ARRAY_KEYS + OCC_SCALAR_KEYS:
+        if k not in meta and k in ckpt:
+            meta[k] = ckpt[k]
+    if TORCH_OPTIMIZER_KEY in ckpt:
+        meta[TORCH_OPTIMIZER_KEY] = ckpt[TORCH_OPTIMIZER_KEY]
+    return unflatten({k: _to_numpy(v) for k, v in model.items()}), meta
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """Lexicographically last .pth/.orbax (reference utils_init_nerf.py:837-845)."""
+    cands = sorted(glob.glob(os.path.join(ckpt_dir, "*.pth"))
+                   + glob.glob(os.path.join(ckpt_dir, "*.orbax")))
+    return cands[-1] if cands else None
+
+
+def prune_ring(stats: dict, ckpt_dir: str, max_keep: int = 5):
+    """Ring-buffer pruning sparing *0.pth (utils_init_nerf.py:806-815)."""
+    while len(stats.get("checkpoints", [])) > max_keep:
+        old = os.path.join(ckpt_dir, stats["checkpoints"].pop(0))
+        stem = old[:-len(".orbax")] if old.endswith(".orbax") else old[:-len(".pth")]
+        if not stem.endswith("0") and os.path.isfile(old):
+            os.remove(old)

@@ -87,7 +87,7 @@ def main(argv=None):
 
     opt = parse_args(FLAGSHIP_ARGS + "--data_type synthetic --h 128 --w 128 "
                      "--seed 0 --update_extra_interval 4".split())
-    trainer = Trainer(opt, log=lambda *_: None)
+    trainer = Trainer(opt, log=lambda *_: None, use_checkpoint="scratch")
     loader = NeRFDataset(opt, "train", device=trainer.device).dataloader()
 
     def step():

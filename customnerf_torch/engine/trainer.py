@@ -1,5 +1,5 @@
-"""Reconstruction trainer (counterpart of ``customnerf_tpu/engine/trainer.py``,
-reconstruction only).
+"""Trainer: reconstruction and single-scene LGIE editing, checkpoints
+(counterpart of ``customnerf_tpu/engine/trainer.py``).
 
 Reference semantics kept:
   * Adam(betas=(0.9, 0.99), eps=1e-15) with the grid table at lr×10
@@ -10,26 +10,45 @@ Reference semantics kept:
     (utils_init_nerf.py:224-238);
   * the occupancy grid refreshed every ``update_extra_interval`` steps
     before the step (utils_init_nerf.py:602-607), one step a call;
-  * ``render_image`` chunked by ``max_ray_batch`` (renderer.py:1749-1765).
+  * ``render_image`` chunked by ``max_ray_batch`` (renderer.py:1749-1765);
+  * checkpoints (``engine/checkpoint.py``): saved before training and
+    around each ``eval_interval`` (utils_init_nerf.py:492-506), the
+    ``--ckpt`` policy scratch|latest|latest_model|<path> and
+    ``--editing_from`` (utils_init_nerf.py:136-150); every load restores the
+    occupancy grid, ``model_only`` ones too;
+  * editing (``--pretrained``): a frozen copy of the field loaded from
+    ``--editing_from``, the pt-render cache, and ``train_step`` dispatching
+    to ``engine/editing.py::editing_step``; refreshes keep their cadence.
 
-Randomness (march jitter, refresh jitter, ``--batch_rays`` subsets) comes
-from one ``torch.Generator`` on the trainer's device seeded from
-``opt.seed``; its streams differ from ``jax.random``'s.  Checkpoints,
-evaluation strips, test videos, ``--compact_frac -1`` and editing are later
-slices and raise ``NotImplementedError``.
+Randomness (march jitter, refresh jitter, ``--batch_rays`` subsets, the
+editing bg colour, t and noises) comes from one ``torch.Generator`` on the
+trainer's device seeded from ``opt.seed``; its streams differ from
+``jax.random``'s.  The LGIE gate draws from
+``numpy.random.RandomState(opt.seed)`` as the JAX trainer does.  The JAX
+package rematerialises the compacted evaluation under editing for a TPU's
+memory; the port does not.  Evaluation strips, test videos,
+``--compact_frac -1``, multi-scene and K-step editing are later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
 from customnerf_torch.device import resolve_device
+from customnerf_torch.engine import checkpoint as ckpt_io
+from customnerf_torch.engine.convert import params_from_flax, params_to_flax
+from customnerf_torch.engine.editing import editing_step
 from customnerf_torch.models.field import FieldConfig, NeRFField, param_groups
 from customnerf_torch.models.renderer import RenderSettings, render_rays_fast
-from customnerf_torch.ops.occupancy import init_state, update_grid
+from customnerf_torch.ops.occupancy import (OccupancyState, init_state,
+                                            packbits, update_grid)
 from customnerf_torch.ops.triplane import TriplaneSpec
 
 
@@ -88,24 +107,29 @@ def psnr(image: torch.Tensor, target: torch.Tensor) -> float:
 
 
 class Trainer:
+    name = "df"          # checkpoint files are {name}_ep{epoch:04d}.pth
+
     def __init__(self, opt, field: NeRFField | None = None, device=None,
-                 log=print):
+                 log=print, guidance=None, use_checkpoint: str | None = None):
         self.device = resolve_device(device)
         if not opt.cuda_ray:
             raise _not_ported("the dense two-pass path (no -O)",
                               "dense path and hash grid")
         if opt.compact_frac == -1:
             raise _not_ported("--compact_frac -1", "--compact_frac -1 auto-tune")
-        if opt.pretrained:
-            raise _not_ported("--pretrained (editing)", "editing")
         if opt.mesh_shape:
             raise _not_ported("--mesh_shape", "multi-device")
+        if opt.ckpt_format != "pth":
+            raise _not_ported(f"--ckpt_format {opt.ckpt_format}", ".orbax")
         self.opt = opt
         self.log = log
+        self.guidance = guidance
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(opt.seed))
+        self.np_rng = np.random.RandomState(opt.seed)   # the LGIE gate
         self.field = field if field is not None else build_field(opt, self.device)
         self.settings = render_settings(opt)
+        self.ckpt_path = os.path.join(opt.workspace, "checkpoints")
 
         groups = param_groups(self.field)
         self.optimizer = torch.optim.Adam(
@@ -117,9 +141,42 @@ class Trainer:
                                     device=self.device)
         self.epoch = 0
         self.global_step = 0
-        self.stats = {"loss": []}
+        self.stats = {"loss": [], "valid_loss": [], "results": [],
+                      "checkpoints": [], "best_result": None}
+        self.pt_dict = {}        # editing: frozen-model renders per img_path
         n_params = sum(p.numel() for p in self.field.parameters())
         self.log(f"[INFO] Trainer | {self.device} | fp32 | #parameters: {n_params}")
+
+        # checkpoint policy (utils_init_nerf.py:136-150)
+        policy = use_checkpoint if use_checkpoint is not None else opt.use_ckpt
+        if opt.editing_from:
+            self.log(f"[INFO] Loading {opt.editing_from} ...")
+            self._load(opt.editing_from, model_only=True)
+        if policy == "scratch":
+            self.log("[INFO] Training from scratch ...")
+        elif policy in ("latest", "latest_model"):
+            path = ckpt_io.latest_checkpoint(self.ckpt_path)
+            if path:
+                self.log(f"[INFO] Latest checkpoint is {path}")
+                self._load(path, model_only=policy == "latest_model")
+            else:
+                self.log("[WARN] No checkpoint found, model randomly initialized.")
+        else:
+            self.log(f"[INFO] Loading {policy} ...")
+            self._load(policy)
+
+        # editing: a frozen copy of the pretrained field (trainer.py:237-248)
+        self.field_pretrained = self.field
+        if opt.pretrained:
+            source = opt.editing_from or opt.use_ckpt
+            if source and os.path.exists(str(source)):
+                params, _ = ckpt_io.load_checkpoint(source)
+                frozen = build_field(opt, self.device)
+                frozen.load_state_dict(params_from_flax(params))
+            else:
+                frozen = copy.deepcopy(self.field)
+            self.field_pretrained = frozen.requires_grad_(False)
+            self.log("[INFO] loaded pretrained (frozen) model.")
 
     # ------------------------------------------------------------ schedule
     def lr_at(self, count: int) -> float:
@@ -135,16 +192,18 @@ class Trainer:
 
     # -------------------------------------------------------------- render
     def render(self, rays_o, rays_d, train: bool, perturb: bool,
-               bg_color=None):
+               bg_color=None, field=None):
         """The -O fast path: training marches 2× the kept samples; eval
         marches at the reference's inference budget (max_steps candidates)
-        or ``--eval_march_candidates``."""
+        or ``--eval_march_candidates``.  ``field`` defaults to the trained
+        one."""
         opt = self.opt
         n_total = max(opt.num_steps + opt.upsample_steps, 2)
         n_eval = int(opt.eval_march_candidates) or max(opt.max_steps, n_total * 2)
         n_coarse = n_total * 2 if train else max(n_eval, n_total * 2)
         return render_rays_fast(
-            self.field, rays_o, rays_d, self.occ_state, self.settings,
+            field if field is not None else self.field,
+            rays_o, rays_d, self.occ_state, self.settings,
             n_coarse=n_coarse, n_keep=n_total, perturb=perturb,
             generator=self.generator, bg_color=bg_color,
             compact_frac=max(opt.compact_frac, 0.0),
@@ -163,9 +222,26 @@ class Trainer:
             aux["loss_m"] = loss_m
         return loss, aux
 
-    def train_step(self, batch, perturb: bool = True):
-        """One reconstruction step: render, loss, backward, NaN-zeroing,
-        Adam.  Returns (loss, aux, render stats) as device tensors."""
+    def apply_gradients(self, loss):
+        """Backward, NaN-zeroing, the decayed lr, one Adam update."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        base = self.lr_at(self.n_updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = group["lr_scale"] * base
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
+        self.optimizer.step()
+        self.n_updates += 1
+
+    def train_step(self, batch, perturb: bool = True, mark=None):
+        """One reconstruction step (render, loss, backward, NaN-zeroing,
+        Adam), or under ``--pretrained`` one editing step (``mark``: its
+        stage callback).  Returns (loss, aux, render stats) as device
+        tensors."""
+        if self.opt.pretrained:
+            return editing_step(self, batch, perturb=perturb, mark=mark)
         rays_o, rays_d = batch.rays_o, batch.rays_d
         rgbs = batch.rgbs.reshape(-1, 3)
         mask = batch.mask.reshape(-1)
@@ -177,16 +253,7 @@ class Trainer:
 
         out = self.render(rays_o, rays_d, train=True, perturb=perturb)
         loss, aux = self.loss(out, rgbs, mask)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        base = self.lr_at(self.n_updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = group["lr_scale"] * base
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
-        self.optimizer.step()
-        self.n_updates += 1
+        self.apply_gradients(loss)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, out["stats"]
 
     # ---------------------------------------------------------- train loop
@@ -205,20 +272,103 @@ class Trainer:
         self.log(f"==> Finished Epoch {self.epoch}. average_loss {avg}")
         return avg
 
-    def train(self, train_loader, max_epochs: int):
+    def train(self, train_loader, max_epochs: int, valid_loader=None):
+        """Epochs up to ``max_epochs``, saving a full checkpoint first and
+        before and after each ``eval_interval``'s evaluation
+        (utils_init_nerf.py:492-506)."""
         t0 = time.time()
+        self.save_checkpoint()
         for epoch in range(self.epoch + 1, max_epochs + 1):
             self.epoch = epoch
             self.train_one_epoch(train_loader)
+            if epoch % self.opt.eval_interval == 0:
+                self.save_checkpoint()
+                if valid_loader is not None:
+                    self.evaluate(valid_loader)
+                self.save_checkpoint()
         self.log(f"[INFO] training takes {(time.time() - t0) / 60:.4f} minutes.")
+
+    # ---------------------------------------------------------- checkpoints
+    def _occ_extra(self):
+        """The occupancy grid, which checkpoint-driven renders must march
+        (a fresh grid cost 3.6 dB on bear eval frames, trainer.py:939-953)."""
+        occ = self.occ_state
+        return {"mean_density": float(occ.mean_density), "mean_count": 0,
+                "density_grid": occ.density_grid.detach().cpu().numpy(),
+                "density_bitfield": occ.bitfield.detach().cpu().numpy(),
+                "iter_density": int(occ.iter_density)}
+
+    def save_checkpoint(self):
+        """A full checkpoint (with the Adam state) of this epoch into the
+        ring; returns its path."""
+        file_name = f"{self.name}_ep{self.epoch:04d}.pth"
+        self.stats["checkpoints"].append(file_name)
+        ckpt_io.prune_ring(self.stats, self.ckpt_path, self.opt.max_keep_ckpt)
+        optim = {"state_dict": self.optimizer.state_dict(),
+                 "n_updates": self.n_updates}
+        return ckpt_io.save_checkpoint(
+            os.path.join(self.ckpt_path, file_name),
+            params_to_flax(self.field.state_dict()), self.epoch,
+            self.global_step, self.stats, optimizer_state=optim,
+            extra=self._occ_extra())
+
+    def _load(self, path, model_only: bool = False):
+        if not path or not os.path.exists(str(path)):
+            self.log(f"[WARN] checkpoint {path} not found.")
+            return
+        params, meta = ckpt_io.load_checkpoint(str(path))
+        self.field.load_state_dict(params_from_flax(params))
+        self.log("[INFO] loaded model.")
+        # the occupancy grid is model state in the reference: restored on
+        # model_only loads too (--editing_from, latest_model)
+        if meta:
+            self._restore_occ_state(meta)
+        if model_only or not meta:
+            return
+        self.epoch = meta.get("epoch", 0)
+        self.global_step = meta.get("global_step", 0)
+        if meta.get("stats"):
+            self.stats = meta["stats"]
+        optim = meta.get(ckpt_io.TORCH_OPTIMIZER_KEY)
+        if optim is not None:
+            self.optimizer.load_state_dict(optim["state_dict"])
+            self.n_updates = int(optim["n_updates"])
+            self.log("[INFO] loaded optimizer.")
+        self.log(f"[INFO] load at epoch {self.epoch}, global step {self.global_step}")
+
+    def _restore_occ_state(self, meta):
+        """The occupancy state from checkpoint meta (trainer.py:1023-1050)."""
+        if meta.get("density_grid") is None:
+            return
+        g = self.opt.occ_grid_size
+        grid = torch.tensor(np.asarray(meta["density_grid"], np.float32),
+                            device=self.device)
+        if tuple(grid.shape) != (self.opt.cascade, g ** 3):
+            self.log(f"[WARN] checkpoint density_grid shape {tuple(grid.shape)} "
+                     f"!= configured {(self.opt.cascade, g ** 3)}; keeping "
+                     f"the fresh grid.")
+            return
+        mean_density = torch.tensor(float(meta.get("mean_density", 0.0)),
+                                    dtype=torch.float32, device=self.device)
+        bitfield = meta.get("density_bitfield")
+        if bitfield is not None:
+            bitfield = torch.tensor(np.asarray(bitfield, np.uint8), device=self.device)
+        else:
+            bitfield = packbits(grid, torch.clamp(mean_density,
+                                                  max=self.opt.density_thresh))
+        self.occ_state = OccupancyState(
+            density_grid=grid, bitfield=bitfield, mean_density=mean_density,
+            iter_density=int(meta.get("iter_density", 16)), grid_size=g)
+        self.log("[INFO] restored occupancy grid from checkpoint.")
 
     # -------------------------------------------------------------- render
     @torch.no_grad()
     def render_image(self, rays_o, rays_d, perturb: bool = False,
-                     bg_color=None):
-        """Full-frame render, chunked over ``max_ray_batch`` rays.  The tail
-        is edge-padded to a whole chunk, as in the JAX version, so every
-        chunk marches and compacts the same number of rays."""
+                     bg_color=None, field=None):
+        """Full-frame render of ``field`` (default: the trained one), chunked
+        over ``max_ray_batch`` rays.  The tail is edge-padded to a whole
+        chunk, as in the JAX version, so every chunk marches and compacts the
+        same number of rays."""
         chunk = int(self.opt.max_ray_batch)
         N = rays_o.shape[0]
         pad = (-N) % chunk
@@ -231,7 +381,8 @@ class Trainer:
         parts = []
         for i in range(0, N + pad, chunk):
             out = self.render(rays_o[i:i + chunk], rays_d[i:i + chunk],
-                              train=False, perturb=perturb, bg_color=bg_color)
+                              train=False, perturb=perturb, bg_color=bg_color,
+                              field=field)
             keep = {k: out[k] for k in ("image", "depth", "weights_sum",
                                         "render_mask") if k in out}
             for side in ("fg", "bg"):

@@ -1,8 +1,9 @@
 """The port stands alone: ``customnerf_torch``, ``chip_smoke.py`` and the
-study tools in ``tools/`` import nothing of JAX and nothing of the JAX
-package, and the entry points run on the card unless the caller asks for the
-CPU.  Plus a tiny end-to-end run of the trainer loop on the CPU (control
-flow, not speed)."""
+study tools in ``tools/`` import nothing of JAX, nothing of the JAX package,
+and neither ``transformers`` nor ``safetensors`` (the card's machine has
+neither), and the entry points run on the card unless the caller asks for
+the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not speed):
+the trainer loop, and phase 1 → checkpoint → phase 2 (editing)."""
 
 import math
 import os
@@ -13,10 +14,12 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
+from test_torch_guidance import one_thread  # noqa: E402,F401
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors"):
     sys.modules[name] = None          # any import of them now fails
 import customnerf_torch
 mods = [m.name for m in pkgutil.walk_packages(customnerf_torch.__path__,
@@ -26,8 +29,8 @@ for m in mods:
 import chip_smoke
 import tools.device_probe, tools.kernel_study
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("customnerf_tpu", "jax", "jaxlib", "flax", "optax")
-             and sys.modules[m] is not None)
+             ("customnerf_tpu", "jax", "jaxlib", "flax", "optax", "transformers",
+              "safetensors") and sys.modules[m] is not None)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -93,17 +96,19 @@ def test_unported_options_name_their_roadmap_item():
         NeRFDataset(opt, "train", device="cpu")
 
 
-def test_tiny_training_run_on_cpu():
+TINY = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
+        "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
+        "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
+        "--data_type synthetic --h 16 --w 16 --train_size 6 --iters 12 "
+        "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
+        "--max_steps 32 --ckpt scratch").split()
+
+
+def test_tiny_training_run_on_cpu(tmp_path):
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.trainer import Trainer
-    opt = parse_args(
-        ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
-         "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
-         "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
-         "--data_type synthetic --h 16 --w 16 --train_size 6 --iters 12 "
-         "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
-         "--max_steps 32").split())
+    opt = parse_args(TINY + ["--workspace", str(tmp_path)])
     tr = Trainer(opt, device="cpu", log=lambda *_: None)
     train = NeRFDataset(opt, "train", device="cpu").dataloader()
     val = NeRFDataset(opt, "val", device="cpu").dataloader()
@@ -115,3 +120,60 @@ def test_tiny_training_run_on_cpu():
     out = tr.render_image(view.rays_o, view.rays_d)
     assert out["image"].shape == (4096, 3) and out["fg"]["depth"].shape == (4096,)
     assert bool(torch.isfinite(out["image"]).all())
+
+
+def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
+    """scripts/bear.sh's two phases through the library entry points, the CPU
+    asked for: reconstruct, save df_ep*.pth, load it with --pretrained
+    --editing_from, and take LGIE/SDS editing steps with a tiny SD stack."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.clip_view import (CLIPModel, CLIPViewMatcher,
+                                                     CLIPVisionConfig)
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.text import CLIPTextConfig, CLIPTextModel, TextEncoder
+    from customnerf_torch.guidance.unet import UNetConfig
+    from customnerf_torch.guidance.vae import VAEConfig
+    quiet = lambda *_: None
+    p1 = parse_args(TINY + ["--workspace", str(tmp_path / "recon")])
+    recon = Trainer(p1, device="cpu", log=quiet, use_checkpoint=p1.ckpt)
+    recon.train(NeRFDataset(p1, "train", device="cpu").dataloader(), max_epochs=2)
+    ckpt = tmp_path / "recon" / "checkpoints" / "df_ep0002.pth"
+    assert ckpt.exists()
+
+    phase2 = TINY + [
+        "--workspace", str(tmp_path / "edit"), "--pretrained", "--editing_from",
+        str(ckpt), "--text", "a corgi in a forest", "--text_fg", "a corgi",
+        "--lambda_sd", "0.01", "--keep_bg", "1000", "--cfg", "100", "--random_bg_c",
+        "--detach_bg", "--clip_view", "--stage_time", "--sd_version", "1.5"]
+    with pytest.raises(RuntimeError, match="--allow_random_guidance"):
+        StableDiffusionGuidance(parse_args(phase2), device="cpu")
+    p2 = parse_args(phase2 + ["--allow_random_guidance"])
+    text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4)))
+    guidance = StableDiffusionGuidance(
+        p2, device="cpu", text_encoder=text,
+        unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                            cross_attention_dim=32, attention_head_dim=4,
+                            norm_num_groups=8),
+        vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
+                          norm_num_groups=8))
+    tiny_clip = build(CLIPModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
+                                                num_hidden_layers=2, num_attention_heads=4),
+                      CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                                       num_hidden_layers=2, num_attention_heads=4),
+                      projection_dim=16)
+    edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
+    edit.clip_matcher = CLIPViewMatcher(model=tiny_clip)
+    assert torch.equal(edit.occ_state.bitfield, recon.occ_state.bitfield)
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=2)
+    assert edit.global_step == 12 and edit.n_updates == 12
+    assert all(math.isfinite(v) for v in edit.stats["loss"])
+    assert edit.pt_dict and all(e["match_probs"] is not None for e in edit.pt_dict.values())
+    assert sorted(os.listdir(tmp_path / "edit" / "checkpoints")) == [
+        "df_ep0000.pth", "df_ep0001.pth", "df_ep0002.pth"]

@@ -161,3 +161,58 @@ def test_triplane_backward_on_card_matches_cpu(cuda):
     dx_g, dt_g = grads(cuda)
     torch.testing.assert_close(dt_g, dt_c, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-5)
+
+
+def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
+    """Phase 1 → checkpoint → one LGIE/SDS editing step on the card with a
+    tiny SD stack: both kernels launch, the losses are finite, the field
+    moves."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.text import (CLIPTextConfig, CLIPTextModel,
+                                                TextEncoder)
+    from customnerf_torch.guidance.unet import UNetConfig
+    from customnerf_torch.guidance.vae import VAEConfig
+    from customnerf_torch.ops import fused_mlp, triplane_kernels
+
+    field = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 8 "
+             "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
+             "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
+             "--data_type synthetic --h 16 --w 16 --train_size 4 --iters 8 "
+             "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
+             "--max_steps 32 --ckpt scratch").split()
+    recon = Trainer(parse_args(field + ["--workspace", str(tmp_path / "r")]),
+                    use_checkpoint="scratch", log=lambda *_: None)
+    recon.train(NeRFDataset(recon.opt, "train").dataloader(), max_epochs=2)
+    opt = parse_args(field + [
+        "--workspace", str(tmp_path / "e"), "--pretrained", "--editing_from",
+        str(tmp_path / "r" / "checkpoints" / "df_ep0002.pth"), "--text", "a corgi",
+        "--text_fg", "a dog", "--lambda_sd", "0.01", "--keep_bg", "100",
+        "--random_bg_c", "--detach_bg", "--stage_time", "--allow_random_guidance"])
+    text = TextEncoder(model=build(
+        CLIPTextModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=4),
+        device=cuda, generator=torch.Generator(device=cuda).manual_seed(0)))
+    guidance = StableDiffusionGuidance(
+        opt, device=cuda, text_encoder=text,
+        unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                            cross_attention_dim=32, attention_head_dim=4,
+                            norm_num_groups=8),
+        vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
+                          norm_num_groups=8))
+    tr = Trainer(opt, guidance=guidance, use_checkpoint="scratch", log=lambda *_: None)
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    before = [p.detach().clone() for p in tr.field.parameters()]
+    batch = NeRFDataset(opt, "train").dataloader().item(0)
+    n_mlp, n_dt = fused_mlp.fused_mlp_forward.launches, triplane_kernels.plane_dtable.launches
+    loss, aux, _ = tr.train_step(batch)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_forward.launches > n_mlp
+    assert triplane_kernels.plane_dtable.launches > n_dt
+    assert set(aux) == {"loss_sds", "loss_bg"}
+    assert all(bool(torch.isfinite(v)) for v in aux.values())
+    assert any(bool((p.detach() != b).any()) for p, b in zip(tr.field.parameters(), before))
