@@ -13,9 +13,11 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    with the occupancy grid refreshed every 4 steps so that it leaves its
    warm-up.  The launch counters are zeroed just before and read just after;
    both kernels must have run, and the refresh must have taken the
-   density-only head.  The loss on a fixed view must be finite and lower
-   after the steps than before; one validation view is rendered through
-   ``render_image`` and its PSNR printed.
+   density-only head.  Every loss must be finite and every parameter must
+   have moved; the loss on a fixed view is printed before and after (on
+   this scene it does not fall within 40 steps from the flax init: the
+   quality phase checks learning, with PSNR gates); one validation view is
+   rendered through ``render_image`` and its PSNR printed.
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the inputs the main path gave it — the fused field MLP on one train
    step's 229,376 compacted samples and, density-only, on one refresh's
@@ -44,8 +46,22 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share.
-8. the ``{"kernels": [...]}`` line (reconstruction and editing rows), then
-   the last line ``{"ok": true, "device": {...}}``.
+8. quality (the third path): ``scripts/bear.sh`` phase 1's flags (3000
+   steps, an evaluation each epoch, then the test path) through
+   ``customnerf_torch.__main__.main`` on the repo's bear (nerfstudio, 28
+   views), LLFF and DTU (24 views each) fixtures at 400×300.  The fixtures
+   are written by ``python -m customnerf_torch.data.fixtures`` (the
+   scripts' scene code, cv2 stood in for by the port's PNG writer), one
+   process a format, started before the kernels build, into
+   ``build/quality/`` (deleted at the end).  Counters zeroed before and read
+   after each run; both kernels must launch.  Each run's final eval PSNR
+   must reach its gate (the JAX anchor less 0.5 dB); prints the best PSNR,
+   the median step, the wall time, the strips and checkpoints written.  On
+   the bear, ``--test`` from ``df.pth`` must write 73 frames and the mp4 or
+   the JAX package's warning; K1 (step and refresh) and dT at (128, 16)
+   and (512, 8) are held against their plain versions on that run's inputs.
+9. the ``{"kernels": [...]}`` line (reconstruction, editing and quality
+   rows), then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits nonzero, with
 no result, when no CUDA device is available.  Details go to
@@ -133,6 +149,7 @@ def run_trainer():
         triplane_kernels.plane_dtable.launches = 0
         t_start = time.time()
         loss_before = fixed_loss()
+        start_params = [p.detach().clone() for p in trainer.field.parameters()]
         steps, refresh_ms, mlp_inputs = [], [], {}
         for _ in range(TRAIN_STEPS):
             batch = train.item(0)
@@ -169,7 +186,9 @@ def run_trainer():
     view_psnr = psnr(img, view.rgbs.reshape(-1, 3))
     losses = [s["loss"] for s in steps]
     assert all(math.isfinite(v) for v in losses + [loss_before, loss_after]), losses
-    assert loss_after < loss_before, (loss_before, loss_after)
+    moved = [float((p.detach() - q).abs().max())
+             for p, q in zip(trainer.field.parameters(), start_params)]
+    assert all(m > 0 for m in moved), f"a parameter did not move: {moved}"
     for name, n in launches.items():
         assert n > 0, f"{name} was not launched on the main path"
     steady = [s for s in steps if s["warm"]]
@@ -506,6 +525,187 @@ def run_editing(trainer, opt):
     return summary, mlp_input, list(dt_calls)
 
 
+# ----------------------------------------------------------------- quality
+QUALITY_ROOT = os.path.join("build", "quality")
+# scripts/bear.sh:31-36, phase 1, with --data_type/--data_path/--workspace
+# swapped in by run_quality
+BEAR_PHASE1 = ("-O --grid_type triplane --triplane_res 128 512 "
+               "--triplane_channels 16 8 --num_steps 40 --upsample_steps 0 "
+               "--compact_frac 0.35 --compact_block 64 --keyword lang_bear "
+               "--iters 3000 --train_resolution_level 7 "
+               "--eval_resolution_level 4 --bound 2 --train_conf 0.01 "
+               "--soft_mask --ckpt scratch").split()
+# final eval PSNR gates: the JAX package's anchor on each fixture less the
+# 0.5 dB band of docs/PARITY.md:151-216 (25.34, 25.01 and 25.28 dB)
+QUALITY_GATES = {"nerfstudio": 24.84, "llff": 24.51, "dtu": 24.78}
+TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
+
+
+def start_fixtures():
+    """One writer process a format (the scripts' scene code with the PNG
+    stand-in for cv2), started while the kernels build."""
+    import subprocess
+    shutil.rmtree(QUALITY_ROOT, ignore_errors=True)
+    os.makedirs(QUALITY_ROOT)
+    return {t: subprocess.Popen(
+        [sys.executable, "-m", "customnerf_torch.data.fixtures", QUALITY_ROOT,
+         "--data_type", t], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for t in QUALITY_GATES}
+
+
+def wait_fixture(proc, data_type):
+    """The fixture's directory, once its writer has finished."""
+    from customnerf_torch.data.fixtures import WRITERS
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"fixture {data_type} failed:\n{out[-2000:]}")
+    return os.path.join(QUALITY_ROOT, WRITERS[data_type][0])
+
+
+def run_quality(data_type, data_path, capture=False):
+    """``bear.sh`` phase 1 through ``customnerf_torch.__main__.main`` on one
+    fixture: 3000 steps, an evaluation each epoch, then the test path.
+    Returns its summary and, with ``capture``, the kernels' inputs (K1 at a
+    step and at a refresh, the last step's dT calls), else None."""
+    import contextlib
+    import torch
+    from customnerf_torch.__main__ import main as cli
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
+
+    ws = os.path.join(QUALITY_ROOT, f"ws_{data_type}")
+    flags = BEAR_PHASE1 + ["--data_type", data_type, "--data_path", data_path,
+                           "--workspace", ws]
+    step_ms = []
+    train_step = Trainer.train_step
+
+    def timed_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def quiet(msg):
+        if msg.startswith(("++> eval PSNR", "[WARN]")):
+            log(f"[quality {data_type}] {msg}")
+
+    with contextlib.ExitStack() as stack:
+        if capture:
+            at_step = stack.enter_context(captured_calls(
+                field, "fused_field_mlp", keep=1,
+                when=lambda a, k: torch.is_grad_enabled()))
+            at_refresh = stack.enter_context(captured_calls(
+                field, "fused_field_mlp", keep=1,
+                when=lambda a, k: k.get("with_rgb") is False))
+            dt_calls = stack.enter_context(captured_calls(triplane, "plane_dtable",
+                                                          keep=6))
+        Trainer.train_step = timed_step
+        stack.callback(setattr, Trainer, "train_step", train_step)
+        # this path starts here: counters read only its launches
+        fused_mlp.fused_mlp_forward.launches = 0
+        triplane_kernels.plane_dtable.launches = 0
+        t0 = time.time()
+        trainer = cli(flags, log=quiet)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
+                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+
+    results = trainer.stats["results"]
+    final, best = -results[-1], -trainer.stats["best_result"]
+    strips = sorted(os.listdir(os.path.join(ws, "validation")))
+    ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+    test_dir = os.path.join(ws, "results", f"df_ep{trainer.epoch:04d}_test")
+    summary = {"data_type": data_type, "final_psnr": final, "best_psnr": best,
+               "psnr_by_epoch": [-r for r in results], "steps": len(step_ms),
+               "median_step_ms": statistics.median(step_ms),
+               "mean_step_ms": statistics.mean(step_ms), "wall_s": wall_s,
+               "validation_strips": len(strips), "checkpoints": ckpts,
+               "test_frames": len(os.listdir(test_dir)), "launches": launches,
+               "gate": QUALITY_GATES[data_type]}
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched on the {data_type} path"
+    assert len(step_ms) == trainer.global_step >= trainer.opt.iters, len(step_ms)
+    assert "df.pth" in ckpts and len(strips) == trainer.epoch, (ckpts, strips)
+    inputs = None
+    if capture:
+        inputs = {"step": at_step[-1], "refresh": at_refresh[-1],
+                  "dtable": list(dt_calls)}
+    del trainer
+    return summary, inputs
+
+
+def run_test_render(data_type, data_path):
+    """``--test`` from the best checkpoint ``df.pth``: one PNG a pose of the
+    test path, and the mp4 where cv2 can write it, else the JAX package's
+    warning."""
+    from customnerf_torch.__main__ import main as cli
+    ws = os.path.join(QUALITY_ROOT, f"ws_{data_type}")
+    lines = []
+    t0 = time.time()
+    trainer = cli(BEAR_PHASE1 + ["--data_type", data_type, "--data_path", data_path,
+                                 "--workspace", ws, "--test", "--ckpt",
+                                 os.path.join(ws, "checkpoints", "df.pth")],
+                  log=lines.append)
+    wall_s = time.time() - t0
+    name = f"df_ep{trainer.epoch:04d}_test"
+    frames = os.listdir(os.path.join(ws, "results", name))
+    mp4 = os.path.join(ws, "results", f"{name}_rgb.mp4")
+    warn = [l for l in lines if l.startswith("[WARN] mp4 write failed")]
+    return {"frames": len(frames), "epoch": trainer.epoch, "wall_s": wall_s,
+            "mp4_bytes": os.path.getsize(mp4) if os.path.exists(mp4) else None,
+            "mp4_warning": warn[0] if warn else None}
+
+
+def quality_phase(procs):
+    """The three fixtures through bear.sh phase 1; the gates; --test on the
+    bear; K1 and dT against their plain versions on the bear run's inputs."""
+    runs, rows = {}, []
+    for data_type, proc in procs.items():
+        t0 = time.time()
+        path = wait_fixture(proc, data_type)
+        waited = time.time() - t0
+        capture = data_type == "nerfstudio"
+        summary, inputs = run_quality(data_type, path, capture=capture)
+        summary["fixture_wait_s"] = waited
+        log(f"[quality {data_type}] final eval PSNR {summary['final_psnr']:.2f} dB "
+            f"(best {summary['best_psnr']:.2f}, gate >= {summary['gate']}) | median "
+            f"step {summary['median_step_ms']:.2f} ms over {summary['steps']} | wall "
+            f"{summary['wall_s']:.1f} s | {summary['validation_strips']} strips, "
+            f"{len(summary['checkpoints'])} checkpoints | launches "
+            f"{summary['launches']}")
+        if capture:
+            summary["test"] = run_test_render(data_type, path)
+            t = summary["test"]
+            video = (f"mp4 written ({t['mp4_bytes']} bytes)" if t["mp4_bytes"]
+                     else t["mp4_warning"])
+            log(f"[quality {data_type}] --test from df.pth (epoch {t['epoch']}): "
+                f"{t['frames']} PNG frames in {t['wall_s']:.1f} s; {video}")
+            assert t["frames"] == TEST_FRAMES, t
+            assert t["mp4_bytes"] or t["mp4_warning"], "--test: no mp4 and no warning"
+            step_args, step_kw = inputs["step"]
+            ref_args, ref_kw = inputs["refresh"]
+            rows.append(check_fused_mlp(*step_args, **step_kw))
+            rows.append(check_fused_mlp(*ref_args, **ref_kw))
+            rows += [check_dtable(*inputs["dtable"][i][0][:7]) for i in (0, 3)]
+            for r in rows:
+                r["launches"] = summary["launches"][r["name"]]
+                r["path"] = "quality nerfstudio"
+        runs[data_type] = summary
+        # the workspace (≈ 10 checkpoints) has served its purpose
+        shutil.rmtree(os.path.join(QUALITY_ROOT, f"ws_{data_type}"), ignore_errors=True)
+    for data_type, summary in runs.items():
+        if not summary["final_psnr"] >= summary["gate"]:
+            raise AssertionError(
+                f"{data_type}: final eval PSNR {summary['final_psnr']:.3f} dB "
+                f"is under its gate {summary['gate']} dB")
+    return runs, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -520,6 +720,21 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    procs = start_fixtures()
+    try:
+        return run_all(card, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(QUALITY_ROOT, ignore_errors=True)
+
+
+def run_all(card, procs) -> int:
+    import torch
+    from customnerf_torch.ops import kernels
 
     t0 = time.time()
     so = kernels.build()
@@ -580,6 +795,13 @@ def main() -> int:
         r["launches"] = ed["launches"][r["name"]]
         r["path"] = "editing"
     rows += edit_rows
+
+    # the checkpoint (~180 MB with its Adam state) has served its purpose
+    shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
+    del editor
+
+    quality, quality_rows = quality_phase(procs)
+    rows += quality_rows
     for r in rows:
         log(f"[kernel] {r['path']} {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
             f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms plain "
@@ -589,15 +811,12 @@ def main() -> int:
             + (f" | live rows {r['live_share']:.3f}: {r['live_rows_ms']:.4f} ms"
                if "live_rows_ms" in r else
                f" | f32-FMA bound {r['bound_f32_fma_ms']:.4f} ms"))
-
-    # the checkpoint (~180 MB with its Adam state) has served its purpose
-    shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
-                   "checkpoint": ck, "editing": ed},
+                   "checkpoint": ck, "editing": ed, "quality": quality},
                   f, indent=1)
 
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches",

@@ -1,19 +1,29 @@
 """``python -m customnerf_torch <main.py flags>``
 
-Runs on the card with ``--data_type synthetic`` (the formats that read files
-are later slices): reconstruction, or with ``--pretrained`` LGIE/SDS
-editing of a saved reconstruction, then renders up to four validation views
-and prints their PSNR.  Checkpoints go to ``{workspace}/checkpoints``.  The
-two phases of ``scripts/bear.sh`` on the flagship field::
+The port's counterpart of ``main.py``, on the card: reconstruction (or,
+with ``--pretrained``, LGIE/SDS editing of a saved reconstruction), an
+evaluation every ``--eval_interval`` epochs (strips under
+``{workspace}/validation/``, the best result as
+``{workspace}/checkpoints/df.pth``), then the test path's renders under
+``{workspace}/results/``.  ``--test`` only renders the test path from the
+checkpoint ``--ckpt`` names.  ``--data_type`` is nerfstudio, llff, dtu or
+synthetic; images must be PNGs.  ``scripts/bear.sh``'s two phases on the
+flagship field::
 
-    python -m customnerf_torch -O --data_type synthetic --iters 200 \\
-        --grid_type triplane --triplane_res 128 512 --triplane_channels 16 8 \\
-        --num_steps 40 --upsample_steps 0 --compact_frac 0.35 \\
-        --compact_block 64 --bound 2 --train_conf 0.01 --soft_mask \\
-        --workspace recon --ckpt scratch
+    python -m customnerf_torch -O --grid_type triplane --triplane_res 128 512 \\
+        --triplane_channels 16 8 --num_steps 40 --upsample_steps 0 \\
+        --compact_frac 0.35 --compact_block 64 \\
+        --data_type nerfstudio --data_path DATA --keyword lang_bear \\
+        --workspace recon --iters 3000 --train_resolution_level 7 \\
+        --eval_resolution_level 4 --bound 2 --train_conf 0.01 --soft_mask \\
+        --ckpt scratch
 
-    python -m customnerf_torch <the same field flags> --workspace edit \\
-        --pretrained --editing_from recon/checkpoints/df_ep0002.pth \\
+    python -m customnerf_torch <the same flags> --test \\
+        --ckpt recon/checkpoints/df.pth
+
+    python -m customnerf_torch <the same field and data flags> \\
+        --workspace edit --pretrained \\
+        --editing_from recon/checkpoints/df_ep0030.pth \\
         --text "a corgi in a forest" --text_fg "a corgi" --lambda_sd 0.01 \\
         --keep_bg 1000 --cfg 100 --random_bg_c --detach_bg --clip_view \\
         --stage_time --sd_version 1.5 --ckpt scratch --allow_random_guidance
@@ -29,22 +39,31 @@ from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine.trainer import Trainer, max_epochs_for
 
 
-def main(argv=None):
+def main(argv=None, log=print, device=None):
+    """Returns the trainer it ran; ``device`` None is the card."""
     opt = parse_args(argv)
     if opt.test:
-        raise NotImplementedError("--test needs test renders, which are not "
-                                  "ported yet (ROADMAP.md queue A, item "
-                                  "'Eval/test strips')")
+        trainer = Trainer(opt, use_checkpoint=opt.ckpt, log=log, device=device)
+        test_loader = NeRFDataset(opt, "test", R_path=opt.R_path,
+                                  device=trainer.device).dataloader()
+        trainer.test(test_loader, split="test")
+        return trainer
     guidance = None
     if opt.pretrained and opt.lambda_sd:
         from customnerf_torch.guidance.sds import StableDiffusionGuidance
-        guidance = StableDiffusionGuidance(opt)
-    trainer = Trainer(opt, guidance=guidance, use_checkpoint=opt.ckpt)
-    train_loader = NeRFDataset(opt, "train", device=trainer.device).dataloader()
-    valid_loader = NeRFDataset(opt, "val", device=trainer.device).dataloader()
+        guidance = StableDiffusionGuidance(opt, device=device)
+    trainer = Trainer(opt, guidance=guidance, use_checkpoint=opt.ckpt, log=log,
+                      device=device)
+    train_loader = NeRFDataset(opt, "train", R_path=opt.R_path,
+                               device=trainer.device).dataloader()
+    valid_loader = NeRFDataset(opt, "val", R_path=opt.R_path,
+                               device=trainer.device).dataloader()
     trainer.train(train_loader, max_epochs_for(opt, len(train_loader)),
                   valid_loader)
-    trainer.evaluate(valid_loader)
+    test_loader = NeRFDataset(opt, "test", R_path=opt.R_path,
+                              device=trainer.device).dataloader()
+    trainer.test(test_loader, split="test")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ The flax field tree is ``{"params": {"grid_table": [T, C],
 "feature_net": {"hidden_0": {"kernel": [in, out]}, …}, …}}``.  Two traps:
 flax ``Dense.kernel`` is ``[in, out]`` while ``nn.Linear.weight`` is
 ``[out, in]``; and ``rgb_net.hidden_0`` takes ``[view_en(27) ‖ fea(64)]`` in
-that order — the port's field keeps the same order, so rows map 1:1.
+that order — the port's field keeps the same order, so rows map 1:1.  The
+variants' ``conf_net`` and ``--mlp_bias``'s biases map by the same names
+(``conf_net.out.bias`` ↔ ``conf_net/out/bias``).
 
 :func:`state_from_flax` carries the SD guidance across: the JAX package's
 UNet and VAE trees (flat module names such as ``down_0_resnet_1``) and
@@ -23,11 +25,7 @@ import torch
 
 from customnerf_torch.ops.occupancy import OccupancyState
 
-_LAYERS = {
-    "feature_net": ("hidden_0", "hidden_1", "out"),
-    "density_net": ("hidden_0", "out"),
-    "rgb_net": ("hidden_0", "out"),
-}
+_NETS = ("feature_net", "density_net", "rgb_net", "conf_net")
 
 
 def params_from_flax(tree) -> dict:
@@ -35,22 +33,26 @@ def params_from_flax(tree) -> dict:
     → a ``NeRFField`` state dict of float32 CPU tensors."""
     p = tree["params"] if "params" in tree else tree
     sd = {"grid_table": torch.tensor(np.asarray(p["grid_table"], np.float32))}
-    for net, layers in _LAYERS.items():
-        for layer in layers:
-            if "bias" in p[net][layer]:
-                raise NotImplementedError("biased heads are not ported yet")
-            k = np.asarray(p[net][layer]["kernel"], np.float32)
+    for net in _NETS:
+        for layer, leaves in p.get(net, {}).items():
+            k = np.asarray(leaves["kernel"], np.float32)
             sd[f"{net}.{layer}.weight"] = torch.tensor(k.T.copy())
+            if "bias" in leaves:
+                sd[f"{net}.{layer}.bias"] = torch.tensor(
+                    np.asarray(leaves["bias"], np.float32))
     return sd
 
 
 def params_to_flax(state_dict) -> dict:
     """``NeRFField`` state dict → ``{"params": …}`` tree of numpy arrays."""
     p = {"grid_table": state_dict["grid_table"].detach().cpu().numpy().copy()}
-    for net, layers in _LAYERS.items():
-        p[net] = {layer: {"kernel": state_dict[f"{net}.{layer}.weight"]
-                          .detach().cpu().numpy().T.copy()}
-                  for layer in layers}
+    for key, value in state_dict.items():
+        if key == "grid_table":
+            continue
+        net, layer, leaf = key.split(".")
+        a = value.detach().cpu().numpy()
+        p.setdefault(net, {}).setdefault(layer, {})[
+            "kernel" if leaf == "weight" else "bias"] = (a.T if leaf == "weight" else a).copy()
     return {"params": p}
 
 

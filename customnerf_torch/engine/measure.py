@@ -54,15 +54,17 @@ def _detach(a):
 
 
 @contextlib.contextmanager
-def captured_calls(owner, attr: str, keep: int):
+def captured_calls(owner, attr: str, keep: int, when=None):
     """Inside the block, ``owner.attr`` runs as before and keeps the
     (detached) arguments and keyword arguments of its last ``keep`` calls in
-    the deque this yields; it is restored on exit."""
+    the deque this yields — of those calls for which ``when(args, kwargs)``
+    is true, when given; it is restored on exit."""
     fn = getattr(owner, attr)
     calls = collections.deque(maxlen=keep)
 
     def wrapped(*args, **kwargs):
-        calls.append((_detach(args), kwargs))
+        if when is None or when(args, kwargs):
+            calls.append((_detach(args), kwargs))
         return fn(*args, **kwargs)
 
     setattr(owner, attr, wrapped)

@@ -26,14 +26,20 @@ trainer's device seeded from ``opt.seed``; its streams differ from
 ``jax.random``'s.  The LGIE gate draws from
 ``numpy.random.RandomState(opt.seed)`` as the JAX trainer does.  The JAX
 package rematerialises the compacted evaluation under editing for a TPU's
-memory; the port does not.  Evaluation strips, test videos,
-``--compact_frac -1``, multi-scene and K-step editing are later slices and
-raise ``NotImplementedError``.
+memory; the port does not.
+
+Evaluation writes the strip ``gt | rgb | depth [| gt_mask | pred_mask | fg
+| bg]`` (``utils/png.py``) and keeps the best result's checkpoint as
+``{name}.pth``; ``test`` writes one PNG a pose and, where ``cv2`` is
+installed, the mp4 (without it, the warning the JAX package logs when its
+writer fails); ``--clip_metrics`` scores the test renders with CLIP.  ``--compact_frac -1``, multi-scene and K-step editing
+are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import math
 import os
 import time
@@ -50,6 +56,7 @@ from customnerf_torch.models.renderer import RenderSettings, render_rays_fast
 from customnerf_torch.ops.occupancy import (OccupancyState, init_state,
                                             packbits, update_grid)
 from customnerf_torch.ops.triplane import TriplaneSpec
+from customnerf_torch.utils import png
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -284,7 +291,7 @@ class Trainer:
             if epoch % self.opt.eval_interval == 0:
                 self.save_checkpoint()
                 if valid_loader is not None:
-                    self.evaluate(valid_loader)
+                    self.evaluate_one_epoch(valid_loader)
                 self.save_checkpoint()
         self.log(f"[INFO] training takes {(time.time() - t0) / 60:.4f} minutes.")
 
@@ -402,15 +409,162 @@ class Trainer:
         return merged
 
     @torch.no_grad()
-    def evaluate(self, loader, max_images: int = 4):
-        """Render up to ``max_images`` views and log their PSNR (the
-        evaluation strips are later work).  Returns the mean PSNR."""
-        psnrs = []
+    def evaluate_one_epoch(self, loader, name=None):
+        """Render up to four views (all with ``--val_all_images``), write
+        their strips and log their PSNR; the best mean PSNR so far saves
+        ``{name}.pth`` with the occupancy grid (utils_init_nerf.py:745-752,
+        817-833).  Returns the per-view PSNRs."""
+        opt = self.opt
+        self.log(f"++> Evaluate {opt.workspace} at epoch {self.epoch} ...")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        strips, psnrs = [], []
         for i, batch in enumerate(loader):
-            if i >= max_images:
+            if not opt.val_all_images and i >= 4:
                 break
+            H, W = batch.H, batch.W
             out = self.render_image(batch.rays_o, batch.rays_d)
-            psnrs.append(psnr(out["image"], batch.rgbs.reshape(-1, 3)))
-        mean = sum(psnrs) / max(len(psnrs), 1)
-        self.log(f"++> eval PSNR: {mean:.2f} dB ({[round(p, 2) for p in psnrs]})")
-        return mean
+            gt = batch.rgbs.reshape(H, W, 3)
+            rgb = out["image"].reshape(H, W, 3)
+            psnrs.append(psnr(rgb, gt))
+            ims = [gt, rgb, out["depth"].reshape(H, W, 1).expand(H, W, 3)]
+            if opt.train_conf and "render_mask" in out:
+                gt_mask = batch.mask.reshape(H, W, 1).expand(H, W, 3)
+                pm = out["render_mask"].reshape(H, W, -1)
+                ims += [gt_mask, pm.mean(-1, keepdim=True).expand(H, W, 3),
+                        out["fg"]["image"].reshape(H, W, 3),
+                        out["bg"]["image"].reshape(H, W, 3)]
+            strip = torch.cat(ims, dim=1).cpu().numpy()
+            if opt.val_all_images:
+                _write_png(os.path.join(opt.workspace, "validation_all",
+                                        f"{i + 1}.png"), strip)
+            else:
+                strips.append(strip)
+        if strips:
+            path = os.path.join(opt.workspace, "validation", f"{name}.png")
+            _write_png(path, np.concatenate(strips, axis=0))
+            self.log(f"++> saved validation strip to {path}")
+        mean_psnr = float(np.mean(psnrs)) if psnrs else 0.0
+        self.log(f"++> eval PSNR: {mean_psnr:.2f} dB "
+                 f"({[round(p, 2) for p in psnrs]})")
+        self.stats["valid_loss"].append(-mean_psnr)
+        self.stats["results"].append(-mean_psnr)
+
+        # the best checkpoint ('min' over results, i.e. max PSNR) is the one
+        # --test points at: it carries the occupancy grid too
+        best = self.stats.get("best_result")
+        if best is None or self.stats["results"][-1] < best:
+            self.log(f"[INFO] New best result: {best} --> "
+                     f"{self.stats['results'][-1]}")
+            self.stats["best_result"] = self.stats["results"][-1]
+            ckpt_io.save_checkpoint(
+                os.path.join(self.ckpt_path, f"{self.name}.pth"),
+                params_to_flax(self.field.state_dict()), self.epoch,
+                self.global_step, self.stats, extra=self._occ_extra())
+        return psnrs
+
+    # ---------------------------------------------------------------- test
+    @torch.no_grad()
+    def test(self, loader, save_path=None, name=None, write_video=True,
+             split=None):
+        """One PNG a pose under ``{save_path}/{name}/`` — beside the frozen
+        pretrained render under ``--pretrained``, with the mask / fg / bg
+        columns under ``--render_all`` — then the mp4 and, with
+        ``--clip_metrics``, the CLIP scores (utils_init_nerf.py:520-569).
+        Returns the frames' paths."""
+        opt = self.opt
+        save_path = save_path or os.path.join(opt.workspace, "results")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        if split:
+            name = f"{name}_{split}"
+        os.makedirs(os.path.join(save_path, name), exist_ok=True)
+        self.log(f"==> Start Test, save results to {save_path}")
+        side_by_side = opt.pretrained and self.field_pretrained is not self.field
+        frames, paths, clip_after, clip_before = [], [], [], []
+        for i, batch in enumerate(loader):
+            H, W = batch.H, batch.W
+            out = self.render_image(batch.rays_o, batch.rays_d)
+            pred = out["image"].reshape(H, W, 3)
+            if opt.clip_metrics:
+                clip_after.append(pred.cpu().numpy())
+            if side_by_side:
+                pt = self.render_image(batch.rays_o, batch.rays_d,
+                                       field=self.field_pretrained)
+                pt = pt["image"].reshape(H, W, 3)
+                if opt.clip_metrics:
+                    clip_before.append(pt.cpu().numpy())
+                pred = torch.cat([pred, pt], dim=1)
+            if opt.train_conf and opt.render_all and "render_mask" in out:
+                pm = out["render_mask"].reshape(H, W, -1)
+                pred = torch.cat([pred, pm.mean(-1, keepdim=True).expand(H, W, 3),
+                                  out["fg"]["image"].reshape(H, W, 3),
+                                  out["bg"]["image"].reshape(H, W, 3)], dim=1)
+            path = os.path.join(save_path, name, f"{i:03d}.png")
+            frames.append(_write_png(path, pred.cpu().numpy()))
+            paths.append(path)
+
+        if write_video and frames:
+            video_path = os.path.join(save_path, f"{name}_rgb.mp4")
+            try:
+                import cv2
+                h, w = frames[0].shape[:2]
+                vw = cv2.VideoWriter(video_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                     30, (w, h))
+                for frame in frames:
+                    vw.write(np.ascontiguousarray(frame[..., ::-1]))
+                vw.release()
+            except Exception as e:
+                self.log(f"[WARN] mp4 write failed ({e}); PNGs saved.")
+        if opt.clip_metrics and clip_after:
+            self.report_clip_metrics(np.stack(clip_after),
+                                     np.stack(clip_before) if clip_before else None,
+                                     save_path, name)
+        self.log("==> Finished Test.")
+        return paths
+
+    def report_clip_metrics(self, after, before, save_path, name):
+        """CLIP score of the test renders ``after`` [B, H, W, 3] against
+        ``--text``, and with the frozen renders ``before`` and
+        ``--clip_ref_text`` the directional score; written to
+        ``{save_path}/{name}_clip_metrics.json``."""
+        from customnerf_torch.guidance.clip_view import (
+            CLIPViewMatcher, clip_directional_score, clip_score)
+
+        opt = self.opt
+        matcher = getattr(self, "clip_matcher", None)
+        if matcher is None:
+            if not opt.clip_weights and not opt.allow_random_guidance:
+                self.log(
+                    "[WARN] --clip_metrics without --clip_weights: scores "
+                    "from a RANDOM CLIP are meaningless. Provide "
+                    "--clip_weights (or force with --allow_random_guidance). "
+                    "Skipping.")
+                return None
+            matcher = CLIPViewMatcher(weights_dir=opt.clip_weights,
+                                      device=self.device)
+            self.clip_matcher = matcher
+
+        metrics = {"clip_score": clip_score(matcher, after, opt.text),
+                   "text": opt.text, "n_views": int(len(after))}
+        if before is not None and opt.clip_ref_text:
+            metrics["clip_directional"] = clip_directional_score(
+                matcher, before, after, opt.clip_ref_text, opt.text)
+            metrics["ref_text"] = opt.clip_ref_text
+        elif before is not None:
+            self.log("[WARN] --clip_metrics: no --clip_ref_text given; "
+                     "skipping the directional score.")
+        line = " ".join(f"{k}={v:.4f}" for k, v in metrics.items()
+                        if isinstance(v, float))
+        self.log(f"==> CLIP metrics [{name}]: {line}")
+        path = os.path.join(save_path, f"{name}_clip_metrics.json")
+        with open(path, "w") as f:
+            json.dump(metrics, f, indent=1)
+        self.log(f"==> wrote {path}")
+        return metrics
+
+
+def _write_png(path: str, image: np.ndarray) -> np.ndarray:
+    """[H, W, 3] float in [0, 1] → an 8-bit RGB PNG; returns the pixels."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    pixels = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+    png.write(path, pixels)
+    return pixels

@@ -8,8 +8,10 @@ after Hugging Face's ``CLIPModel`` state dict: the vision tower
 two bias-free projections and ``logit_scale``.  ``match_probs`` embeds the
 frozen-model render and three canonical view texts and softmaxes the
 logits; the editing step takes the argmax view's prompt
-(reference ``nerf/utils_init_nerf.py:254-280``).  Weights load from
-``--clip_weights`` (a Hugging Face layout dir) or are random.
+(reference ``nerf/utils_init_nerf.py:254-280``).  ``clip_score`` and
+``clip_directional_score`` score ``--test`` renders (``--clip_metrics``).
+Weights load from ``--clip_weights`` (a Hugging Face layout dir) or are
+random.
 """
 
 from __future__ import annotations
@@ -173,3 +175,34 @@ class CLIPViewMatcher:
         """prompts → L2-normalised CLIP text embeddings."""
         out = self.model.get_text_features(self._tokenize(prompts))
         return F.normalize(out, dim=-1).cpu().numpy()
+
+
+def _embed_chunked(matcher: CLIPViewMatcher, images_nhwc, chunk: int):
+    """image_embeds in chunks, so full-resolution test frames never sit on
+    the device all at once."""
+    images_nhwc = np.asarray(images_nhwc)
+    outs = [matcher.image_embeds(images_nhwc[i:i + chunk])
+            for i in range(0, len(images_nhwc), chunk)]
+    return np.concatenate(outs, axis=0)
+
+
+def clip_score(matcher: CLIPViewMatcher, images_nhwc, prompt: str,
+               chunk: int = 8) -> float:
+    """Mean CLIP text-image cosine similarity over rendered views (the
+    CLIP-score family of the CustomNeRF paper's Table 1)."""
+    img = _embed_chunked(matcher, images_nhwc, chunk)  # [B, D]
+    txt = matcher.text_embeds([prompt])                # [1, D]
+    return float(np.mean(img @ txt.T))
+
+
+def clip_directional_score(matcher: CLIPViewMatcher, images_before,
+                           images_after, prompt_before: str,
+                           prompt_after: str, chunk: int = 8) -> float:
+    """CLIP directional similarity (Gal et al.): cosine between the image
+    edit direction and the text edit direction, averaged over views."""
+    di = (_embed_chunked(matcher, images_after, chunk)
+          - _embed_chunked(matcher, images_before, chunk))
+    dt = matcher.text_embeds([prompt_after]) - matcher.text_embeds([prompt_before])
+    di_n = di / np.maximum(np.linalg.norm(di, axis=-1, keepdims=True), 1e-8)
+    dt_n = dt / np.maximum(np.linalg.norm(dt, axis=-1, keepdims=True), 1e-8)
+    return float(np.mean(di_n @ dt_n.T))

@@ -1,9 +1,10 @@
 """The port stands alone: ``customnerf_torch``, ``chip_smoke.py`` and the
 study tools in ``tools/`` import nothing of JAX, nothing of the JAX package,
-and neither ``transformers`` nor ``safetensors`` (the card's machine has
-neither), and the entry points run on the card unless the caller asks for
-the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not speed):
-the trainer loop, and phase 1 → checkpoint → phase 2 (editing)."""
+and none of ``transformers``, ``safetensors`` or ``cv2`` (the card's machine
+may lack them), and the entry points run on the card unless the caller asks
+for the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not
+speed): the trainer loop, the CLI on a nerfstudio fixture then ``--test``,
+and phase 1 → checkpoint → phase 2 (editing)."""
 
 import math
 import os
@@ -19,7 +20,8 @@ from test_torch_guidance import one_thread  # noqa: E402,F401
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors"):
+for name in ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors",
+             "cv2"):
     sys.modules[name] = None          # any import of them now fails
 import customnerf_torch
 mods = [m.name for m in pkgutil.walk_packages(customnerf_torch.__path__,
@@ -30,7 +32,10 @@ import chip_smoke
 import tools.device_probe, tools.kernel_study
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("customnerf_tpu", "jax", "jaxlib", "flax", "optax", "transformers",
-              "safetensors") and sys.modules[m] is not None)
+              "safetensors", "cv2") and sys.modules[m] is not None)
+assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
+        "customnerf_torch.data.nerfstudio", "customnerf_torch.data.llff",
+        "customnerf_torch.data.dtu", "customnerf_torch.data.fixtures"} <= set(mods)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -46,7 +51,7 @@ def _run(args, cwd=REPO, **kw):
 def test_port_and_chip_smoke_import_no_jax():
     r = _run(["-c", _IMPORT_ALL])
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 20
+    assert int(r.stdout.split()[-1]) >= 30
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -84,16 +89,17 @@ def test_entry_points_raise_without_cpu_request(monkeypatch):
 
 def test_unported_options_name_their_roadmap_item():
     from customnerf_torch.config import parse_args
-    from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
     grid = "--grid_type triplane --triplane_res 8 16 --triplane_channels 4 2"
     for flags in ("-O2", "-O --compact_frac -1", "-O --grid_type hash"):
         opt = parse_args(f"--data_type synthetic {grid} {flags}".split())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(opt, device="cpu", log=lambda *_: None)
-    opt = parse_args(f"-O --data_type llff --data_path x {grid}".split())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeRFDataset(opt, "train", device="cpu")
+    for flags in ("--use_cd x", "--sd_version 2.1"):
+        opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained {flags}".split())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            StableDiffusionGuidance(opt, device="cpu")
 
 
 TINY = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
@@ -120,6 +126,34 @@ def test_tiny_training_run_on_cpu(tmp_path):
     out = tr.render_image(view.rays_o, view.rays_d)
     assert out["image"].shape == (4096, 3) and out["fg"]["depth"].shape == (4096,)
     assert bool(torch.isfinite(out["image"]).all())
+
+
+def test_tiny_cli_nerfstudio_then_test_on_cpu(tmp_path, monkeypatch):
+    """``python -m customnerf_torch`` on a tiny nerfstudio fixture (the
+    CPU asked for): training with an evaluation each epoch, the test path,
+    then ``--test`` from the best checkpoint; without cv2, the mp4 warning."""
+    from customnerf_torch.__main__ import main
+    from customnerf_torch.data import fixtures
+    data = fixtures.write("nerfstudio", str(tmp_path / "data"), 8, 40, 30)
+    flags = TINY[:TINY.index("--data_type")] + [
+        "--train_size", "6", "--iters", "12", "--update_extra_interval", "2",
+        "--occ_grid_size", "16", "--max_ray_batch", "1000", "--max_steps", "32",
+        "--data_type", "nerfstudio", "--data_path", data, "--keyword", "lang_bear",
+        "--train_resolution_level", "2", "--eval_resolution_level", "3",
+        "--workspace", str(tmp_path / "ws")]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    lines = []
+    tr = main(flags + ["--ckpt", "scratch"], log=lines.append, device="cpu")
+    assert tr.global_step == 12 and len(tr.stats["results"]) == 2
+    assert sorted(os.listdir(tmp_path / "ws" / "validation")) == [
+        "df_ep0001.png", "df_ep0002.png"]
+    assert "df.pth" in os.listdir(tmp_path / "ws" / "checkpoints")
+    assert len(os.listdir(tmp_path / "ws" / "results" / "df_ep0002_test")) == 73
+    best = str(tmp_path / "ws" / "checkpoints" / "df.pth")
+    lines.clear()
+    tt = main(flags + ["--test", "--ckpt", best], log=lines.append, device="cpu")
+    assert tt.global_step == 6 * tt.epoch and f"[INFO] Loading {best} ..." in lines
+    assert any(l.startswith("[WARN] mp4 write failed") for l in lines)
 
 
 def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):

@@ -114,6 +114,12 @@ def test_clip_text_last_hidden_state_matches_flax():
 
 @pytest.fixture(scope="module")
 def clip_pair():
+    return make_clip_pair()
+
+
+def make_clip_pair():
+    """(the JAX package's ``CLIPViewMatcher``, the port's) on one tiny
+    two-layer CLIP, weights carried flax → port."""
     cfg = CLIPConfig.from_text_vision_configs(
         HFTextConfig(max_position_embeddings=77, hidden_act="quick_gelu",
                      projection_dim=16, **TEXT),
