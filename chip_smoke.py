@@ -46,22 +46,45 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share.
-8. quality (the third path): ``scripts/bear.sh`` phase 1's flags (3000
+8. parity (since PR 5): ``scripts/bear.sh --parity``'s field on the
+   synthetic provider — ``-O2``, the reference tiled grid (16 levels × 2
+   channels at 2^21 rows, desired resolution 8192: a 23,967,296 × 2
+   table), 64 + 64 samples, 16,384 rays a step, 20 steps through
+   ``Trainer.train_step`` with CUDA-event stage times (coarse encode + K1
+   density-only, ``sample_pdf`` + sort, fine encode + K1, composites,
+   loss, backward, Adam), the median step, rays/s and peak memory.
+   Counters zeroed before and read after; K1 must launch.  Every loss
+   finite, every parameter moved.  K1 is held against its plain version on
+   the last step's 2,097,152 fine and 1,048,576 coarse (density-only)
+   samples; the grid encode's forward and backward are timed on the fine
+   points, and ``grid_encode`` on the card is held against the same call
+   on the CPU (tiled and hash, 65,536 points).  The field is exported as a
+   reference-format (tcnn) checkpoint and loaded through
+   ``Trainer(use_checkpoint=...)``: it must render bit for bit.  Then
+   ``bear.sh --parity`` phase 2: 4 editing steps on ``-O2`` from the parity
+   reconstruction's checkpoint, with the SD stack of phase 5 (stage
+   times, peak memory); K1 must launch.
+9. quality (the third path): ``scripts/bear.sh`` phase 1's flags (3000
    steps, an evaluation each epoch, then the test path) through
    ``customnerf_torch.__main__.main`` on the repo's bear (nerfstudio, 28
-   views), LLFF and DTU (24 views each) fixtures at 400×300.  The fixtures
-   are written by ``python -m customnerf_torch.data.fixtures`` (the
-   scripts' scene code, cv2 stood in for by the port's PNG writer), one
-   process a format, started before the kernels build, into
-   ``build/quality/`` (deleted at the end).  Counters zeroed before and read
-   after each run; both kernels must launch.  Each run's final eval PSNR
-   must reach its gate (the JAX anchor less 0.5 dB); prints the best PSNR,
-   the median step, the wall time, the strips and checkpoints written.  On
-   the bear, ``--test`` from ``df.pth`` must write 73 frames and the mp4 or
-   the JAX package's warning; K1 (step and refresh) and dT at (128, 16)
-   and (512, 8) are held against their plain versions on that run's inputs.
-9. the ``{"kernels": [...]}`` line (reconstruction, editing and quality
-   rows), then the last line ``{"ok": true, "device": {...}}``.
+   views), LLFF and DTU (24 views each) fixtures at 400×300, and
+   ``bear.sh --parity`` phase 1 on the bear.  The fixtures are written by
+   ``python -m customnerf_torch.data.fixtures`` (the scripts' scene code,
+   cv2 stood in for by the port's PNG writer), one process a format,
+   started before the kernels build, into ``build/quality/`` (deleted at
+   the end).  Counters zeroed before and read after each run; its kernels
+   must launch.  Each run's final eval PSNR must reach its gate (the JAX
+   anchor less 0.5 dB; 25.05 dB for the parity field); prints the best
+   PSNR, the median step, the wall time and the share of it spent writing
+   checkpoints.  On both bear runs, ``--test`` from ``df.pth`` must write
+   73 frames and the mp4 or the JAX package's warning, and K1 (at a step
+   and density-only) is held against its plain version on that run's
+   inputs, dT at (128, 16) and (512, 8) on the flagship's.  After the
+   flagship bear run, ``--compact_frac -1``'s auto-tune measures the slab
+   fill on its warm grid and prints the fraction it picks beside the
+   recipe's 0.35.
+10. the ``{"kernels": [...]}`` line (reconstruction, editing, parity and
+   quality rows), then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits nonzero, with
 no result, when no CUDA device is available.  Details go to
@@ -421,28 +444,17 @@ def profile_editing_step(trainer, batch, n_top: int = 12):
             "top": [{"name": k[:120], "launches": n, "ms": ms} for k, (n, ms) in top]}
 
 
-def run_editing(trainer, opt):
-    """Phases 5-6: the full-width SD stack, then EDIT_STEPS editing steps
-    through ``Trainer.train_step``.  Returns its summary and the kernels'
-    inputs of the last step."""
+def editing_steps(trainer, opt, n_steps):
+    """``n_steps`` editing steps through ``Trainer.train_step``, the launch
+    counters zeroed just before and read just after, with CUDA-event stage
+    times.  Returns (steps, launches, peak and resident bytes, the last
+    step's K1 and dT inputs, the field's largest change, the train
+    loader)."""
     import torch
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine import editing
     from customnerf_torch.engine.measure import captured_calls
-    from customnerf_torch.guidance.layers import n_params
-    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
     from customnerf_torch.models import field
     from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
-
-    guidance = trainer.guidance
-    editing.prepare_text_embeddings(trainer)
-    counts = dict(guidance.param_counts(),
-                  clip_view=n_params(trainer.clip_matcher.model))
-    assert counts == FULL_WIDTH_PARAMS, (counts, FULL_WIDTH_PARAMS)
-    models = (guidance.unet, guidance.vae, guidance.text_encoder.model,
-              trainer.clip_matcher.model)
-    assert all(p.dtype == torch.float32 and p.is_cuda
-               for m in models for p in m.parameters()), "SD stack not f32 on the card"
 
     dev = trainer.device
     train = NeRFDataset(opt, "train", device=dev).dataloader()
@@ -456,9 +468,10 @@ def run_editing(trainer, opt):
         # the editing path starts here: counters read only its launches
         fused_mlp.fused_mlp_forward.launches = 0
         triplane_kernels.plane_dtable.launches = 0
-        for _ in range(EDIT_STEPS):
+        for _ in range(n_steps):
             batch = train.item(0)
-            refreshed = trainer.global_step % opt.update_extra_interval == 0
+            refreshed = (opt.cuda_ray
+                         and trainer.global_step % opt.update_extra_interval == 0)
             if refreshed:
                 trainer.update_extra_state()
             trainer.global_step += 1
@@ -484,17 +497,40 @@ def run_editing(trainer, opt):
         launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
                     "plane_dtable": triplane_kernels.plane_dtable.launches}
     peak = torch.cuda.max_memory_allocated()
-
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the editing path"
     assert all(math.isfinite(s[k]) for s in steps
                for k in ("loss", "loss_sds", "loss_bg")), steps
-    assert {s["local"] for s in steps} == {True, False}, "an LGIE branch never ran"
     assert all(e["match_probs"] is not None for e in trainer.pt_dict.values()), \
         "clip_view prompt selection did not run"
     moved = [float((p.detach() - b).abs().max())
              for p, b in zip(trainer.field.parameters(), before)]
     assert all(m > 0 for m in moved), f"the field did not change: {moved}"
+    return steps, launches, peak, base_mem, mlp_input, list(dt_calls), max(moved), train
+
+
+def run_editing(trainer, opt):
+    """Phases 5-6: the full-width SD stack, then EDIT_STEPS editing steps
+    through ``Trainer.train_step``.  Returns its summary and the kernels'
+    inputs of the last step."""
+    import torch
+    from customnerf_torch.engine import editing
+    from customnerf_torch.guidance.layers import n_params
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
+
+    guidance = trainer.guidance
+    editing.prepare_text_embeddings(trainer)
+    counts = dict(guidance.param_counts(),
+                  clip_view=n_params(trainer.clip_matcher.model))
+    assert counts == FULL_WIDTH_PARAMS, (counts, FULL_WIDTH_PARAMS)
+    models = (guidance.unet, guidance.vae, guidance.text_encoder.model,
+              trainer.clip_matcher.model)
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for m in models for p in m.parameters()), "SD stack not f32 on the card"
+
+    steps, launches, peak, base_mem, mlp_input, dt_calls, moved, train = editing_steps(
+        trainer, opt, EDIT_STEPS)
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched on the editing path"
+    assert {s["local"] for s in steps} == {True, False}, "an LGIE branch never ran"
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
 
     view = train.item(0)
@@ -517,12 +553,227 @@ def run_editing(trainer, opt):
             "total", "pt_and_draws", "render_to_latents", "unet", "backward_adam")},
         "median_ms_pt_cached": (statistics.median(s["total"] for s in cached)
                                 if cached else None),
-        "field_max_change": max(moved),
+        "field_max_change": moved,
         "local_steps": sum(s["local"] for s in steps),
         "sd_bounds": sd_bounds(guidance),
         "profile": profile_editing_step(trainer, view),
     }
-    return summary, mlp_input, list(dt_calls)
+    return summary, mlp_input, dt_calls
+
+
+# ------------------------------------------------------------------ parity
+# scripts/bear.sh --parity's field flags (-O2: the tiled grid 16 × 2 at 2^21
+# rows and desired resolution 8192, 64 + 64 samples: the defaults) on the
+# synthetic provider at 16,384 rays a step
+PARITY_FLAGS = ("-O2 --num_steps 64 --upsample_steps 64 --data_type synthetic "
+                "--h 128 --w 128 --seed 0 --use_ckpt scratch --ckpt scratch").split()
+PARITY_WORKSPACE = os.path.join("chiprun_out", "smoke_parity")
+PARITY_TABLE_ROWS = 23_967_296          # the 16 levels' rows (ops/grid.py)
+PARITY_STEPS = 20
+PARITY_EDIT_STEPS = 4
+PARITY_SAMPLES = STEP_RAYS * 128          # the fine pass: 64 uniform + 64 pdf
+PARITY_COARSE = STEP_RAYS * 64            # the density-only coarse pass
+PARITY_STAGES = (("coarse", "start", "coarse"), ("resample", "coarse", "resample"),
+                 ("fine", "resample", "fine"), ("composite", "fine", "composite"),
+                 ("loss", "composite", "loss"), ("backward", "loss", "backward"),
+                 ("adam", "backward", "adam"), ("total", "start", "adam"))
+
+
+def grid_consistency(x01, table, spec, n=65536):
+    """``grid_encode`` on the card against the same call on the CPU, for the
+    parity spec and its hash twin (same sizes), on ``n`` of the step's fine
+    points: the output and the table gradient (index_add_ atomics on the
+    card).  Consistency of the plain encoder, not a kernel check."""
+    import dataclasses
+    import torch
+    from customnerf_torch.ops.grid import grid_encode
+
+    x = x01.reshape(-1, 3)[:n]
+    g = torch.randn(x.shape[0], spec.output_dim, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for gridtype in ("tiled", "hash"):
+        s = dataclasses.replace(spec, gridtype=gridtype)
+        res = []
+        for dev in (x.device, torch.device("cpu")):
+            t = table.detach().to(dev).clone().requires_grad_(True)
+            enc = grid_encode(x.to(dev), t, s)
+            (enc * g.to(dev)).sum().backward()
+            res.append((enc.detach().cpu(), t.grad.cpu()))
+        errs = {}
+        for k, (card, cpu) in zip(("output", "table_grad"), zip(*res)):
+            err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+            # the same f32 arithmetic; the card's sums run in another order
+            # (the gradient's by atomics): a few ulp of the largest entry
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"grid_encode {gridtype} {k}: card vs CPU "
+                                     f"{err} > 1e-5 x {scale}")
+            errs[k] = {"max_abs_err": err, "scale": scale}
+        out[gridtype] = errs
+    return out
+
+
+def run_parity():
+    """The parity reconstruction: PARITY_STEPS steps of ``-O2`` on the
+    reference field, with CUDA-event stage times, through
+    ``Trainer.train_step``.  Counters zeroed just before and read just
+    after; K1 must launch (dT is not on this path).  Returns (trainer,
+    summary, K1's inputs at the last step's fine and coarse pass, the
+    last fine pass's encode inputs)."""
+    import torch
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.trainer import Trainer, psnr
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    from customnerf_torch.ops.grid import GridSpec
+
+    opt = parse_args(PARITY_FLAGS + ["--workspace", PARITY_WORKSPACE])
+    t0 = time.time()
+    trainer = Trainer(opt)
+    init_s = time.time() - t0
+    spec = trainer.field.cfg.grid
+    assert trainer.occ_state is None and trainer.field.fused
+    assert isinstance(spec, GridSpec) and spec.table_size == PARITY_TABLE_ROWS
+    dev = trainer.device
+    train = NeRFDataset(opt, "train", device=dev).dataloader()
+    val = NeRFDataset(opt, "val", device=dev).dataloader()
+    start_params = [p.detach().clone() for p in trainer.field.parameters()]
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with captured_calls(field, "fused_field_mlp", keep=1,
+                        when=lambda a, k: torch.is_grad_enabled()) as at_fine, \
+            captured_calls(field, "fused_field_mlp", keep=1,
+                           when=lambda a, k: k.get("with_rgb") is False
+                           and a[0].shape[0] == PARITY_COARSE) as at_coarse, \
+            captured_calls(field, "encode_positions", keep=1,
+                           when=lambda a, k: torch.is_grad_enabled()) as enc:
+        # the parity path starts here: counters read only its launches
+        fused_mlp.fused_mlp_forward.launches = 0
+        triplane_kernels.plane_dtable.launches = 0
+        t_start = time.time()
+        for _ in range(PARITY_STEPS):
+            batch = train.item(0)
+            trainer.global_step += 1
+            events = {}
+
+            def mark(name):
+                events[name] = torch.cuda.Event(enable_timing=True)
+                events[name].record()
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark("start")
+            loss, aux, _ = trainer.train_step(batch, mark=mark)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append(dict({k: events[a].elapsed_time(events[b])
+                               for k, a, b in PARITY_STAGES},
+                              ms=ms, loss=float(loss)))
+        view = val.item(0)
+        out = trainer.render_image(view.rays_o, view.rays_d)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t_start
+        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
+                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    assert launches["fused_field_mlp"] > 0, "K1 was not launched on the parity path"
+    assert all(math.isfinite(s["loss"]) for s in steps), steps
+    moved = [float((p.detach() - q).abs().max())
+             for p, q in zip(trainer.field.parameters(), start_params)]
+    assert all(m > 0 for m in moved), f"a parameter did not move: {moved}"
+    del start_params
+    img = out["image"]
+    assert img.shape == (view.H * view.W, 3) and bool(torch.isfinite(img).all())
+    assert at_fine[-1][0][0].shape[0] == PARITY_SAMPLES, at_fine[-1][0][0].shape
+    assert at_coarse[-1][0][0].shape[0] == PARITY_COARSE, at_coarse[-1][0][0].shape
+    warm = steps[2:]
+    summary = {"steps": steps, "launches": launches, "init_s": init_s,
+               "wall_s": wall_s, "peak_gb": peak / 1e9,
+               "median_ms": {k: statistics.median(s[k] for s in warm)
+                             for k in [k for k, _, _ in PARITY_STAGES] + ["ms"]},
+               "psnr_val0": psnr(img, view.rgbs.reshape(-1, 3))}
+    summary["rays_per_s"] = STEP_RAYS / summary["median_ms"]["ms"] * 1e3
+    return trainer, opt, summary, at_fine[-1], at_coarse[-1], enc[-1][0]
+
+
+def time_grid_encode(x01, table, spec):
+    """The grid encode's forward and backward on the step's fine points,
+    device times: the backward zeroes the 192 MB table gradient and adds
+    each level's corners with index_add_."""
+    import torch
+    from customnerf_torch.engine.measure import device_ms
+    from customnerf_torch.ops.grid import grid_encode
+
+    t = table.detach().clone().requires_grad_(True)
+    fwd = device_ms(lambda: grid_encode(x01, t, spec), 5)
+    out = grid_encode(x01, t, spec)
+    g = torch.randn_like(out)
+    bwd = device_ms(lambda: torch.autograd.grad(out, t, g, retain_graph=True), 5)
+    B = x01.reshape(-1, 3).shape[0]
+    return {"points": B, "forward_ms": fwd, "backward_ms": bwd,
+            # one 8-byte corner row per corner and level, read / added
+            "corner_rows": B * 8 * spec.num_levels}
+
+
+def run_reference_checkpoint(trainer, opt):
+    """Export the parity field as a reference-format (tcnn) checkpoint,
+    load it through ``Trainer(..., use_checkpoint=<file>)`` and render the
+    validation view bit for bit as the exporting trainer does."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.convert import params_to_flax
+    from customnerf_torch.engine.torch_shim import export_reference_checkpoint
+    from customnerf_torch.engine.trainer import Trainer
+
+    path = os.path.join(PARITY_WORKSPACE, "reference_format.pth")
+    os.makedirs(PARITY_WORKSPACE, exist_ok=True)
+    t0 = time.time()
+    export_reference_checkpoint(params_to_flax(trainer.field.state_dict()), path,
+                                epoch=trainer.epoch, global_step=trainer.global_step)
+    export_s = time.time() - t0
+    t0 = time.time()
+    loaded = Trainer(opt, use_checkpoint=path, log=lambda *_: None)
+    load_s = time.time() - t0
+    view = NeRFDataset(opt, "val", device=trainer.device).dataloader().item(0)
+    a = trainer.render_image(view.rays_o, view.rays_d)
+    b = loaded.render_image(view.rays_o, view.rays_d)
+    assert _equal_renders(a, b), "the reference-format round trip renders differently"
+    nbytes = os.path.getsize(path)
+    del loaded
+    os.remove(path)
+    return {"bytes": nbytes, "export_s": export_s, "load_s": load_s, "bitwise": True}
+
+
+def run_parity_editing(recon, guidance, clip_matcher):
+    """``scripts/bear.sh --parity`` phase 2 on the synthetic frames: the
+    editing flags on ``-O2`` from the parity reconstruction's checkpoint,
+    with the SD stack the editing phase built; PARITY_EDIT_STEPS steps."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.engine.trainer import Trainer
+
+    t0 = time.time()
+    path = recon.save_checkpoint()
+    save_s = time.time() - t0
+    nbytes = os.path.getsize(path)
+    flags = [f for f in EDIT_FLAGS]
+    flags[flags.index("--iters") + 1] = str(PARITY_EDIT_STEPS)
+    flags[flags.index("--workspace") + 1] = os.path.join("chiprun_out", "smoke_parity_edit")
+    opt = parse_args(PARITY_FLAGS + flags + ["--editing_from", path])
+    trainer = Trainer(opt, guidance=guidance, use_checkpoint=opt.ckpt, log=lambda *_: None)
+    trainer.clip_matcher = clip_matcher
+    assert trainer.occ_state is None
+    steps, launches, peak, base_mem, mlp_input, _, moved, _ = editing_steps(
+        trainer, opt, PARITY_EDIT_STEPS)
+    assert launches["fused_field_mlp"] > 0, "K1 was not launched on the parity editing path"
+    assert mlp_input[0][0].shape[0] == PARITY_SAMPLES, mlp_input[0][0].shape
+    del trainer
+    return {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
+            "resident_before_steps_gb": base_mem / 1e9, "field_max_change": moved,
+            "checkpoint_bytes": nbytes, "checkpoint_save_s": save_s,
+            "median_ms": {k: statistics.median(s[k] for s in steps) for k in (
+                "total", "pt_and_draws", "render_to_latents", "unet", "backward_adam")}}
 
 
 # ----------------------------------------------------------------- quality
@@ -535,9 +786,21 @@ BEAR_PHASE1 = ("-O --grid_type triplane --triplane_res 128 512 "
                "--iters 3000 --train_resolution_level 7 "
                "--eval_resolution_level 4 --bound 2 --train_conf 0.01 "
                "--soft_mask --ckpt scratch").split()
+# scripts/bear.sh --parity, phase 1: the reference field on the dense path
+BEAR_PARITY = ("-O2 --keyword lang_bear --iters 3000 --train_resolution_level 7 "
+               "--eval_resolution_level 4 --bound 2 --train_conf 0.01 "
+               "--soft_mask --ckpt scratch").split()
 # final eval PSNR gates: the JAX package's anchor on each fixture less the
-# 0.5 dB band of docs/PARITY.md:151-216 (25.34, 25.01 and 25.28 dB)
+# 0.5 dB band of docs/PARITY.md:151-216 (25.34, 25.01 and 25.28 dB; the
+# parity field's 25.55, docs/PARITY.md:166)
 QUALITY_GATES = {"nerfstudio": 24.84, "llff": 24.51, "dtu": 24.78}
+PARITY_GATE = 25.05
+BOTH_KERNELS = ("fused_field_mlp", "plane_dtable")
+QUALITY_RUNS = [
+    {"name": t, "data_type": t, "flags": BEAR_PHASE1, "gate": g,
+     "kernels": BOTH_KERNELS} for t, g in QUALITY_GATES.items()] + [
+    {"name": "nerfstudio_parity", "data_type": "nerfstudio", "flags": BEAR_PARITY,
+     "gate": PARITY_GATE, "kernels": ("fused_field_mlp",)}]
 TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
 
 
@@ -562,52 +825,85 @@ def wait_fixture(proc, data_type):
     return os.path.join(QUALITY_ROOT, WRITERS[data_type][0])
 
 
-def run_quality(data_type, data_path, capture=False):
-    """``bear.sh`` phase 1 through ``customnerf_torch.__main__.main`` on one
-    fixture: 3000 steps, an evaluation each epoch, then the test path.
-    Returns its summary and, with ``capture``, the kernels' inputs (K1 at a
-    step and at a refresh, the last step's dT calls), else None."""
+def run_quality(run, data_path, capture_k1=False, capture_dt=False,
+                autotune=False):
+    """One ``QUALITY_RUNS`` entry through ``customnerf_torch.__main__.main``
+    on its fixture: 3000 steps, an evaluation each epoch, then the test path.
+    Returns its summary and the kernels' inputs it captured: K1 at a step's
+    full head and at a density-only call inside a step (the ``-O``
+    refresh, the ``-O2`` coarse pass), the last step's dT calls.  The
+    summary splits out the time spent writing checkpoints; with
+    ``autotune``, the ``--compact_frac -1`` auto-tune's measured fill and
+    chosen fraction on the trained grid."""
     import contextlib
     import torch
     from customnerf_torch.__main__ import main as cli
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import checkpoint as ckpt_io
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.models import field
     from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
 
-    ws = os.path.join(QUALITY_ROOT, f"ws_{data_type}")
-    flags = BEAR_PHASE1 + ["--data_type", data_type, "--data_path", data_path,
-                           "--workspace", ws]
-    step_ms = []
-    train_step = Trainer.train_step
+    name, data_type, base_flags = run["name"], run["data_type"], run["flags"]
+    ws = os.path.join(QUALITY_ROOT, f"ws_{name}")
+    flags = base_flags + ["--data_type", data_type, "--data_path", data_path,
+                          "--workspace", ws]
+    step_ms, in_step, saves = [], [False], {"ring_s": 0.0, "best_s": 0.0, "bytes": 0,
+                                           "files": 0}
+    train_step, save_ring, save_file = (Trainer.train_step, Trainer.save_checkpoint,
+                                        ckpt_io.save_checkpoint)
 
     def timed_step(self, *a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        in_step[0] = True
         out = train_step(self, *a, **kw)
+        in_step[0] = False
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    def timed_ring(self, *a, **kw):
+        t0 = time.perf_counter()
+        path = save_ring(self, *a, **kw)
+        saves["ring_s"] += time.perf_counter() - t0
+        return path
+
+    def timed_file(path, *a, **kw):
+        t0 = time.perf_counter()
+        out = save_file(path, *a, **kw)
+        if os.path.basename(path) == "df.pth":       # the best result's file
+            saves["best_s"] += time.perf_counter() - t0
+        saves["bytes"] += os.path.getsize(path)
+        saves["files"] += 1
+        return out
+
     def quiet(msg):
         if msg.startswith(("++> eval PSNR", "[WARN]")):
-            log(f"[quality {data_type}] {msg}")
+            log(f"[quality {name}] {msg}")
 
     with contextlib.ExitStack() as stack:
-        if capture:
+        if capture_k1:
             at_step = stack.enter_context(captured_calls(
                 field, "fused_field_mlp", keep=1,
                 when=lambda a, k: torch.is_grad_enabled()))
-            at_refresh = stack.enter_context(captured_calls(
+            at_density = stack.enter_context(captured_calls(
                 field, "fused_field_mlp", keep=1,
-                when=lambda a, k: k.get("with_rgb") is False))
+                when=lambda a, k: k.get("with_rgb") is False and (
+                    in_step[0] or base_flags[0] == "-O")))
+        if capture_dt:
             dt_calls = stack.enter_context(captured_calls(triplane, "plane_dtable",
                                                           keep=6))
-        Trainer.train_step = timed_step
+        Trainer.train_step, Trainer.save_checkpoint = timed_step, timed_ring
+        ckpt_io.save_checkpoint = timed_file
         stack.callback(setattr, Trainer, "train_step", train_step)
+        stack.callback(setattr, Trainer, "save_checkpoint", save_ring)
+        stack.callback(setattr, ckpt_io, "save_checkpoint", save_file)
         # this path starts here: counters read only its launches
         fused_mlp.fused_mlp_forward.launches = 0
         triplane_kernels.plane_dtable.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         trainer = cli(flags, log=quiet)
         torch.cuda.synchronize()
@@ -620,36 +916,54 @@ def run_quality(data_type, data_path, capture=False):
     strips = sorted(os.listdir(os.path.join(ws, "validation")))
     ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
     test_dir = os.path.join(ws, "results", f"df_ep{trainer.epoch:04d}_test")
-    summary = {"data_type": data_type, "final_psnr": final, "best_psnr": best,
-               "psnr_by_epoch": [-r for r in results], "steps": len(step_ms),
-               "median_step_ms": statistics.median(step_ms),
+    ckpt_s = saves["ring_s"] + saves["best_s"]
+    summary = {"name": name, "data_type": data_type, "final_psnr": final,
+               "best_psnr": best, "psnr_by_epoch": [-r for r in results],
+               "steps": len(step_ms), "median_step_ms": statistics.median(step_ms),
                "mean_step_ms": statistics.mean(step_ms), "wall_s": wall_s,
+               "checkpoint_s": ckpt_s, "checkpoint_share": ckpt_s / wall_s,
+               "checkpoint_files": saves["files"], "checkpoint_bytes": saves["bytes"],
                "validation_strips": len(strips), "checkpoints": ckpts,
                "test_frames": len(os.listdir(test_dir)), "launches": launches,
-               "gate": QUALITY_GATES[data_type]}
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the {data_type} path"
+               "gate": run["gate"], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for kernel in run["kernels"]:
+        assert launches[kernel] > 0, f"{kernel} was not launched on the {name} path"
     assert len(step_ms) == trainer.global_step >= trainer.opt.iters, len(step_ms)
     assert "df.pth" in ckpts and len(strips) == trainer.epoch, (ckpts, strips)
-    inputs = None
-    if capture:
-        inputs = {"step": at_step[-1], "refresh": at_refresh[-1],
-                  "dtable": list(dt_calls)}
+    inputs = {}
+    if capture_k1:
+        inputs.update(step=at_step[-1], density=at_density[-1])
+    if capture_dt:
+        inputs["dtable"] = list(dt_calls)
+    if autotune:
+        # --compact_frac -1 on the trained, warm grid: what it would pick
+        from customnerf_torch.ops.occupancy import WARMUP_UPDATES
+        assert trainer.occ_state.iter_density > WARMUP_UPDATES, "the grid is not warm"
+        fills, measure = [], trainer.measure_slab_fill
+        trainer.measure_slab_fill = lambda batch: fills.append(measure(batch)) or fills[-1]
+        recipe = trainer.opt.compact_frac
+        trainer.opt.compact_frac = -1
+        trainer._autotune_compaction(
+            NeRFDataset(trainer.opt, "train", device=trainer.device).dataloader())
+        summary["autotune"] = {"slab_fill": fills[0], "compact_frac": trainer.opt.compact_frac,
+                               "recipe_compact_frac": recipe,
+                               "compact_block": trainer.opt.compact_block}
+        assert len(fills) == 1 and 0.0 <= trainer.opt.compact_frac <= 1.0, summary["autotune"]
     del trainer
     return summary, inputs
 
 
-def run_test_render(data_type, data_path):
+def run_test_render(run, data_path):
     """``--test`` from the best checkpoint ``df.pth``: one PNG a pose of the
     test path, and the mp4 where cv2 can write it, else the JAX package's
     warning."""
     from customnerf_torch.__main__ import main as cli
-    ws = os.path.join(QUALITY_ROOT, f"ws_{data_type}")
+    ws = os.path.join(QUALITY_ROOT, f"ws_{run['name']}")
     lines = []
     t0 = time.time()
-    trainer = cli(BEAR_PHASE1 + ["--data_type", data_type, "--data_path", data_path,
-                                 "--workspace", ws, "--test", "--ckpt",
-                                 os.path.join(ws, "checkpoints", "df.pth")],
+    trainer = cli(run["flags"] + ["--data_type", run["data_type"], "--data_path",
+                                  data_path, "--workspace", ws, "--test", "--ckpt",
+                                  os.path.join(ws, "checkpoints", "df.pth")],
                   log=lines.append)
     wall_s = time.time() - t0
     name = f"df_ep{trainer.epoch:04d}_test"
@@ -662,48 +976,107 @@ def run_test_render(data_type, data_path):
 
 
 def quality_phase(procs):
-    """The three fixtures through bear.sh phase 1; the gates; --test on the
-    bear; K1 and dT against their plain versions on the bear run's inputs."""
-    runs, rows = {}, []
-    for data_type, proc in procs.items():
+    """The QUALITY_RUNS through bear.sh phase 1 (three fixtures on the
+    flagship field, the bear on ``--parity``'s); the gates; --test on both
+    bear runs; K1 (and on the flagship dT) against their plain versions on
+    the bear runs' inputs; the auto-tune on the flagship bear's grid."""
+    runs, rows, paths = {}, [], {}
+    for run in QUALITY_RUNS:
+        name, data_type = run["name"], run["data_type"]
         t0 = time.time()
-        path = wait_fixture(proc, data_type)
+        if data_type not in paths:
+            paths[data_type] = wait_fixture(procs[data_type], data_type)
         waited = time.time() - t0
-        capture = data_type == "nerfstudio"
-        summary, inputs = run_quality(data_type, path, capture=capture)
+        bear = data_type == "nerfstudio"
+        flagship = run["flags"][0] == "-O"
+        summary, inputs = run_quality(run, paths[data_type], capture_k1=bear,
+                                      capture_dt=bear and flagship,
+                                      autotune=bear and flagship)
         summary["fixture_wait_s"] = waited
-        log(f"[quality {data_type}] final eval PSNR {summary['final_psnr']:.2f} dB "
+        log(f"[quality {name}] final eval PSNR {summary['final_psnr']:.2f} dB "
             f"(best {summary['best_psnr']:.2f}, gate >= {summary['gate']}) | median "
             f"step {summary['median_step_ms']:.2f} ms over {summary['steps']} | wall "
-            f"{summary['wall_s']:.1f} s | {summary['validation_strips']} strips, "
-            f"{len(summary['checkpoints'])} checkpoints | launches "
-            f"{summary['launches']}")
-        if capture:
-            summary["test"] = run_test_render(data_type, path)
+            f"{summary['wall_s']:.1f} s, checkpoints {summary['checkpoint_s']:.1f} s "
+            f"({100 * summary['checkpoint_share']:.1f} %, {summary['checkpoint_files']} "
+            f"files, {summary['checkpoint_bytes'] / 1e9:.2f} GB) | "
+            f"{summary['validation_strips']} strips | peak {summary['peak_gb']:.2f} GB "
+            f"| launches {summary['launches']}")
+        if "autotune" in summary:
+            a = summary["autotune"]
+            log(f"[autotune {name}] measured slab fill {a['slab_fill']:.4f} on the "
+                f"trained grid -> --compact_frac {a['compact_frac']:.4f} (block "
+                f"{a['compact_block']}); the recipe fixes {a['recipe_compact_frac']}")
+        if bear:
+            summary["test"] = run_test_render(run, paths[data_type])
             t = summary["test"]
             video = (f"mp4 written ({t['mp4_bytes']} bytes)" if t["mp4_bytes"]
                      else t["mp4_warning"])
-            log(f"[quality {data_type}] --test from df.pth (epoch {t['epoch']}): "
+            log(f"[quality {name}] --test from df.pth (epoch {t['epoch']}): "
                 f"{t['frames']} PNG frames in {t['wall_s']:.1f} s; {video}")
             assert t["frames"] == TEST_FRAMES, t
             assert t["mp4_bytes"] or t["mp4_warning"], "--test: no mp4 and no warning"
-            step_args, step_kw = inputs["step"]
-            ref_args, ref_kw = inputs["refresh"]
-            rows.append(check_fused_mlp(*step_args, **step_kw))
-            rows.append(check_fused_mlp(*ref_args, **ref_kw))
-            rows += [check_dtable(*inputs["dtable"][i][0][:7]) for i in (0, 3)]
-            for r in rows:
+            run_rows = [check_fused_mlp(*inputs["step"][0], **inputs["step"][1]),
+                        check_fused_mlp(*inputs["density"][0], **inputs["density"][1])]
+            if flagship:
+                run_rows += [check_dtable(*inputs["dtable"][i][0][:7]) for i in (0, 3)]
+            for r in run_rows:
                 r["launches"] = summary["launches"][r["name"]]
-                r["path"] = "quality nerfstudio"
-        runs[data_type] = summary
+                r["path"] = f"quality {name}"
+            rows += run_rows
+        runs[name] = summary
         # the workspace (≈ 10 checkpoints) has served its purpose
-        shutil.rmtree(os.path.join(QUALITY_ROOT, f"ws_{data_type}"), ignore_errors=True)
-    for data_type, summary in runs.items():
+        shutil.rmtree(os.path.join(QUALITY_ROOT, f"ws_{name}"), ignore_errors=True)
+    for name, summary in runs.items():
         if not summary["final_psnr"] >= summary["gate"]:
             raise AssertionError(
-                f"{data_type}: final eval PSNR {summary['final_psnr']:.3f} dB "
+                f"{name}: final eval PSNR {summary['final_psnr']:.3f} dB "
                 f"is under its gate {summary['gate']} dB")
     return runs, rows
+
+
+def parity_phase(card, guidance, clip_matcher):
+    """The parity reconstruction, K1 on its inputs, the grid encode's times
+    and its card/CPU consistency, the reference-format round trip and the
+    parity editing steps.  Returns the summary and the kernel rows."""
+    recon, opt, pa, fine, coarse, enc_args = run_parity()
+    med = pa["median_ms"]
+    log(f"[parity] {card} | {PARITY_STEPS} -O2 steps of {STEP_RAYS} rays on the "
+        f"reference grid (16 x 2 at 2^21 rows, 23,967,296 x 2 table) | median "
+        f"{med['ms']:.2f} ms/step = {pa['rays_per_s']:.0f} rays/s | coarse "
+        f"{med['coarse']:.2f}, sample_pdf + sort {med['resample']:.2f}, fine "
+        f"{med['fine']:.2f}, composites {med['composite']:.2f}, loss {med['loss']:.2f}, "
+        f"backward {med['backward']:.2f}, Adam {med['adam']:.2f} ms | peak "
+        f"{pa['peak_gb']:.2f} GB | init {pa['init_s']:.1f} s | launches "
+        f"{pa['launches']} | val view PSNR {pa['psnr_val0']:.2f} dB")
+    rows = [check_fused_mlp(*fine[0], **fine[1]), check_fused_mlp(*coarse[0], **coarse[1])]
+    for r in rows:
+        r["launches"] = pa["launches"][r["name"]]
+        r["path"] = "parity reconstruction"
+    pa["grid_encode"] = ge = time_grid_encode(*enc_args)
+    log(f"[parity grid] encode of the fine pass's {ge['points']} points: forward "
+        f"{ge['forward_ms']:.2f} ms, backward {ge['backward_ms']:.2f} ms (device "
+        f"times, {ge['corner_rows']} corner rows)")
+    pa["grid_consistency"] = gc = grid_consistency(*enc_args)
+    log("[parity grid] card vs CPU on 65,536 points: " + "; ".join(
+        f"{t} output {e['output']['max_abs_err']:.3g}, table gradient "
+        f"{e['table_grad']['max_abs_err']:.3g}" for t, e in gc.items()))
+    ref = run_reference_checkpoint(recon, opt)
+    log(f"[reference checkpoint] tcnn-format export {ref['bytes']} bytes in "
+        f"{ref['export_s']:.1f} s; loaded through --ckpt in {ref['load_s']:.1f} s; "
+        f"renders the validation view bit for bit")
+    ed = run_parity_editing(recon, guidance, clip_matcher)
+    em = ed["median_ms"]
+    log(f"[parity editing] {card} | {PARITY_EDIT_STEPS} steps of {STEP_RAYS} rays "
+        f"from a {ed['checkpoint_bytes']} byte checkpoint (saved in "
+        f"{ed['checkpoint_save_s']:.1f} s) | median {em['total']:.1f} ms/step: pt + "
+        f"draws {em['pt_and_draws']:.1f}, render to latents "
+        f"{em['render_to_latents']:.1f}, UNet {em['unet']:.1f}, backward + Adam "
+        f"{em['backward_adam']:.1f} | peak {ed['peak_gb']:.2f} GB | launches "
+        f"{ed['launches']}")
+    del recon
+    for ws in (PARITY_WORKSPACE, os.path.join("chiprun_out", "smoke_parity_edit")):
+        shutil.rmtree(ws, ignore_errors=True)
+    return {"reconstruction": pa, "reference_checkpoint": ref, "editing": ed}, rows
 
 
 def main() -> int:
@@ -798,7 +1171,11 @@ def run_all(card, procs) -> int:
 
     # the checkpoint (~180 MB with its Adam state) has served its purpose
     shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
+    guidance, clip_matcher = editor.guidance, editor.clip_matcher
     del editor
+    parity, parity_rows = parity_phase(card, guidance, clip_matcher)
+    del guidance, clip_matcher
+    rows += parity_rows
 
     quality, quality_rows = quality_phase(procs)
     rows += quality_rows
@@ -816,7 +1193,8 @@ def run_all(card, procs) -> int:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
-                   "checkpoint": ck, "editing": ed, "quality": quality},
+                   "checkpoint": ck, "editing": ed, "parity": parity,
+                   "quality": quality},
                   f, indent=1)
 
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches",

@@ -28,6 +28,28 @@ flagship field::
         --keep_bg 1000 --cfg 100 --random_bg_c --detach_bg --clip_view \\
         --stage_time --sd_version 1.5 --ckpt scratch --allow_random_guidance
 
+``scripts/bear.sh --parity`` swaps the field flags for ``-O2``: the
+reference field (tiled grid, 16 levels × 2 channels at 2^21 rows, desired
+resolution 8192, the defaults) on the dense two-pass path (64 uniform + 64
+importance samples, the defaults)::
+
+    python -m customnerf_torch -O2 \
+        --data_type nerfstudio --data_path DATA --keyword lang_bear \
+        --workspace recon_parity --iters 3000 --train_resolution_level 7 \
+        --eval_resolution_level 4 --bound 2 --train_conf 0.01 --soft_mask \
+        --ckpt scratch
+
+    python -m customnerf_torch -O2 <the same data flags> \
+        --workspace edit_parity --pretrained \
+        --editing_from recon_parity/checkpoints/df_ep0030.pth \
+        <the phase-2 flags above>
+
+``--editing_from`` (and ``--ckpt``) also take a reference-format checkpoint
+written by the original CustomNeRF (torch-ngp / tcnn ``.pth``:
+``pos_en.embeddings`` and ``*.params`` keys), on the ``-O2`` grid field.
+``--compact_frac -1`` sizes the ``-O`` path's compaction from the slab fill
+it measures once the occupancy grid has warmed up.
+
 Without ``--sd_weights`` (a local diffusers directory) or
 ``--allow_random_guidance`` the editing phase refuses to run.
 """

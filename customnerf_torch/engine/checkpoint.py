@@ -14,6 +14,11 @@ The JAX package's Adam state (``optimizer``: numpy leaves and a pickled JAX
 treedef) is neither written nor read here; the port keeps its own Adam state
 under ``torch_optimizer``, which the JAX loader ignores.  JAX files hold
 numpy arrays, so loading needs ``torch.load(..., weights_only=False)``.
+
+A reference-format (torch-ngp / tcnn) file — any ``*.params`` or
+``pos_en.embeddings`` key under ``model`` — goes through
+``engine/torch_shim.py``, so ``--ckpt`` and ``--editing_from`` load a
+reconstruction made by the original CustomNeRF.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from customnerf_torch.engine.torch_shim import import_reference_checkpoint
 
 OCC_ARRAY_KEYS = ("density_grid", "density_bitfield")
 OCC_SCALAR_KEYS = ("mean_count", "mean_density", "iter_density")
@@ -85,10 +92,11 @@ def save_checkpoint(path: str, params, epoch: int, global_step: int,
     return path
 
 
-def load_checkpoint(path: str) -> Tuple[dict, dict]:
+def load_checkpoint(path: str, conf_channels: int = 1) -> Tuple[dict, dict]:
     """→ (params tree of numpy arrays, meta).  meta holds epoch,
     global_step, stats, the occupancy entries found, and the port's Adam
-    state when the file has one."""
+    state when the file has one.  ``conf_channels`` is read only by the
+    reference-format import (tcnn pads the conf head's outputs)."""
     path = str(path)
     if path.endswith(".orbax"):
         raise _not_ported(".orbax checkpoints", ".orbax")
@@ -96,9 +104,6 @@ def load_checkpoint(path: str) -> Tuple[dict, dict]:
     if "model" not in ckpt:
         return unflatten({k: _to_numpy(v) for k, v in ckpt.items()}), {}
     model = dict(ckpt["model"])
-    if any(k.endswith(".params") for k in model) or "pos_en.embeddings" in model:
-        raise _not_ported("reference-format (tcnn) checkpoints",
-                          "dense path and hash grid")
     meta = {"epoch": ckpt.get("epoch", 0),
             "global_step": ckpt.get("global_step", 0),
             "stats": ckpt.get("stats", {})}
@@ -108,6 +113,8 @@ def load_checkpoint(path: str) -> Tuple[dict, dict]:
     for k in OCC_ARRAY_KEYS + OCC_SCALAR_KEYS:
         if k not in meta and k in ckpt:
             meta[k] = ckpt[k]
+    if any(k.endswith(".params") for k in model) or "pos_en.embeddings" in model:
+        return import_reference_checkpoint(path, conf_channels=conf_channels), meta
     if TORCH_OPTIMIZER_KEY in ckpt:
         meta[TORCH_OPTIMIZER_KEY] = ckpt[TORCH_OPTIMIZER_KEY]
     return unflatten({k: _to_numpy(v) for k, v in model.items()}), meta

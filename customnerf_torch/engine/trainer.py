@@ -8,8 +8,14 @@ Reference semantics kept:
   * NaN gradients zeroed before Adam (the JAX ``optax.zero_nans``);
   * loss = train_rgb·MSE(image) + train_conf·MSE(render_mask)
     (utils_init_nerf.py:224-238);
-  * the occupancy grid refreshed every ``update_extra_interval`` steps
-    before the step (utils_init_nerf.py:602-607), one step a call;
+  * ``-O`` renders through the occupancy grid (``render_rays_fast``),
+    refreshed every ``update_extra_interval`` steps before the step
+    (utils_init_nerf.py:602-607); without it (``-O2``) the dense two-pass
+    ``render_rays`` runs and there is no occupancy state to refresh, save
+    or restore (JAX ``trainer.py:188-193, 940-953, 1028``); one step a call;
+  * ``--compact_frac -1``: compaction stays off until the grid has left its
+    warm-up, then the measured slab fill sets the fraction once
+    (``_autotune_compaction``, JAX ``trainer.py:507-572``);
   * ``render_image`` chunked by ``max_ray_batch`` (renderer.py:1749-1765);
   * checkpoints (``engine/checkpoint.py``): saved before training and
     around each ``eval_interval`` (utils_init_nerf.py:492-506), the
@@ -20,10 +26,12 @@ Reference semantics kept:
     ``--editing_from``, the pt-render cache, and ``train_step`` dispatching
     to ``engine/editing.py::editing_step``; refreshes keep their cadence.
 
-Randomness (march jitter, refresh jitter, ``--batch_rays`` subsets, the
-editing bg colour, t and noises) comes from one ``torch.Generator`` on the
-trainer's device seeded from ``opt.seed``; its streams differ from
-``jax.random``'s.  The LGIE gate draws from
+The field starts from the JAX package's initial parameters for
+``opt.seed`` (``utils/threefry.py``).  Randomness during training (march
+and depth jitter, ``sample_pdf``'s u, refresh jitter, ``--batch_rays``
+subsets, the editing bg colour, t and noises) comes from one
+``torch.Generator`` on the trainer's device seeded from ``opt.seed``; its
+streams differ from ``jax.random``'s.  The LGIE gate draws from
 ``numpy.random.RandomState(opt.seed)`` as the JAX trainer does.  The JAX
 package rematerialises the compacted evaluation under editing for a TPU's
 memory; the port does not.
@@ -32,8 +40,9 @@ Evaluation writes the strip ``gt | rgb | depth [| gt_mask | pred_mask | fg
 | bg]`` (``utils/png.py``) and keeps the best result's checkpoint as
 ``{name}.pth``; ``test`` writes one PNG a pose and, where ``cv2`` is
 installed, the mp4 (without it, the warning the JAX package logs when its
-writer fails); ``--clip_metrics`` scores the test renders with CLIP.  ``--compact_frac -1``, multi-scene and K-step editing
-are later slices and raise ``NotImplementedError``.
+writer fails); ``--clip_metrics`` scores the test renders with CLIP.
+Multi-scene and K-step editing, ``--mesh_shape`` and ``.orbax`` are later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,9 +61,13 @@ from customnerf_torch.engine import checkpoint as ckpt_io
 from customnerf_torch.engine.convert import params_from_flax, params_to_flax
 from customnerf_torch.engine.editing import editing_step
 from customnerf_torch.models.field import FieldConfig, NeRFField, param_groups
-from customnerf_torch.models.renderer import RenderSettings, render_rays_fast
-from customnerf_torch.ops.occupancy import (OccupancyState, init_state,
+from customnerf_torch.models.renderer import (RenderSettings, render_rays,
+                                              render_rays_fast)
+from customnerf_torch.ops.grid import GridSpec
+from customnerf_torch.ops.occupancy import (WARMUP_UPDATES, OccupancyState,
+                                            init_state, march_rays_occupancy,
                                             packbits, update_grid)
+from customnerf_torch.ops.ray import near_far_from_aabb
 from customnerf_torch.ops.triplane import TriplaneSpec
 from customnerf_torch.utils import png
 
@@ -64,9 +77,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md queue A, item '{item}')")
 
 
-def build_encoder_spec(opt) -> TriplaneSpec:
+def build_encoder_spec(opt) -> GridSpec | TriplaneSpec:
+    """The tiled / hash grid (the reference field) or the tri-plane."""
     if opt.grid_type != "triplane":
-        raise _not_ported(f"--grid_type {opt.grid_type}", "dense path and hash grid")
+        return GridSpec(input_dim=3, num_levels=opt.grid_levels,
+                        level_dim=opt.grid_level_dim,
+                        base_resolution=opt.grid_base_resolution,
+                        log2_hashmap_size=opt.log2_hashmap_size,
+                        desired_resolution=opt.desired_resolution,
+                        gridtype=opt.grid_type)
     chans = [int(c) for c in (opt.triplane_channels
                               if isinstance(opt.triplane_channels, (list, tuple))
                               else [opt.triplane_channels])]
@@ -104,6 +123,21 @@ def render_settings(opt) -> RenderSettings:
     )
 
 
+def compaction_frac(fill: float, compact_block: int, n_total: int) -> float:
+    """``--compact_frac`` from a measured slab fill (JAX
+    ``trainer.py:552-566``): 1.3× headroom over the mean, off above 60 %
+    (a dense slab gains nothing), and the per-block budget snapped to the
+    nearest 128 slots but never under 1.1× the fill."""
+    frac = 0.0 if fill > 0.6 else float(min(1.0, max(0.05, fill * 1.3)))
+    if frac > 0.0:
+        gk = compact_block * n_total
+        snapped = max(128, int(round(frac * gk / 128.0)) * 128)
+        if snapped < fill * 1.1 * gk:
+            snapped = max(128, -(-int(np.ceil(frac * gk)) // 128) * 128)
+        frac = float(min(1.0, snapped / gk))
+    return frac
+
+
 def max_epochs_for(opt, loader_len: int) -> int:
     return int(math.ceil(opt.iters / max(loader_len, 1)))
 
@@ -119,11 +153,6 @@ class Trainer:
     def __init__(self, opt, field: NeRFField | None = None, device=None,
                  log=print, guidance=None, use_checkpoint: str | None = None):
         self.device = resolve_device(device)
-        if not opt.cuda_ray:
-            raise _not_ported("the dense two-pass path (no -O)",
-                              "dense path and hash grid")
-        if opt.compact_frac == -1:
-            raise _not_ported("--compact_frac -1", "--compact_frac -1 auto-tune")
         if opt.mesh_shape:
             raise _not_ported("--mesh_shape", "multi-device")
         if opt.ckpt_format != "pth":
@@ -144,8 +173,10 @@ class Trainer:
              {"params": groups["mlp"], "lr": opt.lr, "lr_scale": 1.0}],
             betas=(0.9, 0.99), eps=1e-15, weight_decay=opt.weight_decay)
         self.n_updates = 0
-        self.occ_state = init_state(opt.cascade, grid_size=opt.occ_grid_size,
-                                    device=self.device)
+        self.occ_state = None        # the -O occupancy grid; -O2 has none
+        if opt.cuda_ray:
+            self.occ_state = init_state(opt.cascade, grid_size=opt.occ_grid_size,
+                                        device=self.device)
         self.epoch = 0
         self.global_step = 0
         self.stats = {"loss": [], "valid_loss": [], "results": [],
@@ -177,7 +208,8 @@ class Trainer:
         if opt.pretrained:
             source = opt.editing_from or opt.use_ckpt
             if source and os.path.exists(str(source)):
-                params, _ = ckpt_io.load_checkpoint(source)
+                params, _ = ckpt_io.load_checkpoint(
+                    source, conf_channels=self.field.cfg.conf_channels)
                 frozen = build_field(opt, self.device)
                 frozen.load_state_dict(params_from_flax(params))
             else:
@@ -199,18 +231,23 @@ class Trainer:
 
     # -------------------------------------------------------------- render
     def render(self, rays_o, rays_d, train: bool, perturb: bool,
-               bg_color=None, field=None):
-        """The -O fast path: training marches 2× the kept samples; eval
-        marches at the reference's inference budget (max_steps candidates)
-        or ``--eval_march_candidates``.  ``field`` defaults to the trained
-        one."""
+               bg_color=None, field=None, mark=None):
+        """``-O2``: the dense two-pass ``render_rays``.  ``-O``: the fast
+        path; training marches 2× the kept samples, eval marches at the
+        reference's inference budget (max_steps candidates) or
+        ``--eval_march_candidates``.  ``field`` defaults to the trained
+        one; ``mark`` is ``render_rays``' stage callback."""
         opt = self.opt
+        field = field if field is not None else self.field
+        if not opt.cuda_ray:
+            return render_rays(field, rays_o, rays_d, self.settings, train=train,
+                               perturb=perturb, generator=self.generator,
+                               bg_color=bg_color, mark=mark)
         n_total = max(opt.num_steps + opt.upsample_steps, 2)
         n_eval = int(opt.eval_march_candidates) or max(opt.max_steps, n_total * 2)
         n_coarse = n_total * 2 if train else max(n_eval, n_total * 2)
         return render_rays_fast(
-            field if field is not None else self.field,
-            rays_o, rays_d, self.occ_state, self.settings,
+            field, rays_o, rays_d, self.occ_state, self.settings,
             n_coarse=n_coarse, n_keep=n_total, perturb=perturb,
             generator=self.generator, bg_color=bg_color,
             compact_frac=max(opt.compact_frac, 0.0),
@@ -229,10 +266,13 @@ class Trainer:
             aux["loss_m"] = loss_m
         return loss, aux
 
-    def apply_gradients(self, loss):
-        """Backward, NaN-zeroing, the decayed lr, one Adam update."""
+    def apply_gradients(self, loss, mark=None):
+        """Backward, NaN-zeroing, the decayed lr, one Adam update;
+        ``mark(name)`` after the ``backward`` and the ``adam`` update."""
+        mark = mark or (lambda _: None)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mark("backward")
         base = self.lr_at(self.n_updates)
         for group in self.optimizer.param_groups:
             group["lr"] = group["lr_scale"] * base
@@ -240,13 +280,15 @@ class Trainer:
                 if p.grad is not None:
                     p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
         self.optimizer.step()
+        mark("adam")
         self.n_updates += 1
 
     def train_step(self, batch, perturb: bool = True, mark=None):
         """One reconstruction step (render, loss, backward, NaN-zeroing,
-        Adam), or under ``--pretrained`` one editing step (``mark``: its
-        stage callback).  Returns (loss, aux, render stats) as device
-        tensors."""
+        Adam), or under ``--pretrained`` one editing step.  ``mark(name)``
+        is called at the stage boundaries: the dense render's, ``loss``,
+        ``backward`` and ``adam``, or the editing step's.  Returns (loss,
+        aux, render stats) as device tensors."""
         if self.opt.pretrained:
             return editing_step(self, batch, perturb=perturb, mark=mark)
         rays_o, rays_d = batch.rays_o, batch.rays_d
@@ -258,18 +300,61 @@ class Trainer:
                                  device=self.device)[:int(self.opt.batch_rays)]
             rgbs, mask, rays_o, rays_d = rgbs[sel], mask[sel], rays_o[sel], rays_d[sel]
 
-        out = self.render(rays_o, rays_d, train=True, perturb=perturb)
+        out = self.render(rays_o, rays_d, train=True, perturb=perturb, mark=mark)
         loss, aux = self.loss(out, rgbs, mask)
-        self.apply_gradients(loss)
+        if mark:
+            mark("loss")
+        self.apply_gradients(loss, mark=mark)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, out["stats"]
+
+    # ------------------------------------------------ compaction auto-tune
+    def measure_slab_fill(self, batch, jitter=None) -> float:
+        """Mean share of live slots in the fast path's [N, n_keep] slab for
+        one batch, marched as a training step marches (``jitter``
+        [N, 2·n_keep] overrides the generator's draw)."""
+        opt = self.opt
+        n_total = max(opt.num_steps + opt.upsample_steps, 2)
+        o, d = batch.rays_o, batch.rays_d
+        aabb = torch.tensor([-opt.bound] * 3 + [opt.bound] * 3,
+                            dtype=torch.float32, device=o.device)
+        with torch.no_grad():
+            nears, fars = near_far_from_aabb(o, d, aabb, opt.min_near)
+            miss = nears >= fars
+            _, valid, _ = march_rays_occupancy(
+                self.occ_state, o, d, torch.where(miss, 0.0, nears),
+                torch.where(miss, 1.0, fars), opt.bound, n_coarse=n_total * 2,
+                n_keep=n_total, perturb=True, generator=self.generator,
+                jitter=jitter)
+            return float((valid & ~miss[:, None]).float().mean())
+
+    def _autotune_compaction(self, loader):
+        """``--compact_frac -1``: once the occupancy grid has left its
+        warm-up, measure the slab fill on the first batch and fix
+        ``--compact_frac`` from it (``compaction_frac``); until then
+        compaction stays off.  Without an occupancy grid it is off."""
+        if self.occ_state is None:
+            self.opt.compact_frac = 0.0
+            return
+        if self.occ_state.iter_density <= WARMUP_UPDATES:
+            return
+        batch = loader.item(0) if hasattr(loader, "item") else next(iter(loader))
+        fill = self.measure_slab_fill(batch)
+        n_total = max(self.opt.num_steps + self.opt.upsample_steps, 2)
+        frac = compaction_frac(fill, self.opt.compact_block, n_total)
+        self.log(f"[INFO] compaction auto-tune: measured slab fill "
+                 f"{fill:.3f} → --compact_frac {frac:.3f}")
+        self.opt.compact_frac = frac
 
     # ---------------------------------------------------------- train loop
     def train_one_epoch(self, loader):
+        if self.opt.cuda_ray and self.opt.compact_frac == -1:
+            self._autotune_compaction(loader)
         self.log(f"==> Start Training Epoch {self.epoch}, "
                  f"lr={self.lr_at(self.n_updates):.6f} ...")
         losses = []
         for batch in loader:
-            if self.global_step % self.opt.update_extra_interval == 0:
+            if (self.opt.cuda_ray
+                    and self.global_step % self.opt.update_extra_interval == 0):
                 self.update_extra_state()
             self.global_step += 1
             loss, _, _ = self.train_step(batch)
@@ -298,8 +383,11 @@ class Trainer:
     # ---------------------------------------------------------- checkpoints
     def _occ_extra(self):
         """The occupancy grid, which checkpoint-driven renders must march
-        (a fresh grid cost 3.6 dB on bear eval frames, trainer.py:939-953)."""
+        (a fresh grid cost 3.6 dB on bear eval frames, trainer.py:939-953);
+        None without one."""
         occ = self.occ_state
+        if occ is None:
+            return None
         return {"mean_density": float(occ.mean_density), "mean_count": 0,
                 "density_grid": occ.density_grid.detach().cpu().numpy(),
                 "density_bitfield": occ.bitfield.detach().cpu().numpy(),
@@ -323,7 +411,8 @@ class Trainer:
         if not path or not os.path.exists(str(path)):
             self.log(f"[WARN] checkpoint {path} not found.")
             return
-        params, meta = ckpt_io.load_checkpoint(str(path))
+        params, meta = ckpt_io.load_checkpoint(
+            str(path), conf_channels=self.field.cfg.conf_channels)
         self.field.load_state_dict(params_from_flax(params))
         self.log("[INFO] loaded model.")
         # the occupancy grid is model state in the reference: restored on
@@ -344,8 +433,9 @@ class Trainer:
         self.log(f"[INFO] load at epoch {self.epoch}, global step {self.global_step}")
 
     def _restore_occ_state(self, meta):
-        """The occupancy state from checkpoint meta (trainer.py:1023-1050)."""
-        if meta.get("density_grid") is None:
+        """The occupancy state from checkpoint meta (trainer.py:1023-1050),
+        under ``-O`` only."""
+        if not self.opt.cuda_ray or meta.get("density_grid") is None:
             return
         g = self.opt.occ_grid_size
         grid = torch.tensor(np.asarray(meta["density_grid"], np.float32),

@@ -1,5 +1,11 @@
-"""The tri-plane NeRF field with a foreground-confidence channel
-(counterpart of ``customnerf_tpu/models/field.py``).
+"""The grid NeRF field with a foreground-confidence channel (counterpart of
+``customnerf_tpu/models/field.py``).
+
+The position encoder follows the spec's type (``encode_positions``): the
+reference's multiresolution tiled / hash grid (``GridSpec``, the default:
+tiled, 16 levels × 2 channels at 2^21 rows and desired resolution 8192,
+``network_grid.py:89-96``, a 32-wide feature) or the tri-plane
+(``TriplaneSpec``, ``--grid_type triplane``).
 
 Default fused head, all bias-free and 64 wide (tcnn FullyFusedMLP parity):
 ``feature_net`` (2 hidden ReLU layers + linear out), ``density_net``
@@ -21,13 +27,13 @@ flax heads for them (``make_pallas_apply`` covers the default head only):
 
 Parameter names follow the flax tree (``feature_net.hidden_0.weight`` ↔
 ``feature_net/hidden_0/kernel``) so ``engine/convert.py`` maps one onto the
-other.
+other.  A seed gives the JAX package's initial field
+(``init_params(PRNGKey(seed))``, reproduced by ``utils/threefry.py``).
 """
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -35,14 +41,35 @@ from torch import nn
 from customnerf_torch.ops.activations import trunc_exp
 from customnerf_torch.ops.frequency import freq_encode, freq_encode_dim
 from customnerf_torch.ops.fused_mlp import fused_field_mlp
-from customnerf_torch.ops.triplane import (TriplaneSpec, triplane_encode,
-                                           triplane_init)
+from customnerf_torch.ops.grid import GridSpec, grid_encode
+from customnerf_torch.ops.triplane import TriplaneSpec, triplane_encode
+from customnerf_torch.utils import threefry
+
+# the reference field's encoder (network_grid.py:89-96)
+PARITY_GRID = GridSpec(input_dim=3, num_levels=16, level_dim=2,
+                       base_resolution=16, log2_hashmap_size=21,
+                       desired_resolution=8192, gridtype="tiled")
+
+
+def encode_positions(x01, table, spec):
+    """The position encoder the spec's type selects: the tri-plane
+    (``TriplaneSpec``) or the hash / tiled grid (``GridSpec``)."""
+    if isinstance(spec, TriplaneSpec):
+        return triplane_encode(x01, table, spec)
+    return grid_encode(x01, table, spec)
+
+
+def encoder_init(spec, key) -> torch.Tensor:
+    """The table as the JAX package's ``encoder_init`` draws it from
+    ``key``: U(−1e-4, 1e-4) over [table_size, max channels]."""
+    width = spec.max_channels if isinstance(spec, TriplaneSpec) else spec.level_dim
+    return torch.from_numpy(threefry.uniform(key, (spec.table_size, width), -1e-4, 1e-4))
 
 
 @dataclass(frozen=True)
 class FieldConfig:
     bound: float = 2.0
-    grid: TriplaneSpec = dc_field(default_factory=TriplaneSpec)
+    grid: GridSpec | TriplaneSpec = PARITY_GRID
     dir_multires: int = 4
     hidden: int = 64
     train_conf: bool = True
@@ -70,8 +97,11 @@ class MLP(nn.Module):
         self.out = nn.Linear(dims[-1], out_dim, bias=use_bias)
         self.n_hidden = n_hidden
 
+    def names(self):
+        return [f"hidden_{i}" for i in range(self.n_hidden)] + ["out"]
+
     def layers(self):
-        return [getattr(self, f"hidden_{i}") for i in range(self.n_hidden)] + [self.out]
+        return [getattr(self, n) for n in self.names()]
 
     def kernels(self):
         """[in, out] matrices in layer order (the flax Dense.kernel layout)."""
@@ -85,8 +115,8 @@ class MLP(nn.Module):
 
 
 class NeRFField(nn.Module):
-    """Tri-plane field: the default fused rgb + conf head, or a variant's
-    plain heads (``fused`` tells which)."""
+    """Grid or tri-plane field: the default fused rgb + conf head, or a
+    variant's plain heads (``fused`` tells which)."""
 
     def __init__(self, cfg: FieldConfig, seed: int = 0, device=None):
         super().__init__()
@@ -96,10 +126,11 @@ class NeRFField(nn.Module):
         h, bias = cfg.hidden, cfg.use_bias
         split_conf = cfg.detach_mask_from_field or cfg.mask_no_dir
         self.fused = cfg.train_conf and not split_conf and not bias
-        # initialised on the CPU from one seeded generator, then moved: the
-        # same seed gives the same field on every device
-        gen = torch.Generator().manual_seed(int(seed))
-        self.grid_table = nn.Parameter(triplane_init(cfg.grid, generator=gen))
+        # initialised on the host as the JAX package's init_params(PRNGKey(
+        # seed)) draws its field (utils/threefry.py), then moved: a seed
+        # gives the same field on every device and in both packages
+        root = threefry.prng_key(int(seed))
+        self.grid_table = nn.Parameter(encoder_init(cfg.grid, threefry.param_key(root, 1)))
         self.feature_net = MLP(cfg.grid.output_dim, h, h, 2, bias)
         self.density_net = MLP(h, 1, h, 1, bias)
         rgb_out = 3 + (cfg.conf_channels if cfg.train_conf and not split_conf else 0)
@@ -108,28 +139,27 @@ class NeRFField(nn.Module):
         if cfg.train_conf and split_conf:
             conf_in = h if cfg.mask_no_dir else cfg.dir_dim + h
             self.conf_net = MLP(conf_in, cfg.conf_channels, h, 1, bias)
-        self._init_mlps(gen)
+        self._init_mlps(root)
         self.to(device)
 
     def _mlps(self):
-        return [m for m in (self.feature_net, self.density_net, self.rgb_net,
-                            self.conf_net) if m is not None]
+        return {name: m for name, m in (
+            ("feature_net", self.feature_net), ("density_net", self.density_net),
+            ("rgb_net", self.rgb_net), ("conf_net", self.conf_net)) if m is not None}
 
     @torch.no_grad()
-    def _init_mlps(self, gen):
+    def _init_mlps(self, root):
         # the flax Dense default, LeCun normal: a normal truncated to ±2σ
-        # (drawn by inverting its CDF) with variance 1/fan_in; biases start
-        # at zero, as flax's do.  A normal clipped at ±2σ instead has 24 %
-        # more variance, and trained the bear fixture measurably worse
-        # (PERF.md, Findings).
-        lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-        for mod in self._mlps():
-            for lin in mod.layers():
-                std = lin.weight.shape[1] ** -0.5 / 0.87962566103423978
-                u = lo + (1.0 - 2.0 * lo) * torch.rand(lin.weight.shape, generator=gen,
-                                                       dtype=torch.float64)
-                w = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-                lin.weight.copy_(torch.clamp(w, -2.0, 2.0) * std)
+        # with variance 1/fan_in, each kernel from flax's key for its path;
+        # biases start at zero, as flax's do.  A normal clipped at ±2σ
+        # instead has 24 % more variance, and trained the bear fixture
+        # measurably worse (PERF.md, Findings).
+        for name, mod in self._mlps().items():
+            for layer, lin in zip(mod.names(), mod.layers()):
+                fan_in = lin.weight.shape[1]
+                kernel = threefry.lecun_normal(threefry.param_key(root, name, layer, 1),
+                                               fan_in, (fan_in, lin.weight.shape[0]))
+                lin.weight.copy_(kernel.t())
                 if lin.bias is not None:
                     lin.bias.zero_()
 
@@ -149,7 +179,7 @@ class NeRFField(nn.Module):
         c = self.cfg
         xf = x.reshape(-1, 3)
         x01 = (xf + c.bound) / (2.0 * c.bound)
-        return xf, triplane_encode(x01, self.grid_table, c.grid).contiguous()
+        return xf, encode_positions(x01, self.grid_table, c.grid).contiguous()
 
     def _plain_heads(self, x_en, view_en):
         """The variants' heads (``field.py:167-185``) → (sigma_raw [N],

@@ -1,12 +1,17 @@
-"""Occupancy-grid fast-path volume renderer (counterpart of
-``customnerf_tpu/models/renderer.py``: ``RenderSettings``, ``_composite``,
-``_add_fg_bg``, ``_eval_field_compacted_pl`` and ``render_rays_fast``).
+"""Volume renderers (counterpart of ``customnerf_tpu/models/renderer.py``:
+``RenderSettings``, ``_composite``, ``_add_fg_bg``, ``render_rays``,
+``_eval_field_compacted_pl`` and ``render_rays_fast``).
 
-March occupied cells only, evaluate the field on a fixed [N, n_keep] slab —
-or, with ``compact_frac`` > 0, on its cross-ray compaction — and composite
-every kept sample over its own march step (const dt), with the fg/bg σ
-decomposition through the confidence mask (reference renderer.py:383-418,
-597-718).  The dense two-pass ``render_rays`` is later work.
+``render_rays`` is the dense two-pass path (``-O2``, reference
+renderer.py:278-474): stratified coarse depths, a density-only coarse pass
+whose weights only steer ``sample_pdf``, importance resampling, one fused
+field evaluation on the merged, sorted depths, and the composite over
+consecutive depth gaps.  ``render_rays_fast`` is the occupancy-grid path
+(``-O``): march occupied cells only, evaluate the field on a fixed
+[N, n_keep] slab — or, with ``compact_frac`` > 0, on its cross-ray
+compaction — and composite every kept sample over its own march step
+(const dt).  Both add the fg/bg σ decomposition through the confidence
+mask (reference renderer.py:383-418, 597-718).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from customnerf_torch.ops.compaction import (block_budget, compact_plan,
                                              ray_permutation, slot_sources)
-from customnerf_torch.ops.composite import (alphas_from_sigmas,
+from customnerf_torch.ops.composite import (alphas_from_sigmas, sample_pdf,
                                             weights_from_alphas)
 from customnerf_torch.ops.occupancy import march_rays_occupancy
 from customnerf_torch.ops.ray import near_far_from_aabb
@@ -96,6 +101,74 @@ def _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars,
                                sample_dist, nears, fars, s, const_dt=const_dt)
     results["bg"] = _composite(sigmas * (1.0 - edit_mask), rgbs, masks, z_all,
                                sample_dist, nears, fars, s, const_dt=const_dt)
+
+
+def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
+                perturb: bool = False, generator=None, bg_color=None,
+                draws=None, mark=None):
+    """The dense two-pass path.  ``field`` is a ``NeRFField`` (its
+    ``density`` runs the coarse pass, its call the fine one).  The depth
+    jitter (``perturb``) and, when ``train``, ``sample_pdf``'s u come from
+    ``generator``; ``draws`` may fix them (``jitter`` [N, num_steps],
+    ``u`` [N, upsample_steps]).  Evaluation (``train`` False) samples the
+    pdf at evenly spaced u.  ``mark(name)`` is called at the stage
+    boundaries ``coarse``, ``resample``, ``fine`` and ``composite``.
+    Returns the same dict as ``render_rays_fast`` (``stats`` empty)."""
+    draws = draws or {}
+    mark = mark or (lambda _: None)
+    dev = rays_o.device
+    T = s.num_steps
+    aabb = torch.tensor([-s.bound] * 3 + [s.bound] * 3, dtype=torch.float32,
+                        device=dev)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, s.min_near)
+    nears, fars = nears[:, None], fars[:, None]
+
+    # jnp.linspace(0, 1, T) as XLA computes it: i · (1 / (T − 1)) in f32
+    lin = torch.arange(T, dtype=torch.float32, device=dev) * (1.0 / max(T - 1, 1))
+    z_vals = nears + (fars - nears) * lin[None]
+    sample_dist = (fars - nears) / T                                # [N, 1]
+    if perturb:
+        jitter = draws.get("jitter")
+        if jitter is None:
+            jitter = torch.rand(z_vals.shape, generator=generator, device=dev)
+        z_vals = z_vals + (jitter - 0.5) * sample_dist
+
+    def make_xyzs(z):
+        xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        return torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
+
+    if s.upsample_steps > 0:
+        # importance resampling on the coarse pass's weights, which carry no
+        # gradient (renderer.py:333-367): run it without a graph
+        with torch.no_grad():
+            sigmas_coarse = field.density(make_xyzs(z_vals))        # [N, T]
+            mark("coarse")
+            deltas = z_vals[..., 1:] - z_vals[..., :-1]
+            deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])], -1)
+            weights_c = weights_from_alphas(alphas_from_sigmas(sigmas_coarse, deltas))
+            z_mid = z_vals[..., :-1] + 0.5 * deltas[..., :-1]
+            new_z = sample_pdf(z_mid, weights_c[:, 1:-1], s.upsample_steps,
+                               det=not train, generator=generator,
+                               u=draws.get("u") if train else None)
+            z_all, _ = torch.sort(torch.cat([z_vals, new_z], dim=1), dim=1)
+            mark("resample")
+    else:
+        z_all = z_vals
+    # a point is a function of its depth alone: computing the points from
+    # the sorted depths equals sorting the coarse and fine points (as the
+    # JAX package does with a stable argsort), ties included
+    xyz_all = make_xyzs(z_all)
+
+    sigmas, radiance = field(xyz_all, rays_d[:, None, :].expand_as(xyz_all))
+    mark("fine")
+    rgbs = radiance[..., :3]
+    masks = radiance[..., 3:] if radiance.shape[-1] > 3 else None
+    results = _composite(sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s,
+                         detach_nonedit=s.detach_bg, bg_color=bg_color)
+    _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s)
+    mark("composite")
+    results["stats"] = {}
+    return results
 
 
 def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,

@@ -27,7 +27,7 @@ from customnerf_tpu.ops import occupancy as jocc
 from customnerf_torch import config as tconfig
 from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine import checkpoint as tckpt
-from customnerf_torch.engine.convert import params_to_flax
+from customnerf_torch.engine.convert import params_from_flax, params_to_flax
 from customnerf_torch.engine.trainer import Trainer, build_field
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -183,11 +183,23 @@ def test_ring_latest_and_resume(tmp_path):
 
 
 def test_unported_formats_name_their_roadmap_item(tmp_path):
+    """``.orbax`` still raises; a reference-format (tcnn) file now loads
+    through the shim (``tests/test_torch_refckpt.py`` holds it to JAX)."""
+    from customnerf_torch.engine.torch_shim import export_reference_checkpoint
+    from customnerf_torch.models.field import FieldConfig, NeRFField
+    from customnerf_torch.ops.grid import GridSpec
     with pytest.raises(NotImplementedError, match="ROADMAP.*orbax"):
         tckpt.load_checkpoint(str(tmp_path / "df_ep0001.orbax"))
     tcnn = str(tmp_path / "ref.pth")
-    torch.save({"model": {"encoder.params": torch.zeros(4)}, "epoch": 1}, tcnn)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*hash grid"):
-        tckpt.load_checkpoint(tcnn)
+    field = NeRFField(FieldConfig(grid=GridSpec(num_levels=16, base_resolution=4,
+                                                log2_hashmap_size=10,
+                                                desired_resolution=64,
+                                                gridtype="tiled")), device="cpu")
+    export_reference_checkpoint(params_to_flax(field.state_dict()), tcnn, epoch=1)
+    params, meta = tckpt.load_checkpoint(tcnn)
+    assert meta["epoch"] == 1
+    back = params_from_flax(params)
+    assert back.keys() == field.state_dict().keys()
+    assert all(torch.equal(v, field.state_dict()[k]) for k, v in back.items())
     with pytest.raises(NotImplementedError, match="ROADMAP.*orbax"):
         Trainer(_opt(tmp_path, "--ckpt_format", "orbax"), device="cpu", log=quiet)

@@ -120,11 +120,14 @@ def test_evaluation_strip_psnr_and_best_checkpoint_match_jax(scene, tmp_path, mo
         assert torch.equal(p, q), n
     assert torch.equal(again.occ_state.bitfield, tt.occ_state.bitfield)
     assert again.epoch == 3 and again.stats["best_result"] == tt.stats["best_result"]
-    # a worse evaluation keeps the best file
+    # a worse evaluation keeps the best file (every colour pushed toward
+    # white; the first assertion checks that this evaluation is worse)
     before = path.stat().st_mtime_ns
     with torch.no_grad():
-        tt.field.grid_table.zero_()
+        tt.field.rgb_net.out.weight.zero_()
+        tt.field.rgb_net.out.weight[:3, :] = 1.0
     tt.evaluate_one_epoch(val)
+    assert tt.stats["results"][-1] > tt.stats["best_result"]
     assert path.stat().st_mtime_ns == before
 
 

@@ -268,3 +268,58 @@ def test_density_only_head_matches_pallas_density(fields, monkeypatch):
     assert calls == [False]
     assert td.shape == (9, 37)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+
+
+def test_threefry_draws_equal_jax_random():
+    """``utils/threefry.py`` against ``jax.random``: keys, folds, bits and
+    uniforms bit for bit (the partitionable threefry layout)."""
+    from customnerf_torch.utils import threefry
+    for seed in (0, 1, 12345):
+        key = jax.random.PRNGKey(seed)
+        ours = threefry.prng_key(seed)
+        np.testing.assert_array_equal(np.asarray(key), np.array(ours, np.uint32))
+        for data in (1, 7, 2 ** 31 + 5):
+            np.testing.assert_array_equal(np.asarray(jax.random.fold_in(key, data)),
+                                          np.array(threefry.fold_in(ours, data), np.uint32))
+        np.testing.assert_array_equal(np.asarray(jax.random.bits(key, (300_001,))),
+                                      threefry.random_bits(ours, (300_001,)))
+        for lo, hi in ((0.0, 1.0), (-1e-4, 1e-4), (-0.9545, 0.9545)):
+            np.testing.assert_array_equal(
+                np.asarray(jax.random.uniform(key, (301, 7), minval=lo, maxval=hi)),
+                threefry.uniform(ours, (301, 7), lo, hi))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("kind,kw", [
+    ("grid", {}), ("triplane", {}), ("hash", {"detach_mask_from_field": True,
+                                             "conf_channels": 2}),
+    ("grid", {"mask_no_dir": True, "use_bias": True})],
+    ids=["grid", "triplane", "hash-detach-conf2", "grid-maskNoDir-bias"])
+def test_init_equals_the_jax_package_init(seed, kind, kw):
+    """A seed gives the port the JAX package's ``init_params(PRNGKey(seed))``:
+    the table bit for bit, the kernels to the last bits of f32 ``erfinv``
+    (XLA's and PyTorch's round differently: ≤ 1e-6 of each kernel's largest
+    entry), zero biases.  The bear parity run's outcome depends on the
+    initial draw (PERF.md, PR 5)."""
+    from customnerf_tpu.ops import grid as jgrid
+    from customnerf_torch.ops import grid as tgrid
+    g = dict(num_levels=4, level_dim=2, base_resolution=4, log2_hashmap_size=10,
+             desired_resolution=64, gridtype="hash" if kind == "hash" else "tiled")
+    jspec, tspec = ((jtri.TriplaneSpec(resolutions=RES, channels=CH),
+                     triplane.TriplaneSpec(RES, CH)) if kind == "triplane"
+                    else (jgrid.GridSpec(**g), tgrid.GridSpec(**g)))
+    want = jax.tree_util.tree_map(np.asarray, jfield.NeRFField(
+        jfield.FieldConfig(bound=BOUND, grid=jspec, **kw)).init_params(
+            jax.random.PRNGKey(seed)))
+    got = convert.params_to_flax(tfield.NeRFField(
+        tfield.FieldConfig(bound=BOUND, grid=tspec, **kw), seed=seed,
+        device="cpu").state_dict())
+    w, t = (dict(jax.tree_util.tree_leaves_with_path(x)) for x in (want, got))
+    assert w.keys() == t.keys()
+    for path, a in w.items():
+        name = jax.tree_util.keystr(path)
+        if "grid_table" in name or "bias" in name:
+            np.testing.assert_array_equal(t[path], a, err_msg=name)
+        else:
+            np.testing.assert_allclose(t[path], a, rtol=0,
+                                       atol=1e-6 * np.abs(a).max(), err_msg=name)

@@ -4,7 +4,8 @@ and none of ``transformers``, ``safetensors`` or ``cv2`` (the card's machine
 may lack them), and the entry points run on the card unless the caller asks
 for the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not
 speed): the trainer loop, the CLI on a nerfstudio fixture then ``--test``,
-and phase 1 → checkpoint → phase 2 (editing)."""
+and phase 1 → checkpoint → phase 2 (editing), on the ``-O`` tri-plane path
+and on ``bear.sh --parity``'s ``-O2`` grid path."""
 
 import math
 import os
@@ -35,7 +36,10 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
               "safetensors", "cv2") and sys.modules[m] is not None)
 assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.data.nerfstudio", "customnerf_torch.data.llff",
-        "customnerf_torch.data.dtu", "customnerf_torch.data.fixtures"} <= set(mods)
+        "customnerf_torch.data.dtu", "customnerf_torch.data.fixtures",
+        "customnerf_torch.ops.grid", "customnerf_torch.ops.morton",
+        "customnerf_torch.ops.regularizers",
+        "customnerf_torch.engine.torch_shim"} <= set(mods)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -88,14 +92,31 @@ def test_entry_points_raise_without_cpu_request(monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_item():
+    """``-O2``, ``--compact_frac -1`` and the tiled / hash grid are ported
+    and construct; ``--mesh_shape``, ``--ckpt_format orbax``, Custom
+    Diffusion and SD 2.x still raise, naming their ROADMAP item."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.ops.grid import GridSpec
     grid = "--grid_type triplane --triplane_res 8 16 --triplane_channels 4 2"
-    for flags in ("-O2", "-O --compact_frac -1", "-O --grid_type hash"):
+    small = ("--grid_levels 4 --grid_base_resolution 4 --log2_hashmap_size 10 "
+             "--desired_resolution 64")
+    quiet = lambda *_: None                                     # noqa: E731
+    for flags, dense, gridtype in (("-O2", True, "triplane"),
+                                   ("-O --compact_frac -1", False, "triplane"),
+                                   (f"-O --grid_type hash {small}", False, "hash"),
+                                   (f"-O2 --grid_type tiled {small}", True, "tiled")):
         opt = parse_args(f"--data_type synthetic {grid} {flags}".split())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(opt, device="cpu", log=lambda *_: None)
+        tr = Trainer(opt, device="cpu", log=quiet)
+        assert (tr.occ_state is None) == dense
+        spec = tr.field.cfg.grid
+        assert (spec.gridtype if isinstance(spec, GridSpec) else "triplane") == gridtype
+    for flags, item in (("-O --mesh_shape data:8", "multi-device"),
+                        ("-O --ckpt_format orbax", "orbax")):
+        opt = parse_args(f"--data_type synthetic {grid} {flags}".split())
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            Trainer(opt, device="cpu", log=quiet)
     for flags in ("--use_cd x", "--sd_version 2.1"):
         opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained {flags}".split())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -211,3 +232,92 @@ def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     assert edit.pt_dict and all(e["match_probs"] is not None for e in edit.pt_dict.values())
     assert sorted(os.listdir(tmp_path / "edit" / "checkpoints")) == [
         "df_ep0000.pth", "df_ep0001.pth", "df_ep0002.pth"]
+
+
+TINY_O2 = ("-O2 --grid_levels 4 --grid_level_dim 2 --grid_base_resolution 4 "
+           "--log2_hashmap_size 10 --desired_resolution 64 --num_steps 8 "
+           "--upsample_steps 8 --bound 2 --train_conf 0.01 --soft_mask "
+           "--max_ray_batch 1000 --ckpt scratch").split()
+
+
+def test_tiny_o2_cli_nerfstudio_then_test_on_cpu(tmp_path, monkeypatch):
+    """``bear.sh --parity`` phase 1 in miniature through ``python -m
+    customnerf_torch`` (the CPU asked for): ``-O2`` on a tiled grid, an
+    evaluation each epoch with no occupancy grid in the checkpoints, the
+    test path, then ``--test`` from the best checkpoint."""
+    from customnerf_torch.__main__ import main
+    from customnerf_torch.data import fixtures
+    from customnerf_torch.engine import checkpoint
+    data = fixtures.write("nerfstudio", str(tmp_path / "data"), 8, 40, 30)
+    flags = TINY_O2 + [
+        "--train_size", "6", "--iters", "12", "--data_type", "nerfstudio",
+        "--data_path", data, "--keyword", "lang_bear", "--train_resolution_level", "2",
+        "--eval_resolution_level", "3", "--workspace", str(tmp_path / "ws")]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    tr = main(flags, log=lambda *_: None, device="cpu")
+    assert tr.global_step == 12 and tr.occ_state is None
+    assert len(tr.stats["results"]) == 2
+    assert all(math.isfinite(r) for r in tr.stats["results"])
+    assert sorted(os.listdir(tmp_path / "ws" / "validation")) == [
+        "df_ep0001.png", "df_ep0002.png"]
+    best = str(tmp_path / "ws" / "checkpoints" / "df.pth")
+    params, meta = checkpoint.load_checkpoint(best)
+    assert "density_grid" not in meta and params["params"]["grid_table"].shape[1] == 2
+    assert len(os.listdir(tmp_path / "ws" / "results" / "df_ep0002_test")) == 73
+    lines = []
+    tt = main(flags + ["--test", "--ckpt", best], log=lines.append, device="cpu")
+    assert tt.epoch == tr.epoch and f"[INFO] Loading {best} ..." in lines
+    assert torch.equal(tt.field.grid_table, tr.field.grid_table)
+
+
+def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
+    """``bear.sh --parity``'s two phases on ``-O2``: reconstruct, save
+    ``df_ep*.pth``, then ``--pretrained --editing_from`` it with a tiny SD
+    stack; the frozen field renders as the saved one, the edit moves the
+    field."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.text import CLIPTextConfig, CLIPTextModel, TextEncoder
+    from customnerf_torch.guidance.unet import UNetConfig
+    from customnerf_torch.guidance.vae import VAEConfig
+    quiet = lambda *_: None                                     # noqa: E731
+    scene = ["--data_type", "synthetic", "--h", "16", "--w", "16", "--train_size", "6",
+             "--iters", "12"]
+    p1 = parse_args(TINY_O2 + scene + ["--workspace", str(tmp_path / "recon")])
+    recon = Trainer(p1, device="cpu", log=quiet, use_checkpoint=p1.ckpt)
+    recon.train(NeRFDataset(p1, "train", device="cpu").dataloader(), max_epochs=2)
+    ckpt = tmp_path / "recon" / "checkpoints" / "df_ep0002.pth"
+    assert ckpt.exists()
+
+    p2 = parse_args(TINY_O2 + scene + [
+        "--workspace", str(tmp_path / "edit"), "--pretrained", "--editing_from",
+        str(ckpt), "--text", "a corgi in a forest", "--text_fg", "a corgi",
+        "--lambda_sd", "0.01", "--keep_bg", "1000", "--cfg", "100", "--random_bg_c",
+        "--detach_bg", "--stage_time", "--sd_version", "1.5",
+        "--allow_random_guidance"])
+    text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4)))
+    guidance = StableDiffusionGuidance(
+        p2, device="cpu", text_encoder=text,
+        unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                            cross_attention_dim=32, attention_head_dim=4,
+                            norm_num_groups=8),
+        vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
+                          norm_num_groups=8))
+    edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
+    assert edit.occ_state is None
+    view = NeRFDataset(p2, "val", device="cpu").dataloader().item(0)
+    a = recon.render_image(view.rays_o, view.rays_d)
+    b = edit.render_image(view.rays_o, view.rays_d, field=edit.field_pretrained)
+    assert torch.equal(a["image"], b["image"])
+    before = edit.field.grid_table.detach().clone()
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=2)
+    assert edit.global_step == 12 and edit.n_updates == 12
+    assert all(math.isfinite(v) for v in edit.stats["loss"]) and edit.pt_dict
+    assert not torch.equal(edit.field.grid_table, before)

@@ -62,6 +62,53 @@ def test_density_only_sigma_is_bitwise_the_full_calls(cuda):
     assert torch.equal(s_full, s_dens)
 
 
+@pytest.mark.parametrize("with_rgb", [True, False])
+@pytest.mark.parametrize("B", [1, 17, BLOCK_POINTS - 1, BLOCK_POINTS + 1, 5000, 2 ** 20 + 3])
+def test_fused_mlp_kernel_on_grid_features(cuda, B, with_rgb):
+    """K1 at in_dim 32: the reference grid's 16 levels × 2 channels
+    (``bear.sh --parity``), full head and density-only, ragged B."""
+    from customnerf_torch.ops import fused_mlp as fm
+    rng = np.random.RandomState(B)
+    shapes = [(32, 64)] + SHAPES[1:]
+    ws = [torch.tensor((rng.randn(*s) / np.sqrt(s[0])).astype(np.float32),
+                       device=cuda) for s in shapes]
+    x = torch.tensor(rng.randn(B, 32).astype(np.float32), device=cuda)
+    v = torch.tensor(rng.randn(B, 27).astype(np.float32), device=cuda)
+    n0 = fm.fused_mlp_forward.launches
+    sk, rk = fm.fused_mlp_forward(x, v, ws, with_rgb=with_rgb)
+    sp, rp = fm.reference_forward(x, v, ws, with_rgb=with_rgb)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_forward.launches == n0 + 1
+    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-4)
+    if with_rgb:
+        torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-4)
+    else:
+        assert rk is None and torch.equal(fm.fused_mlp_forward(x, v, ws)[0], sk)
+
+
+@pytest.mark.parametrize("gridtype", ["tiled", "hash"])
+def test_grid_encode_on_card_matches_cpu(cuda, gridtype):
+    """The plain grid encoder on the card against the same call on the CPU:
+    the output, and the table gradient summed by index_add_ atomics."""
+    from customnerf_torch.ops.grid import GridSpec, grid_encode, grid_init
+    spec = GridSpec(num_levels=16, level_dim=2, base_resolution=16,
+                    log2_hashmap_size=15, desired_resolution=1024, gridtype=gridtype)
+    table = grid_init(spec, generator=torch.Generator().manual_seed(0)) * 1e4
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.rand(20000, 3).astype(np.float32) * 1.1 - 0.05)
+    g = torch.tensor(rng.randn(20000, spec.output_dim).astype(np.float32))
+
+    def run(dev):
+        t = table.to(dev).clone().requires_grad_(True)
+        xx = x.to(dev).clone().requires_grad_(True)
+        out = grid_encode(xx, t, spec)
+        (out * g.to(dev)).sum().backward()
+        return out.detach().cpu(), t.grad.cpu(), xx.grad.cpu()
+
+    for got, want in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
 def _dtable_inputs(rng, B, R, C, device, ld=None):
     u0 = torch.tensor(rng.randint(0, R - 1, B).astype(np.int32), device=device)
     v0 = torch.tensor(rng.randint(0, R - 1, B).astype(np.int32), device=device)

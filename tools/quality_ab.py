@@ -6,13 +6,21 @@ grid's mean density and occupied share at each refresh.
     python -m tools.quality_ab [VARIANT ...]
 
 Each VARIANT is one quoted string of extra flags for ``bear.sh`` phase 1
-(``""`` is the recipe as it stands), optionally with one of two words that
-swap a piece of the field for a study:
+(``""`` is the recipe as it stands), optionally with words that swap a
+piece of the run for a study:
 
 * ``PLAIN``: the fused-MLP and table-gradient kernels' plain PyTorch
   versions instead of the kernels;
-* ``BF16``: the heads in bfloat16 (the JAX package's ``-O`` policy for its
-  flax heads), plain PyTorch.
+* ``BF16``: the heads in bfloat16 (the JAX package's ``-O``/``-O2`` policy
+  for its flax heads), plain PyTorch;
+* ``PARITY``: ``bear.sh --parity`` phase 1's flags (``-O2``, the reference
+  grid) instead of the flagship's;
+* ``NOSAVE``: no ring checkpoints (the best result's ``df.pth`` is still
+  written), to shorten a study;
+* ``INIT=<k>``: the field initialised from seed ``k`` while ``--seed``
+  keeps driving the random streams (jitter, ``sample_pdf``'s u, the image
+  order);
+* ``FIXTURE=<llff|dtu>``: that fixture instead of the bear.
 
 e.g. ``python -m tools.quality_ab "" "--seed 1" "--compact_frac 0" PLAIN``.
 The fixture is written as ``chip_smoke.py`` writes it, into
@@ -37,6 +45,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from customnerf_torch.__main__ import main as cli
     from customnerf_torch.engine.measure import card_line
+    from customnerf_torch.engine import trainer as trainer_mod
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.models import field
     from customnerf_torch.ops import fused_mlp, kernels, triplane, triplane_kernels
@@ -48,7 +57,7 @@ def main(argv=None) -> int:
     try:
         kernels.build()
         kernels.library()
-        path = cs.wait_fixture(procs["nerfstudio"], "nerfstudio")
+        paths = {t: cs.wait_fixture(p, t) for t, p in procs.items()}
     finally:
         for p in procs.values():
             p.kill()
@@ -56,6 +65,7 @@ def main(argv=None) -> int:
 
     steps, refreshes = [], []
     train_step, update = Trainer.train_step, Trainer.update_extra_state
+    save, build_field = Trainer.save_checkpoint, trainer_mod.build_field
 
     def step(self, *a, **kw):
         out = train_step(self, *a, **kw)
@@ -94,14 +104,22 @@ def main(argv=None) -> int:
             fused_mlp.fused_mlp_forward = plain_mlp if "PLAIN" in words else mlp_fwd
             triplane.plane_dtable = (triplane_kernels.plane_dtable_reference
                                      if "PLAIN" in words else dtable)
-            flags = [w for w in words if w not in ("BF16", "PLAIN")]
+            Trainer.save_checkpoint = (lambda self: None) if "NOSAVE" in words else save
+            base = cs.BEAR_PARITY if "PARITY" in words else cs.BEAR_PHASE1
+            init = [int(w[5:]) for w in words if w.startswith("INIT=")]
+            trainer_mod.build_field = build_field if not init else (
+                lambda opt, device=None, k=init[0]: build_field(opt.replace(seed=k), device))
+            fixture = ([w[8:] for w in words if w.startswith("FIXTURE=")]
+                       or ["nerfstudio"])[0]
+            flags = [w for w in words if w not in ("BF16", "PLAIN", "PARITY", "NOSAVE")
+                     and not w.startswith(("INIT=", "FIXTURE="))]
             steps.clear()
             refreshes.clear()
             ws = os.path.join(cs.QUALITY_ROOT, "ws_ab")
             shutil.rmtree(ws, ignore_errors=True)
             t0 = time.time()
-            tr = cli(cs.BEAR_PHASE1 + ["--data_type", "nerfstudio", "--data_path",
-                                       path, "--workspace", ws] + flags,
+            tr = cli(base + ["--data_type", fixture, "--data_path",
+                             paths[fixture], "--workspace", ws] + flags,
                      log=lambda *_: None)
             torch.cuda.synchronize()
             print(f"variant {variant!r} | {card} | wall {time.time() - t0:.1f} s",
@@ -114,12 +132,13 @@ def main(argv=None) -> int:
                 print(f"{e + 1} psnr {-result:.2f} loss_c {means[0]:.5f} loss_m "
                       f"{means[1]:.5f} fill {means[2]:.3f} overflow {means[3]:.3f} "
                       f"mean_density {occ[0]:.3f} occupied {occ[1]:.4f}", flush=True)
-            tag = "_".join(words).replace("-", "") or "recipe"
+            tag = "_".join(words).replace("-", "").replace("=", "") or "recipe"
             last = sorted(os.listdir(os.path.join(ws, "validation")))[-1]
             shutil.copy(os.path.join(ws, "validation", last),
                         os.path.join(out_dir, f"{tag}_{last}"))
     finally:
         Trainer.train_step, Trainer.update_extra_state = train_step, update
+        Trainer.save_checkpoint, trainer_mod.build_field = save, build_field
         field.fused_field_mlp, fused_mlp.fused_mlp_forward = fused, mlp_fwd
         triplane.plane_dtable = dtable
         shutil.rmtree(cs.QUALITY_ROOT, ignore_errors=True)
