@@ -46,7 +46,7 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share.
-8. parity (since PR 5): ``scripts/bear.sh --parity``'s field on the
+8. parity: ``scripts/bear.sh --parity``'s field on the
    synthetic provider — ``-O2``, the reference tiled grid (16 levels × 2
    channels at 2^21 rows, desired resolution 8192: a 23,967,296 × 2
    table), 64 + 64 samples, 16,384 rays a step, 20 steps through

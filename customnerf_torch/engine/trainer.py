@@ -26,8 +26,9 @@ Reference semantics kept:
     ``--editing_from``, the pt-render cache, and ``train_step`` dispatching
     to ``engine/editing.py::editing_step``; refreshes keep their cadence.
 
-The field starts from the JAX package's initial parameters for
-``opt.seed`` (``utils/threefry.py``).  Randomness during training (march
+The grid field starts from the JAX package's initial parameters for
+``opt.seed`` (``utils/threefry.py``), the tri-plane field from a
+``torch.Generator`` seeded with it (``models/field.py``).  Randomness during training (march
 and depth jitter, ``sample_pdf``'s u, refresh jitter, ``--batch_rays``
 subsets, the editing bg colour, t and noises) comes from one
 ``torch.Generator`` on the trainer's device seeded from ``opt.seed``; its
@@ -308,10 +309,9 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, out["stats"]
 
     # ------------------------------------------------ compaction auto-tune
-    def measure_slab_fill(self, batch, jitter=None) -> float:
+    def measure_slab_fill(self, batch) -> float:
         """Mean share of live slots in the fast path's [N, n_keep] slab for
-        one batch, marched as a training step marches (``jitter``
-        [N, 2·n_keep] overrides the generator's draw)."""
+        one batch, marched as a training step marches."""
         opt = self.opt
         n_total = max(opt.num_steps + opt.upsample_steps, 2)
         o, d = batch.rays_o, batch.rays_d
@@ -323,8 +323,7 @@ class Trainer:
             _, valid, _ = march_rays_occupancy(
                 self.occ_state, o, d, torch.where(miss, 0.0, nears),
                 torch.where(miss, 1.0, fars), opt.bound, n_coarse=n_total * 2,
-                n_keep=n_total, perturb=True, generator=self.generator,
-                jitter=jitter)
+                n_keep=n_total, perturb=True, generator=self.generator)
             return float((valid & ~miss[:, None]).float().mean())
 
     def _autotune_compaction(self, loader):

@@ -27,12 +27,15 @@ flax heads for them (``make_pallas_apply`` covers the default head only):
 
 Parameter names follow the flax tree (``feature_net.hidden_0.weight`` ↔
 ``feature_net/hidden_0/kernel``) so ``engine/convert.py`` maps one onto the
-other.  A seed gives the JAX package's initial field
-(``init_params(PRNGKey(seed))``, reproduced by ``utils/threefry.py``).
+other.  A seed gives the grid field the JAX package's initial field
+(``init_params(PRNGKey(seed))``, reproduced by ``utils/threefry.py``); the
+tri-plane field draws from one seeded ``torch.Generator`` (see
+``NeRFField._draws``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -42,7 +45,8 @@ from customnerf_torch.ops.activations import trunc_exp
 from customnerf_torch.ops.frequency import freq_encode, freq_encode_dim
 from customnerf_torch.ops.fused_mlp import fused_field_mlp
 from customnerf_torch.ops.grid import GridSpec, grid_encode
-from customnerf_torch.ops.triplane import TriplaneSpec, triplane_encode
+from customnerf_torch.ops.triplane import (TriplaneSpec, triplane_encode,
+                                           triplane_init)
 from customnerf_torch.utils import threefry
 
 # the reference field's encoder (network_grid.py:89-96)
@@ -59,11 +63,11 @@ def encode_positions(x01, table, spec):
     return grid_encode(x01, table, spec)
 
 
-def encoder_init(spec, key) -> torch.Tensor:
-    """The table as the JAX package's ``encoder_init`` draws it from
-    ``key``: U(−1e-4, 1e-4) over [table_size, max channels]."""
-    width = spec.max_channels if isinstance(spec, TriplaneSpec) else spec.level_dim
-    return torch.from_numpy(threefry.uniform(key, (spec.table_size, width), -1e-4, 1e-4))
+def encoder_init(spec: GridSpec, key) -> torch.Tensor:
+    """The grid table as the JAX package's ``encoder_init`` draws it from
+    ``key``: U(−1e-4, 1e-4) over [table_size, level_dim]."""
+    return torch.from_numpy(threefry.uniform(key, (spec.table_size, spec.level_dim),
+                                             -1e-4, 1e-4))
 
 
 @dataclass(frozen=True)
@@ -126,11 +130,8 @@ class NeRFField(nn.Module):
         h, bias = cfg.hidden, cfg.use_bias
         split_conf = cfg.detach_mask_from_field or cfg.mask_no_dir
         self.fused = cfg.train_conf and not split_conf and not bias
-        # initialised on the host as the JAX package's init_params(PRNGKey(
-        # seed)) draws its field (utils/threefry.py), then moved: a seed
-        # gives the same field on every device and in both packages
-        root = threefry.prng_key(int(seed))
-        self.grid_table = nn.Parameter(encoder_init(cfg.grid, threefry.param_key(root, 1)))
+        table, kernel = self._draws(cfg.grid, int(seed))
+        self.grid_table = nn.Parameter(table)
         self.feature_net = MLP(cfg.grid.output_dim, h, h, 2, bias)
         self.density_net = MLP(h, 1, h, 1, bias)
         rgb_out = 3 + (cfg.conf_channels if cfg.train_conf and not split_conf else 0)
@@ -139,7 +140,7 @@ class NeRFField(nn.Module):
         if cfg.train_conf and split_conf:
             conf_in = h if cfg.mask_no_dir else cfg.dir_dim + h
             self.conf_net = MLP(conf_in, cfg.conf_channels, h, 1, bias)
-        self._init_mlps(root)
+        self._init_mlps(kernel)
         self.to(device)
 
     def _mlps(self):
@@ -147,19 +148,47 @@ class NeRFField(nn.Module):
             ("feature_net", self.feature_net), ("density_net", self.density_net),
             ("rgb_net", self.rgb_net), ("conf_net", self.conf_net)) if m is not None}
 
+    @staticmethod
+    def _draws(spec, seed: int):
+        """(table, kernel) for a seed, drawn on the host and moved with the
+        module, so a seed gives the same field on every device.
+        ``kernel(module, layer, fan_in, fan_out)`` → the layer's [out, in]
+        weight.  Both draw the heads from flax's Dense default, LeCun
+        normal: a normal truncated to ±2σ with variance 1/fan_in.  (A
+        normal clipped at ±2σ instead has 24 % more variance, and trained
+        the bear fixture measurably worse, PERF.md.)
+
+        The grid field draws as the JAX package's ``init_params(PRNGKey(
+        seed))`` does (``utils/threefry.py``): the parity recipe's outcome
+        depends on the initial draw, and its gate's anchor was trained from
+        that draw.  The tri-plane field draws its table, then each head in
+        order, from one seeded ``torch.Generator`` by inverting the
+        truncated normal's CDF: the draw its quality gates were set on
+        (PERF.md)."""
+        if isinstance(spec, GridSpec):
+            root = threefry.prng_key(seed)
+
+            def kernel(module, layer, fan_in, fan_out):
+                return threefry.lecun_normal(threefry.param_key(root, module, layer, 1),
+                                             fan_in, (fan_in, fan_out)).t()
+            return encoder_init(spec, threefry.param_key(root, 1)), kernel
+
+        gen = torch.Generator().manual_seed(seed)
+        lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+
+        def kernel(module, layer, fan_in, fan_out):
+            u = lo + (1.0 - 2.0 * lo) * torch.rand((fan_out, fan_in), generator=gen,
+                                                   dtype=torch.float64)
+            w = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+            return torch.clamp(w, -2.0, 2.0) * (fan_in ** -0.5 / 0.87962566103423978)
+        return triplane_init(spec, generator=gen), kernel
+
     @torch.no_grad()
-    def _init_mlps(self, root):
-        # the flax Dense default, LeCun normal: a normal truncated to ±2σ
-        # with variance 1/fan_in, each kernel from flax's key for its path;
-        # biases start at zero, as flax's do.  A normal clipped at ±2σ
-        # instead has 24 % more variance, and trained the bear fixture
-        # measurably worse (PERF.md, Findings).
+    def _init_mlps(self, kernel):
+        # biases start at zero, as flax's do
         for name, mod in self._mlps().items():
             for layer, lin in zip(mod.names(), mod.layers()):
-                fan_in = lin.weight.shape[1]
-                kernel = threefry.lecun_normal(threefry.param_key(root, name, layer, 1),
-                                               fan_in, (fan_in, lin.weight.shape[0]))
-                lin.weight.copy_(kernel.t())
+                lin.weight.copy_(kernel(name, layer, *lin.weight.shape[::-1]))
                 if lin.bias is not None:
                     lin.bias.zero_()
 

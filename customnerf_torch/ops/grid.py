@@ -2,15 +2,14 @@
 ``customnerf_tpu/ops/grid.py``; reference CUDA ``gridencoder.cu:88-339``).
 
 The JAX package runs this encoder as plain XLA (no Pallas kernel), so the
-port's is plain PyTorch: a gather of the eight cell corners per level and a
-trilinear sum.  The table gradient is an ``autograd.Function`` whose
-backward recomputes each level's corners and adds them with one
-``index_add_`` per level into that level's rows of ONE zeroed gradient
-(atomics on the card).  Indexing the table with ``table[idx]`` instead
-would backpropagate through ``index_put_(accumulate=True)``, which sorts
-its indices on CUDA; and a differentiable ``index_select`` per level would
-allocate and sum a full-table gradient per level (16 × 192 MB at the
-parity spec).
+port's is plain PyTorch: one gather of every level's eight cell corners
+and a trilinear sum.  The table gradient is an ``autograd.Function`` whose
+backward recomputes the corners and adds every level's rows with ONE
+``index_add_`` into one zeroed gradient (atomics on the card).  Indexing
+the table with ``table[idx]`` instead would backpropagate through
+``index_put_(accumulate=True)``, which sorts its indices on CUDA; and a
+differentiable ``index_select`` per level would allocate and sum a
+full-table gradient per level (16 × 192 MB at the parity spec).
 
 Semantics kept exactly (the JAX module's "traps"):
   * ``scale_l = 2^(l·S)·H − 1``, ``res_l = ceil(scale_l) + 1`` with
@@ -23,8 +22,9 @@ Semantics kept exactly (the JAX module's "traps"):
     uint32 with wraparound in the JAX package and the CUDA reference; here
     it is int64 masked to 32 bits before the modulo;
   * per-level sizes capped at ``2^log2_hashmap_size``, rounded up to 8;
-  * inputs outside [0, 1] give zeros (and zero gradients);
-  * the table starts U(−1e-4, 1e-4).
+  * inputs outside [0, 1] give zeros (and zero gradients).
+
+The table's initial draw is the field's (``models/field.py::encoder_init``).
 """
 
 from __future__ import annotations
@@ -103,14 +103,6 @@ class GridSpec:
     @property
     def table_size(self) -> int:
         return int(self.level_meta["offsets"][-1])
-
-
-def grid_init(spec: GridSpec, generator=None, device=None,
-              dtype=torch.float32) -> torch.Tensor:
-    """Embedding table [table_size, level_dim], U(−1e-4, 1e-4)."""
-    t = torch.rand(spec.table_size, spec.level_dim, generator=generator,
-                   device=device, dtype=dtype)
-    return t * 2e-4 - 1e-4
 
 
 def _axis_view(t: torch.Tensor, d: int, D: int) -> torch.Tensor:

@@ -7,14 +7,14 @@ the Dense kernels from its truncated normal (``lecun_normal``).  This module
 carries the same arithmetic — threefry2x32 with JAX's partitionable layout
 (``jax_threefry_partitionable``, the default), the uniform's mantissa trick
 with its fused scale and shift, flax's path keys — so that a seed gives the
-port the same initial field as the JAX package: the table bit for bit, the
-kernels to the last bits of ``erfinv`` (XLA's and PyTorch's f32 versions
-round differently).
+port's grid field the same initial parameters as the JAX package's: the
+table bit for bit, the kernels to the last bits of ``erfinv`` (XLA's and
+PyTorch's f32 versions round differently).
 
 Why it matters: on ``scripts/bear.sh --parity`` the run's outcome is set by
 the initial draw — some draws leave the object see-through, about 2.5 dB
 lower — so a run is compared with the JAX package's only from the same
-initial field (``PERF.md``, PR 5).  Nothing here imports JAX.
+initial field (``PERF.md``).  Nothing here imports JAX.
 """
 
 from __future__ import annotations

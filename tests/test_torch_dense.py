@@ -11,11 +11,12 @@ step moves its depth by that slope; render outputs rtol 1e-5, atol 1e-6 and grad
 of each leaf's largest entry, as in ``test_torch_renderer.py`` and
 ``test_torch_trainer.py`` (f32 against f32 through the grid encode, the
 heads and a 16-sample composite, summed over rays in another order).  The
-trainer step's gradients are held to 1e-3 of each leaf's largest entry: at
-8,192 samples some ReLU pre-activation lies within rounding of zero (one of
-6.8e-7 against O(1) activations at this seed), takes the other side of the
-kink in one of the two implementations, and moves one column of the next
-layer's kernel gradient by that sample's share (9e-4 of the leaf here).
+trainer step's gradients are held to the same 3e-4, with room for one
+column of one kernel: at 8,192 samples a ReLU pre-activation can lie within
+rounding of zero (one of 6.8e-7 against O(1) activations was seen), take the
+other side of the kink in one of the two implementations, and move one
+column of the kernel it feeds by that sample's share — 9e-4 of the leaf
+when seen, held to 1e-3.
 """
 
 import types
@@ -66,14 +67,27 @@ def _leaves(tree):
     return dict(jax.tree_util.tree_leaves_with_path(tree))
 
 
-def _grads_close(tgrads, jgrads, n_leaves, share=3e-4):
+def _grads_close(tgrads, jgrads, n_leaves, share=3e-4, flip_share=None):
+    """Every leaf to ``share`` of its largest entry.  With ``flip_share``,
+    one column of one kernel may instead sit within ``flip_share``: a ReLU
+    that one side rounds across its kink (module docstring)."""
     jl, tl = _leaves(jgrads), _leaves(tgrads)
     assert jl.keys() == tl.keys() and len(jl) == n_leaves
+    flipped = []
     for path, gj in jl.items():
+        name, gt = jax.tree_util.keystr(path), np.asarray(tl[path])
         scale = np.abs(gj).max()
-        assert scale > 0, path
-        np.testing.assert_allclose(tl[path], gj, rtol=1e-4, atol=share * scale,
-                                   err_msg=jax.tree_util.keystr(path))
+        assert scale > 0, name
+        if flip_share is not None and gj.ndim == 2:
+            excess = (np.abs(gt - gj) - 1e-4 * np.abs(gj)).max(axis=0) / scale
+            cols = np.nonzero(excess > share)[0]
+            assert excess.max() <= flip_share, (name, excess.max())
+            flipped += [(name, int(c)) for c in cols]
+            keep = np.ones(gj.shape[1], bool)
+            keep[cols] = False
+            gt, gj = gt[:, keep], gj[:, keep]
+        np.testing.assert_allclose(gt, gj, rtol=1e-4, atol=share * scale, err_msg=name)
+    assert len(flipped) <= 1, flipped
 
 
 # ----------------------------------------------------------------- sample_pdf
@@ -272,7 +286,7 @@ def test_o2_trainer_step_matches_jax(monkeypatch):
     tloss, _, stats = tt.train_step(batch, perturb=False)
     assert float(tloss) == pytest.approx(float(jloss), rel=1e-5) and stats == {}
     tgrads = convert.params_to_flax({k: p.grad for k, p in field.named_parameters()})
-    _grads_close(tgrads, jax.tree_util.tree_map(np.asarray, jgrads), 8, share=1e-3)
+    _grads_close(tgrads, jax.tree_util.tree_map(np.asarray, jgrads), 8, flip_share=1e-3)
     tnew = _leaves(convert.params_to_flax(field.state_dict()))
     for path, want in _leaves(jnew).items():
         lr = topt.lr * (10.0 if "grid_table" in jax.tree_util.keystr(path) else 1.0)
@@ -317,7 +331,7 @@ def test_autotune_rule_matches_jax(block, num_steps):
     assert tr.opt.compact_frac == -1
 
 
-def test_measure_slab_fill_matches_jax_with_the_same_jitter():
+def test_measure_slab_fill_matches_jax_with_the_same_jitter(monkeypatch):
     flags = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
              "--num_steps 16 --upsample_steps 0 --compact_frac -1 --compact_block 8 "
              "--bound 2 --occ_grid_size 16").split()
@@ -336,6 +350,19 @@ def test_measure_slab_fill_matches_jax_with_the_same_jitter():
     jitter = torch.tensor(np.asarray(jax.random.uniform(key, (300, 32))))
     tr = ttrainer.Trainer(topt, device="cpu", log=lambda *_: None)
     tr.occ_state = tocc.state_from_grid(torch.tensor(dens), 1.0, 10.0, grid_size=16)
-    got = tr.measure_slab_fill(batch, jitter=jitter)
+    # the march draws its jitter with torch.rand: hand it JAX's draw
+    real_rand, drawn = torch.rand, []
+
+    def rand(*shape, **kw):
+        size = shape[0] if len(shape) == 1 and not isinstance(shape[0], int) else shape
+        if tuple(size) == tuple(jitter.shape):
+            drawn.append(kw.get("generator"))
+            return jitter.clone()
+        return real_rand(*shape, **kw)
+
+    monkeypatch.setattr(torch, "rand", rand)
+    got = tr.measure_slab_fill(batch)
+    monkeypatch.undo()
+    assert drawn == [tr.generator]
     assert 0.05 < want < 0.95
     assert got == pytest.approx(want, abs=1e-7)

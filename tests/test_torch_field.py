@@ -291,23 +291,21 @@ def test_threefry_draws_equal_jax_random():
 
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("kind,kw", [
-    ("grid", {}), ("triplane", {}), ("hash", {"detach_mask_from_field": True,
-                                             "conf_channels": 2}),
+    ("grid", {}), ("hash", {}), ("hash", {"detach_mask_from_field": True,
+                                         "conf_channels": 2}),
     ("grid", {"mask_no_dir": True, "use_bias": True})],
-    ids=["grid", "triplane", "hash-detach-conf2", "grid-maskNoDir-bias"])
+    ids=["grid", "hash", "hash-detach-conf2", "grid-maskNoDir-bias"])
 def test_init_equals_the_jax_package_init(seed, kind, kw):
-    """A seed gives the port the JAX package's ``init_params(PRNGKey(seed))``:
-    the table bit for bit, the kernels to the last bits of f32 ``erfinv``
-    (XLA's and PyTorch's round differently: ≤ 1e-6 of each kernel's largest
-    entry), zero biases.  The bear parity run's outcome depends on the
-    initial draw (PERF.md, PR 5)."""
+    """A seed gives the grid field the JAX package's ``init_params(PRNGKey(
+    seed))``: the table bit for bit, the kernels to the last bits of f32
+    ``erfinv`` (XLA's and PyTorch's round differently: ≤ 1e-6 of each
+    kernel's largest entry), zero biases.  The bear parity run's outcome
+    depends on the initial draw (PERF.md)."""
     from customnerf_tpu.ops import grid as jgrid
     from customnerf_torch.ops import grid as tgrid
     g = dict(num_levels=4, level_dim=2, base_resolution=4, log2_hashmap_size=10,
-             desired_resolution=64, gridtype="hash" if kind == "hash" else "tiled")
-    jspec, tspec = ((jtri.TriplaneSpec(resolutions=RES, channels=CH),
-                     triplane.TriplaneSpec(RES, CH)) if kind == "triplane"
-                    else (jgrid.GridSpec(**g), tgrid.GridSpec(**g)))
+             desired_resolution=64, gridtype=kind if kind == "hash" else "tiled")
+    jspec, tspec = jgrid.GridSpec(**g), tgrid.GridSpec(**g)
     want = jax.tree_util.tree_map(np.asarray, jfield.NeRFField(
         jfield.FieldConfig(bound=BOUND, grid=jspec, **kw)).init_params(
             jax.random.PRNGKey(seed)))
@@ -323,3 +321,30 @@ def test_init_equals_the_jax_package_init(seed, kind, kw):
         else:
             np.testing.assert_allclose(t[path], a, rtol=0,
                                        atol=1e-6 * np.abs(a).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("kw", [{}, {"detach_mask_from_field": True, "use_bias": True}],
+                         ids=["fused", "detach-bias"])
+def test_triplane_init_is_one_seeded_torch_generator(kw):
+    """The tri-plane field draws from one ``torch.Generator`` seeded with
+    the seed: the table (``triplane_init``), then each head's kernel in
+    module and layer order from flax's truncated LeCun normal by inverting
+    its CDF in f64 — the draw the flagship's quality gates were set on
+    (PERF.md); biases start at zero."""
+    import math
+    spec = triplane.TriplaneSpec(RES, CH)
+    tf = tfield.NeRFField(tfield.FieldConfig(bound=BOUND, grid=spec, **kw), seed=7,
+                          device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    assert torch.equal(tf.grid_table, triplane.triplane_init(spec, generator=gen))
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    mlps = [tf.feature_net, tf.density_net, tf.rgb_net, tf.conf_net]
+    assert (tf.conf_net is not None) == bool(kw)
+    for mod in (m for m in mlps if m is not None):
+        for lin in mod.layers():
+            u = lo + (1.0 - 2.0 * lo) * torch.rand(lin.weight.shape, generator=gen,
+                                                   dtype=torch.float64)
+            w = torch.clamp(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0), -2.0, 2.0)
+            want = (w * (lin.weight.shape[1] ** -0.5 / 0.87962566103423978)).float()
+            assert torch.equal(lin.weight, want)
+            assert lin.bias is None or not lin.bias.any()

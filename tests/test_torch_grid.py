@@ -22,6 +22,7 @@ from customnerf_torch.models import field as tfield
 from customnerf_torch.ops import grid as tgrid
 from customnerf_torch.ops import morton as tmorton
 from customnerf_torch.ops import regularizers as treg
+from customnerf_torch.utils import threefry
 
 TOL = 1e-5
 PARITY = dict(num_levels=16, level_dim=2, base_resolution=16,
@@ -104,8 +105,7 @@ def test_grid_encode_of_the_parity_spec_on_a_few_points():
     """The 24 M-row table: the port's encode at the reference's spec agrees
     with JAX's on a few points (tiled levels 5-15 alias through % 2^21)."""
     js, ts = jgrid.GridSpec(**PARITY), tgrid.GridSpec(**PARITY)
-    gen = torch.Generator().manual_seed(0)
-    table = tgrid.grid_init(ts, generator=gen)
+    table = tfield.encoder_init(ts, threefry.prng_key(0))     # the field's draw
     assert table.shape == (23_967_296, 2)
     assert float(table.min()) >= -1e-4 and float(table.max()) <= 1e-4
     table.mul_(1e4)
