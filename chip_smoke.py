@@ -46,6 +46,22 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share.
+7b. image-driven editing, on the stack of phase 5 and the checkpoint of
+   phase 4: 4 synthetic frames at 128×128 written as JPEG
+   (``utils/jpeg.py::write_jpeg``) are the concept images; ``retrieve``
+   generates 2 class images (25 DDIM steps at 512², seconds per image);
+   ``train_custom_diffusion`` takes 8 steps at full width in f32 (batch 2
+   with prior, a checkpoint at step 4, one validation sample at step 8;
+   median step, peak memory, artifact bytes; every loss finite, every
+   adapter and the token row moved), and a second call resumes from
+   ``latest`` and must end within 1e-3 (relative L2 of the change) of the
+   straight run's adapters; then 8 ``--use_cd`` editing steps with
+   ``<new1>`` in the prompts (ε with the adapters must differ from ε
+   without; counters zeroed before and read after, both kernels must
+   launch) and K1 / dT held against their plain versions on that path's
+   inputs.  Then the weights drill: ``customnerf_torch.__main__.main(
+   ["--validate_weights", ...])`` at full width must exit 0 with ``ok`` and
+   the parameter counts of ``FULL_WIDTH_PARAMS``.
 8. parity: ``scripts/bear.sh --parity``'s field on the
    synthetic provider — ``-O2``, the reference tiled grid (16 levels × 2
    channels at 2^21 rows, desired resolution 8192: a 23,967,296 × 2
@@ -72,7 +88,10 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    ``python -m customnerf_torch.data.fixtures`` (the scripts' scene code,
    cv2 stood in for by the port's PNG writer), one process a format,
    started before the kernels build, into ``build/quality/`` (deleted at
-   the end).  Counters zeroed before and read after each run; its kernels
+   the end); the flagship bear run reads the reference layout, its images
+   as JPEG (the PNGs encoded by ``write_jpeg`` at quality 95) and its masks
+   as PNG, with the decode seconds of the 28 views and the JPEGs' PSNR
+   against the PNGs printed; LLFF, DTU and the parity bear read PNG.  Counters zeroed before and read after each run; its kernels
    must launch.  Each run's final eval PSNR must reach its gate (the JAX
    anchor less 0.5 dB; 25.05 dB for the parity field); prints the best
    PSNR, the median step, the wall time and the share of it spent writing
@@ -83,8 +102,9 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    flagship bear run, ``--compact_frac -1``'s auto-tune measures the slab
    fill on its warm grid and prints the fraction it picks beside the
    recipe's 0.35.
-10. the ``{"kernels": [...]}`` line (reconstruction, editing, parity and
-   quality rows), then the last line ``{"ok": true, "device": {...}}``.
+10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
+   editing, parity and quality rows), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits nonzero, with
 no result, when no CUDA device is available.  Details go to
@@ -561,6 +581,191 @@ def run_editing(trainer, opt):
     return summary, mlp_input, dt_calls
 
 
+# ------------------------------------------------------------ image-driven
+CD_WORKSPACE = os.path.join("chiprun_out", "smoke_cd")
+CD_STEPS, CD_CHECKPOINT, CD_CONCEPTS, CD_CLASS_IMAGES = 8, 4, 4, 2
+CD_LR = 1e-5                  # scripts/tuning.sh's learning rate
+CD_RESUME_TOL = 1e-3          # relative L2 of (resumed − straight) / change
+
+
+def _cd_edit_flags(cd_dir, recon_ckpt):
+    flags = list(EDIT_FLAGS)
+    flags[flags.index("--text") + 1] = "a <new1> bear in a forest"
+    flags[flags.index("--text_fg") + 1] = "a <new1> bear"
+    flags[flags.index("--workspace") + 1] = os.path.join(CD_WORKSPACE, "edit")
+    return flags + ["--use_cd", cd_dir, "--editing_from", recon_ckpt]
+
+
+def run_image_driven(guidance, clip_matcher, recon_ckpt):
+    """JPEG concept images, DDIM class images, Custom Diffusion tuning with
+    a checkpoint, a resume and a validation sample, then ``--use_cd``
+    editing steps, on the full-width stack of the editing phase.  Returns
+    the summary and the editing path's K1 and dT inputs."""
+    import numpy as np
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance import custom_diffusion as cd
+    from customnerf_torch.guidance.retrieve import retrieve
+    from customnerf_torch.utils import jpeg
+
+    shutil.rmtree(CD_WORKSPACE, ignore_errors=True)
+    concept_dir = os.path.join(CD_WORKSPACE, "concept")
+    os.makedirs(concept_dir)
+    frames = NeRFDataset(parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS), "train",
+                         device=guidance.device).dataloader()
+    for i in range(CD_CONCEPTS):
+        b = frames.item(i)
+        rgb = (b.rgbs.reshape(b.H, b.W, 3).clamp(0, 1) * 255).round().byte().cpu().numpy()
+        jpeg.write_jpeg(os.path.join(concept_dir, f"view{i}.jpg"), rgb)
+
+    class_dir = os.path.join(CD_WORKSPACE, "class")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = retrieve("bear", class_dir, CD_CLASS_IMAGES, guidance=guidance, seed=0)
+    torch.cuda.synchronize()
+    class_s = (time.perf_counter() - t0) / n
+    shapes = {jpeg.read(os.path.join(class_dir, f)).shape
+              for f in sorted(os.listdir(class_dir)) if f.endswith(".jpg")}
+    assert n == CD_CLASS_IMAGES and shapes == {(512, 512, 3)}, (n, shapes)
+
+    opt = parse_args(["--data_type", "synthetic", "--seed", "0"])
+    base = cd.extract_cd_kv(guidance.unet)
+    stamps, losses = [], []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(loss)
+
+    # the host's share of a step: the dataset's image reads and resizes
+    host = {"s": 0.0}
+    sample_instance, sample_class = cd.ConceptDataset.sample_instance, cd.ConceptDataset.sample_class
+
+    def timed(fn):
+        def run(self):
+            t0 = time.perf_counter()
+            out = fn(self)
+            host["s"] += time.perf_counter() - t0
+            return out
+        return run
+
+    straight = os.path.join(CD_WORKSPACE, "cd_straight")
+    kw = dict(class_dir=class_dir, class_prompt="bear", lr=CD_LR, image_size=512,
+              batch_size=2, guidance=guidance, log=lambda *_: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.perf_counter())
+    cd.ConceptDataset.sample_instance = timed(sample_instance)
+    cd.ConceptDataset.sample_class = timed(sample_class)
+    try:
+        cd.train_custom_diffusion(opt, concept_dir, "bear", straight, steps=CD_STEPS,
+                                  checkpointing_steps=CD_CHECKPOINT,
+                                  validation_prompt="photo of a <new1> bear",
+                                  validation_steps=CD_STEPS, num_validation_images=1,
+                                  on_step=on_step, **kw)
+    finally:
+        cd.ConceptDataset.sample_instance = sample_instance
+        cd.ConceptDataset.sample_class = sample_class
+    tune_peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    te = guidance.text_encoder
+    base_row = te.model.text_model.embeddings.token_embedding.weight[
+        te.tokenizer.add_token("<new1>")].detach().cpu()
+    resumed = os.path.join(CD_WORKSPACE, "cd_resumed")
+    shutil.copytree(os.path.join(straight, f"checkpoint-{CD_CHECKPOINT}"),
+                    os.path.join(resumed, f"checkpoint-{CD_CHECKPOINT}"))
+    resumed_losses = []
+    cd.train_custom_diffusion(opt, concept_dir, "bear", resumed, steps=CD_STEPS,
+                              checkpointing_steps=0, resume_from_checkpoint="latest",
+                              on_step=lambda s, v: resumed_losses.append(v), **kw)
+    a, ta = cd.load_cd_artifacts(straight)
+    b, tb = cd.load_cd_artifacts(resumed)
+    moved = {f"{k}.{n}": float((a[k][n] - base[k][n].cpu()).abs().max())
+             for k in a for n in a[k]}
+    moved["<new1>"] = float(np.abs(ta["<new1>"] - base_row.numpy()).max())
+    num = sum(float(((a[k][n] - b[k][n]) ** 2).sum()) for k in a for n in a[k])
+    den = sum(float(((a[k][n] - base[k][n].cpu()) ** 2).sum()) for k in a for n in a[k])
+    resume_rel = math.sqrt(num / den)
+    row_diff = float(np.abs(ta["<new1>"] - tb["<new1>"]).max())
+    assert all(math.isfinite(v) for v in losses + resumed_losses), (losses, resumed_losses)
+    assert len(losses) == CD_STEPS and len(resumed_losses) == CD_STEPS - CD_CHECKPOINT
+    assert all(m > 0 for m in moved.values()), f"an adapter did not move: {moved}"
+    assert len(a) == 16 and set(a) == set(base), sorted(a)
+    assert resume_rel <= CD_RESUME_TOL, f"resumed run off by {resume_rel}"
+    val = os.listdir(os.path.join(straight, "validation"))
+    assert val == [f"step{CD_STEPS:05d}_0.png"], val
+    art_bytes = {f: os.path.getsize(os.path.join(straight, f))
+                 for f in ("pytorch_custom_diffusion_weights.bin", "<new1>.bin")}
+
+    guidance.load_cd(straight)                   # the --use_cd path of __init__
+    eopt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + _cd_edit_flags(straight, recon_ckpt))
+    ctx = guidance.get_text_embeds(["a <new1> bear"], [""])
+    x = torch.randn(2, 4, 64, 64, generator=torch.Generator(device=guidance.device)
+                    .manual_seed(0), device=guidance.device)
+    t = torch.full((2,), 500, device=guidance.device)
+    with torch.no_grad():
+        eps_diff = float((guidance.unet(x, t, ctx, cd_kv=guidance.cd_kv)
+                          - guidance.unet(x, t, ctx)).abs().max())
+    assert eps_diff > 0, "the adapters do not change epsilon"
+    trainer = Trainer(eopt, guidance=guidance, use_checkpoint=eopt.ckpt, log=lambda *_: None)
+    trainer.clip_matcher = clip_matcher
+    steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
+        trainer, eopt, EDIT_STEPS)
+    for name, n_launch in launches.items():
+        assert n_launch > 0, f"{name} was not launched on the --use_cd editing path"
+    assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
+    assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
+    del trainer
+    guidance.cd_kv = None
+    summary = {
+        "concept_images": CD_CONCEPTS, "class_images": n, "class_s_per_image": class_s,
+        "tune_steps": CD_STEPS, "tune_losses": losses, "tune_step_ms": step_ms,
+        "tune_median_step_ms": statistics.median(step_ms), "tune_peak_gb": tune_peak / 1e9,
+        "tune_host_data_ms_per_step": host["s"] / CD_STEPS * 1e3,
+        "resumed_losses": resumed_losses, "resume_rel_l2": resume_rel,
+        "resume_token_row_max_diff": row_diff, "adapters": len(a),
+        "adapter_min_change": min(moved.values()), "artifact_bytes": art_bytes,
+        "eps_max_change_with_adapters": eps_diff,
+        "edit": {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
+                 "resident_before_steps_gb": base_mem / 1e9,
+                 "field_max_change": field_moved,
+                 "median_ms": {k: statistics.median(s[k] for s in steps) for k in (
+                     "total", "pt_and_draws", "render_to_latents", "unet",
+                     "backward_adam")}}}
+    return summary, mlp_input, dt_calls
+
+
+def run_drill():
+    """``python -m customnerf_torch --validate_weights`` at full width with
+    random weights, through ``__main__.main``: it must exit 0 without
+    training, its report ``ok`` with the full-width parameter counts."""
+    import contextlib
+    import io
+    import torch
+    from customnerf_torch.__main__ import main as cli
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
+
+    out, code = io.StringIO(), None
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        try:
+            cli(["--validate_weights", "--data_type", "synthetic", "--seed", "0"])
+        except SystemExit as e:
+            code = e.code
+    wall_s = time.time() - t0
+    torch.cuda.empty_cache()
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    counts = {k: report[k]["params"] for k in ("unet", "vae", "text_encoder")}
+    assert code == 0 and report["ok"], (code, report)
+    assert counts == {k: FULL_WIDTH_PARAMS[k] for k in counts}, counts
+    return {"exit_code": code, "ok": report["ok"], "params": counts, "wall_s": wall_s,
+            "eps_std": report["eps_prediction"]["std"],
+            "vae_std": report["vae_encode"]["std"],
+            "checksums": {k: report[k]["checksum"] for k in counts}}
+
+
 # ------------------------------------------------------------------ parity
 # scripts/bear.sh --parity's field flags (-O2: the tiled grid 16 × 2 at 2^21
 # rows and desired resolution 8192, 64 + 64 samples: the defaults) on the
@@ -796,9 +1001,11 @@ BEAR_PARITY = ("-O2 --keyword lang_bear --iters 3000 --train_resolution_level 7 
 QUALITY_GATES = {"nerfstudio": 24.84, "llff": 24.51, "dtu": 24.78}
 PARITY_GATE = 25.05
 BOTH_KERNELS = ("fused_field_mlp", "plane_dtable")
+# the flagship bear reads the reference layout (JPEG images, PNG masks)
 QUALITY_RUNS = [
     {"name": t, "data_type": t, "flags": BEAR_PHASE1, "gate": g,
-     "kernels": BOTH_KERNELS} for t, g in QUALITY_GATES.items()] + [
+     "kernels": BOTH_KERNELS, "jpeg": t == "nerfstudio"}
+    for t, g in QUALITY_GATES.items()] + [
     {"name": "nerfstudio_parity", "data_type": "nerfstudio", "flags": BEAR_PARITY,
      "gate": PARITY_GATE, "kernels": ("fused_field_mlp",)}]
 TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
@@ -812,7 +1019,8 @@ def start_fixtures():
     os.makedirs(QUALITY_ROOT)
     return {t: subprocess.Popen(
         [sys.executable, "-m", "customnerf_torch.data.fixtures", QUALITY_ROOT,
-         "--data_type", t], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+         "--data_type", t] + (["--jpeg"] if t == "nerfstudio" else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for t in QUALITY_GATES}
 
 
@@ -953,6 +1161,25 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
     return summary, inputs
 
 
+def jpeg_layout(png_dir, jpg_dir):
+    """Decode seconds of the JPEG layout's views (``utils/jpeg.py``) and
+    their PSNR against the PNGs they were encoded from."""
+    import numpy as np
+    from customnerf_torch.utils import jpeg, png
+    names = sorted(os.listdir(os.path.join(jpg_dir, "images")))
+    t0 = time.perf_counter()
+    imgs = [jpeg.read(os.path.join(jpg_dir, "images", n)) for n in names]
+    decode_s = time.perf_counter() - t0
+    psnrs = []
+    for n, img in zip(names, imgs):
+        ref = png.read_rgb(os.path.join(png_dir, "images", n[:-4] + ".png")).astype(np.float64)
+        psnrs.append(10 * math.log10(255.0 ** 2 / float(((img - ref) ** 2).mean())))
+    mp = sum(i.shape[0] * i.shape[1] for i in imgs) / 1e6
+    return {"views": len(names), "decode_s": decode_s, "megapixels": mp,
+            "s_per_megapixel": decode_s / mp, "psnr_db_mean": statistics.mean(psnrs),
+            "psnr_db_min": min(psnrs)}
+
+
 def run_test_render(run, data_path):
     """``--test`` from the best checkpoint ``df.pth``: one PNG a pose of the
     test path, and the mp4 where cv2 can write it, else the JAX package's
@@ -989,10 +1216,20 @@ def quality_phase(procs):
         waited = time.time() - t0
         bear = data_type == "nerfstudio"
         flagship = run["flags"][0] == "-O"
-        summary, inputs = run_quality(run, paths[data_type], capture_k1=bear,
+        data_path = paths[data_type]
+        layout = None
+        if run.get("jpeg"):
+            layout = jpeg_layout(data_path, data_path + "_jpeg")
+            data_path += "_jpeg"
+            log(f"[quality {name}] reference layout: {layout['views']} JPEG views "
+                f"decoded in {layout['decode_s']:.2f} s ({layout['s_per_megapixel']:.2f} "
+                f"s/megapixel, utils/jpeg.py); PSNR against the PNGs "
+                f"{layout['psnr_db_mean']:.2f} dB mean, {layout['psnr_db_min']:.2f} min")
+        summary, inputs = run_quality(run, data_path, capture_k1=bear,
                                       capture_dt=bear and flagship,
                                       autotune=bear and flagship)
         summary["fixture_wait_s"] = waited
+        summary["jpeg_layout"] = layout
         log(f"[quality {name}] final eval PSNR {summary['final_psnr']:.2f} dB "
             f"(best {summary['best_psnr']:.2f}, gate >= {summary['gate']}) | median "
             f"step {summary['median_step_ms']:.2f} ms over {summary['steps']} | wall "
@@ -1007,7 +1244,7 @@ def quality_phase(procs):
                 f"trained grid -> --compact_frac {a['compact_frac']:.4f} (block "
                 f"{a['compact_block']}); the recipe fixes {a['recipe_compact_frac']}")
         if bear:
-            summary["test"] = run_test_render(run, paths[data_type])
+            summary["test"] = run_test_render(run, data_path)
             t = summary["test"]
             video = (f"mp4 written ({t['mp4_bytes']} bytes)" if t["mp4_bytes"]
                      else t["mp4_warning"])
@@ -1169,10 +1406,40 @@ def run_all(card, procs) -> int:
         r["path"] = "editing"
     rows += edit_rows
 
-    # the checkpoint (~180 MB with its Adam state) has served its purpose
-    shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
     guidance, clip_matcher = editor.guidance, editor.clip_matcher
     del editor
+    try:
+        cdp, cd_mlp, cd_dt = run_image_driven(guidance, clip_matcher, ck["checkpoint"])
+    finally:
+        shutil.rmtree(CD_WORKSPACE, ignore_errors=True)
+    em = cdp["edit"]["median_ms"]
+    log(f"[image-driven] {card} | {CD_CONCEPTS} JPEG concept images at 128x128 | "
+        f"{cdp['class_images']} DDIM class images (25 steps, 512x512) at "
+        f"{cdp['class_s_per_image']:.2f} s each | Custom Diffusion {CD_STEPS} steps, "
+        f"batch 2 with prior, f32: median {cdp['tune_median_step_ms']:.1f} ms/step "
+        f"(of which the host's image reads {cdp['tune_host_data_ms_per_step']:.1f}), "
+        f"peak {cdp['tune_peak_gb']:.2f} GB, losses {[round(v, 4) for v in cdp['tune_losses']]} "
+        f"| resume from checkpoint-{CD_CHECKPOINT}: rel L2 {cdp['resume_rel_l2']:.3g} "
+        f"(tol {CD_RESUME_TOL}) | artifacts {cdp['artifact_bytes']} bytes, "
+        f"{cdp['adapters']} adapter blocks")
+    log(f"[use_cd editing] {card} | {EDIT_STEPS} steps of {STEP_RAYS} rays, "
+        f"'a <new1> bear in a forest' | median {em['total']:.1f} ms/step: pt + draws "
+        f"{em['pt_and_draws']:.1f}, render to latents {em['render_to_latents']:.1f}, "
+        f"UNet {em['unet']:.1f}, backward + Adam {em['backward_adam']:.1f} | peak "
+        f"{cdp['edit']['peak_gb']:.2f} GB | eps change with the adapters "
+        f"{cdp['eps_max_change_with_adapters']:.3g} | launches {cdp['edit']['launches']}")
+    cd_rows = [check_fused_mlp(*cd_mlp[0], **cd_mlp[1])]
+    cd_rows += [check_dtable(*cd_dt[i][0][:7]) for i in (0, 3)]
+    for r in cd_rows:
+        r["launches"] = cdp["edit"]["launches"][r["name"]]
+        r["path"] = "use_cd editing"
+    rows += cd_rows
+    # the checkpoint (~180 MB with its Adam state) has served its purpose
+    shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
+    drill = run_drill()
+    log(f"[validate_weights] __main__ --validate_weights at full width: exit "
+        f"{drill['exit_code']}, ok {drill['ok']}, params {drill['params']}, "
+        f"{drill['wall_s']:.1f} s")
     parity, parity_rows = parity_phase(card, guidance, clip_matcher)
     del guidance, clip_matcher
     rows += parity_rows
@@ -1193,7 +1460,8 @@ def run_all(card, procs) -> int:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
-                   "checkpoint": ck, "editing": ed, "parity": parity,
+                   "checkpoint": ck, "editing": ed, "image_driven": cdp,
+                   "validate_weights": drill, "parity": parity,
                    "quality": quality},
                   f, indent=1)
 

@@ -7,7 +7,9 @@ evaluation every ``--eval_interval`` epochs (strips under
 ``{workspace}/checkpoints/df.pth``), then the test path's renders under
 ``{workspace}/results/``.  ``--test`` only renders the test path from the
 checkpoint ``--ckpt`` names.  ``--data_type`` is nerfstudio, llff, dtu or
-synthetic; images must be PNGs.  ``scripts/bear.sh``'s two phases on the
+synthetic; images are PNG or baseline JPEG.  ``--validate_weights`` runs the
+weights drill (``guidance/validate.py``) and exits 0 if its report is ok, 1
+otherwise, without training.  ``scripts/bear.sh``'s two phases on the
 flagship field::
 
     python -m customnerf_torch -O --grid_type triplane --triplane_res 128 512 \\
@@ -52,6 +54,12 @@ it measures once the occupancy grid has warmed up.
 
 Without ``--sd_weights`` (a local diffusers directory) or
 ``--allow_random_guidance`` the editing phase refuses to run.
+
+Image-driven editing: tune a concept with
+``python -m customnerf_torch.tune_custom_diffusion`` (its artifacts in
+``--output_dir``), then edit with ``--use_cd <that dir>`` and prompts that
+carry the modifier token, e.g. ``--text "a <new1> bear in a forest"
+--text_fg "a <new1> bear"``.
 """
 
 from __future__ import annotations
@@ -64,6 +72,10 @@ from customnerf_torch.engine.trainer import Trainer, max_epochs_for
 def main(argv=None, log=print, device=None):
     """Returns the trainer it ran; ``device`` None is the card."""
     opt = parse_args(argv)
+    if opt.validate_weights:
+        from customnerf_torch.guidance.validate import validate_weights
+        report = validate_weights(opt, device=device)
+        raise SystemExit(0 if report["ok"] else 1)
     if opt.test:
         trainer = Trainer(opt, use_checkpoint=opt.ckpt, log=log, device=device)
         test_loader = NeRFDataset(opt, "test", R_path=opt.R_path,

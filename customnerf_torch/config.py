@@ -11,6 +11,15 @@ Deviations, all documented here:
   * ``backend`` is accepted for flag compatibility only.  On the card the
     default fused field head always runs the hand-written fused-MLP kernel
     (``ops/fused_mlp.py``).
+  * ``steps_per_dispatch`` (ROADMAP queue A, 'K-step dispatch') and
+    ``triplane_fwd_bf16`` ('bf16 policy') are not ported: set to another
+    value than their default they warn, naming the item.
+  * ``triplane_bwd`` and ``compact_layout`` choose, in the JAX package,
+    between paths that compute the same numbers; the port has one path, and
+    another value warns.
+  * ``profile`` traces the first epoch with ``torch.profiler`` into
+    ``{workspace}/profile/``; ``validate_weights`` runs the weights drill
+    and exits (``guidance/validate.py``).
   * flags the reference declares but never wires (``opt.bg_color``,
     ``opt.object_bound``, ``opt.keyword2``, see SURVEY.md §5.6) are defined
     with explicit defaults instead of being latent AttributeErrors.
@@ -304,7 +313,23 @@ class Config:
         "video_inter_idxs", "bg_color", "object_bound",
     )
 
+    # flags the JAX package acts on that the port does not: (flag, default,
+    # why it has no effect here)
+    _UNPORTED_FLAGS = (
+        ("steps_per_dispatch", 0, "is not ported yet: the port takes one step "
+         "a call (ROADMAP.md queue A, item 'K-step dispatch')"),
+        ("triplane_fwd_bf16", False, "is not ported yet: the tri-plane gathers "
+         "stay float32 (ROADMAP.md queue A, item 'bf16 policy')"),
+        ("triplane_bwd", "matmul", "has no effect in the port: in the JAX "
+         "package it chooses between paths that compute the same numbers"),
+        ("compact_layout", "planes", "has no effect in the port: in the JAX "
+         "package it chooses between paths that compute the same numbers"),
+    )
+
     def _warn_inert_flags(self) -> None:
+        for name, default, why in self._UNPORTED_FLAGS:
+            if getattr(self, name) != default:
+                print(f"[WARN] --{name}={getattr(self, name)!r} {why}.")
         for f in dataclasses.fields(self):
             if f.name not in self._INERT_FLAGS:
                 continue

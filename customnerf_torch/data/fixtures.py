@@ -11,19 +11,25 @@ absence) is restored before they return.
     python -m customnerf_torch.data.fixtures OUT_ROOT [--data_type T ...]
 
 writes ``OUT_ROOT/bear`` (nerfstudio), ``OUT_ROOT/llff`` and ``OUT_ROOT/dtu``
-(or those of the formats named) at the scripts' default sizes.
+(or those of the formats named) at the scripts' default sizes.  ``--jpeg``
+adds, beside each nerfstudio or LLFF fixture, its copy in the reference
+layout (``bear_jpeg/``, ``llff_jpeg/``): images ``.jpg`` through
+``utils/jpeg.py::write_jpeg`` at quality 95, masks still ``.png``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import importlib.util
+import json
 import os
+import shutil
 import sys
 import types
 
-from customnerf_torch.utils import png
+from customnerf_torch.utils import jpeg, png
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "scripts")
@@ -117,14 +123,38 @@ def write(data_type: str, root: str, n_views: int = 0, W: int = 400,
     return fn(os.path.join(root, sub), n_views or default_views, W, H)
 
 
+def jpeg_copy(src: str, dst: str, quality: int = 95) -> str:
+    """A copy of a nerfstudio or LLFF fixture in the reference layout: each
+    ``images/*.png`` encoded as ``.jpg`` (``transforms.json``'s paths
+    follow), the masks and the rest copied as they are."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("images"))
+    os.makedirs(os.path.join(dst, "images"))
+    for p in sorted(glob.glob(os.path.join(src, "images", "*.png"))):
+        name = os.path.splitext(os.path.basename(p))[0] + ".jpg"
+        jpeg.write_jpeg(os.path.join(dst, "images", name), png.read_rgb(p), quality)
+    meta = os.path.join(dst, "transforms.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            m = json.load(f)
+        for fr in m["frames"]:
+            fr["file_path"] = os.path.splitext(fr["file_path"])[0] + ".jpg"
+        with open(meta, "w") as f:
+            json.dump(m, f, indent=2)
+    return dst
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root")
     ap.add_argument("--data_type", nargs="+", choices=sorted(WRITERS),
                     default=list(WRITERS))
+    ap.add_argument("--jpeg", action="store_true")
     args = ap.parse_args(argv)
     for data_type in args.data_type:
-        write(data_type, args.root)
+        out = write(data_type, args.root)
+        if args.jpeg and data_type in ("nerfstudio", "llff"):
+            jpeg_copy(out, out + "_jpeg")
 
 
 if __name__ == "__main__":

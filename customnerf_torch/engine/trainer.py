@@ -42,6 +42,8 @@ Evaluation writes the strip ``gt | rgb | depth [| gt_mask | pred_mask | fg
 ``{name}.pth``; ``test`` writes one PNG a pose and, where ``cv2`` is
 installed, the mp4 (without it, the warning the JAX package logs when its
 writer fails); ``--clip_metrics`` scores the test renders with CLIP.
+``--profile`` traces the first epoch with ``torch.profiler`` (Chrome trace
+under ``{workspace}/profile/``, where the JAX trainer writes its trace).
 Multi-scene and K-step editing, ``--mesh_shape`` and ``.orbax`` are later
 slices and raise ``NotImplementedError``.
 """
@@ -369,15 +371,40 @@ class Trainer:
         (utils_init_nerf.py:492-506)."""
         t0 = time.time()
         self.save_checkpoint()
+        prof = self._start_profile() if self.opt.profile else None
         for epoch in range(self.epoch + 1, max_epochs + 1):
             self.epoch = epoch
             self.train_one_epoch(train_loader)
+            if prof is not None:
+                self._stop_profile(prof)
+                prof = None
             if epoch % self.opt.eval_interval == 0:
                 self.save_checkpoint()
                 if valid_loader is not None:
                     self.evaluate_one_epoch(valid_loader)
                 self.save_checkpoint()
         self.log(f"[INFO] training takes {(time.time() - t0) / 60:.4f} minutes.")
+
+    def _start_profile(self):
+        """``--profile``: a ``torch.profiler`` trace of the first epoch (the
+        JAX trainer's xplane trace, trainer.py:484-497)."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = os.path.join(self.opt.workspace, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_ep{self.epoch:04d}.json")
+        prof.export_chrome_trace(path)
+        self.log(f"[INFO] --profile: epoch {self.epoch} traced to {path}")
+        self.opt.profile = False
 
     # ---------------------------------------------------------- checkpoints
     def _occ_extra(self):

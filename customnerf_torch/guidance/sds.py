@@ -13,7 +13,10 @@ The stack is built at full SD 1.5 width (UNet, VAE, CLIP ViT-L/14 text) and
 computes in float32 — the JAX package stores it in bf16 on an accelerator;
 the port's bf16 policy is later work.  Weights are random, drawn on the
 trainer's device from a ``torch.Generator`` seeded with ``--seed``, unless
-``--sd_weights`` names a local diffusers directory.
+``--sd_weights`` names a local diffusers directory.  ``--use_cd <dir>``
+(outside ``--test``) loads a Custom Diffusion artifact pair after the
+weights: the adapters go into every UNet call as ``cd_kv`` and the modifier
+tokens are registered on the text encoder, so prompts carry ``<new1>``.
 """
 
 from __future__ import annotations
@@ -47,10 +50,6 @@ def check_supported(opt):
         raise NotImplementedError(
             f"--sd_version {opt.sd_version} is not ported yet (ROADMAP.md "
             f"queue A, item 'SD 2.x')")
-    if opt.use_cd is not None:
-        raise NotImplementedError(
-            "--use_cd (Custom Diffusion) is not ported yet (ROADMAP.md queue "
-            "A, item 'Custom Diffusion and retrieval')")
 
 
 class StableDiffusionGuidance:
@@ -80,6 +79,11 @@ class StableDiffusionGuidance:
             print("[WARN] no --sd_weights given: SD runs with random weights "
                   "(framework-functional; provide a local checkpoint for "
                   "real edits).")
+        # after the weights: a grown token table would not load, and the
+        # tokens' rows must survive the load
+        self.cd_kv = None
+        if opt.use_cd is not None and not opt.test:
+            self.load_cd(opt.use_cd)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.time() - t0
@@ -89,6 +93,18 @@ class StableDiffusionGuidance:
         self.min_step = int(self.num_train_timesteps * 0.02)
         self.max_step = int(self.num_train_timesteps * opt.max_ratio)
         self.alphas = self.scheduler.alphas_cumprod
+
+    def load_cd(self, model_dir: str) -> dict:
+        """``--use_cd``: the artifact pair in ``model_dir`` → ``self.cd_kv``
+        (None without adapter weights) and its tokens registered on the text
+        encoder; returns {token: embedding}."""
+        from customnerf_torch.guidance.custom_diffusion import load_cd_artifacts
+        self.cd_kv, token_embeds = load_cd_artifacts(model_dir, self.text_encoder,
+                                                     device=self.device)
+        if token_embeds:
+            print(f"[INFO] loaded Custom Diffusion adapters + "
+                  f"{list(token_embeds)} from {model_dir}")
+        return token_embeds
 
     def param_counts(self) -> dict:
         return {"unet": n_params(self.unet), "vae": n_params(self.vae),
@@ -113,7 +129,8 @@ class StableDiffusionGuidance:
         noisy = self.scheduler.add_noise(latents, noise, t)
         latent_in = torch.cat([noisy, noisy])
         tt = torch.full((latent_in.shape[0],), int(t), device=latents.device)
-        eps_uncond, eps_text = self.unet(latent_in, tt, text_embeddings).chunk(2)
+        eps_uncond, eps_text = self.unet(latent_in, tt, text_embeddings,
+                                         cd_kv=self.cd_kv).chunk(2)
         eps_hat = eps_text + self.opt.cfg * (eps_text - eps_uncond)
         w = 1.0 - self.alphas[int(t)]
         grad = torch.nan_to_num(w * (eps_hat.float() - noise) * self.opt.lambda_sd)

@@ -9,7 +9,9 @@ and a final LayerNorm; ``last_hidden_state`` is taken after it.
 
 Tokenizer: the real CLIP BPE (``guidance/bpe.py``) when a ``tokenizer/`` dir
 exists under ``--sd_weights``, else :class:`HashTokenizer`, which gives the
-JAX package's ids (md5 word buckets).
+JAX package's ids (md5 word buckets).  Both take added modifier tokens such
+as Custom Diffusion's ``<new1>`` (ids from 49408 on); :func:`register_token`
+adds one and installs its embedding row, growing the token table.
 """
 
 from __future__ import annotations
@@ -33,16 +35,33 @@ VOCAB = 49408
 
 class HashTokenizer:
     """Deterministic stand-in tokenizer: word → stable md5 bucket, BOS/EOS
-    framing and EOS padding to 77, like CLIP's.  (The JAX package's modifier
-    tokens serve Custom Diffusion, which is not ported.)"""
+    framing and EOS padding to 77, like CLIP's; added modifier tokens keep
+    their own ids."""
+
+    def __init__(self):
+        self.added_tokens = {}
+        self.next_id = VOCAB
+
+    def add_token(self, token: str) -> int:
+        if token not in self.added_tokens:
+            self.added_tokens[token] = self.next_id
+            self.next_id += 1
+        return self.added_tokens[token]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.next_id
 
     def __call__(self, prompts: List[str], **_):
         ids = np.full((len(prompts), MAX_LEN), EOS, dtype=np.int32)
         for i, p in enumerate(prompts):
             toks = [BOS]
             for w in p.lower().split():
-                h = int(hashlib.md5(w.encode()).hexdigest(), 16)
-                toks.append(h % (BOS - 1) + 1)
+                if w in self.added_tokens:
+                    toks.append(self.added_tokens[w])
+                else:
+                    h = int(hashlib.md5(w.encode()).hexdigest(), 16)
+                    toks.append(h % (BOS - 1) + 1)
                 if len(toks) >= MAX_LEN - 1:
                     break
             toks.append(EOS)
@@ -132,9 +151,15 @@ class CLIPTextEmbeddings(nn.Module):
         self.position_embedding = nn.Embedding(cfg.max_position_embeddings,
                                                cfg.hidden_size)
 
-    def forward(self, ids):
+    def forward(self, ids, row=None, row_id=None):
+        """``row``: a [hidden] tensor taking the place of token ``row_id``'s
+        table row (Custom Diffusion's trainable modifier token: the gradient
+        reaches that row alone)."""
         pos = torch.arange(ids.shape[1], device=ids.device)
-        return self.token_embedding(ids) + self.position_embedding(pos)[None]
+        tok = self.token_embedding(ids)
+        if row is not None:
+            tok = torch.where((ids == row_id)[..., None], row.to(tok.dtype), tok)
+        return tok + self.position_embedding(pos)[None]
 
 
 class CLIPTextTransformer(nn.Module):
@@ -147,10 +172,11 @@ class CLIPTextTransformer(nn.Module):
                                    cfg.num_hidden_layers, cfg.layer_norm_eps)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, ids):
+    def forward(self, ids, row=None, row_id=None):
         """ids [B, L] int → (last_hidden_state [B, L, D], pooled [B, D]: the
-        state at each row's first EOS)."""
-        x = self.embeddings(ids)
+        state at each row's first EOS); ``row``/``row_id`` as in
+        :class:`CLIPTextEmbeddings`."""
+        x = self.embeddings(ids, row, row_id)
         L = ids.shape[1]
         causal = torch.ones(L, L, dtype=torch.bool, device=ids.device).tril()
         bias = torch.zeros(L, L, device=ids.device, dtype=x.dtype).masked_fill(
@@ -213,3 +239,24 @@ class TextEncoder:
 
     def get_text_embeds(self, prompt: List[str], negative_prompt: List[str]):
         return torch.cat([self.encode(negative_prompt), self.encode(prompt)])
+
+
+@torch.no_grad()
+def register_token(text_encoder: TextEncoder, token: str, embedding) -> int:
+    """Add ``token`` to the encoder's tokenizer and install ``embedding`` as
+    its row of ``text_model.embeddings.token_embedding``, growing the table
+    to ``token_id + 1`` rows (the rows it has are kept).  Returns the id."""
+    token_id = text_encoder.tokenizer.add_token(token)
+    emb = text_encoder.model.text_model.embeddings
+    table = emb.token_embedding.weight
+    if token_id >= table.shape[0]:
+        grown = nn.Embedding(token_id + 1, table.shape[1], device=table.device,
+                             dtype=table.dtype)
+        grown.weight.zero_()
+        grown.weight[: table.shape[0]] = table
+        grown.requires_grad_(table.requires_grad)
+        emb.token_embedding = grown
+        table = grown.weight
+    row = torch.as_tensor(np.asarray(embedding, np.float32).reshape(-1))
+    table[token_id] = row[: table.shape[1]].to(table.device, table.dtype)
+    return token_id

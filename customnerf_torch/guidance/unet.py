@@ -8,7 +8,15 @@ loads with ``load_state_dict`` as is.  SD 1.x layout: 1×1-conv
 biases.  Attention is computed as the JAX package computes it: matmul →
 softmax → matmul in plain PyTorch, which at 64×64 latents and batch 2
 materialises 2×8×4096×4096 f32 scores (1.07 GB) per self-attention call.
-Custom Diffusion's K/V overrides (``cd_kv``) are not ported.
+
+Custom Diffusion (``cd_kv``): a table keyed by the diffusers prefix of each
+cross-attention block (``down_blocks.0.attentions.0``, …,
+``mid_block.attentions.0``, ``up_blocks.3.attentions.2``; 16 at full
+width) whose entries hold torch ``[out, in]`` weights ``to_k`` and ``to_v``
+and, for ``--freeze_model crossattn``, ``to_q``, ``to_out`` and
+``to_out_bias``; each ``attn2`` takes those in place of its own, as the JAX
+package's ``CrossAttention`` does.  Blocks a smaller config lacks are
+skipped.
 """
 
 from __future__ import annotations
@@ -88,10 +96,19 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, cd_kv=None):
+        """``cd_kv``: Custom Diffusion weights replacing K and V (and Q and
+        the output projection where the entry has them)."""
         context = x if context is None else context
-        out = attention(self.to_q(x), self.to_k(context), self.to_v(context),
+        kv = cd_kv or {}
+
+        def proj(name, inp):
+            return F.linear(inp, kv[name]) if name in kv else getattr(self, name)(inp)
+
+        out = attention(proj("to_q", x), proj("to_k", context), proj("to_v", context),
                         self.heads)
+        if "to_out" in kv:
+            return F.linear(out, kv["to_out"], kv["to_out_bias"])
         return self.to_out[0](out)
 
 
@@ -126,9 +143,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
+    def forward(self, x, context, cd_kv=None):
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, cd_kv)
         return x + self.ff(self.norm3(x))
 
 
@@ -143,12 +160,12 @@ class Transformer2DModel(nn.Module):
             [BasicTransformerBlock(channels, heads, channels // heads, ctx_dim)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context):
+    def forward(self, x, context, cd_kv=None):
         b, c, h, w = x.shape
         res = x
         x = self.proj_in(self.norm(x))
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        x = self.transformer_blocks[0](x, context)
+        x = self.transformer_blocks[0](x, context, cd_kv)
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(x) + res
 
@@ -176,7 +193,7 @@ class _Block(nn.Module):
 
 class UNet2DCondition(nn.Module):
     """``forward(sample [B, 4, h, w], timesteps [B] or scalar,
-    context [B, 77, D]) → ε [B, 4, h, w]``."""
+    context [B, 77, D], cd_kv=None) → ε [B, 4, h, w]``."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
@@ -216,7 +233,8 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context):
+    def forward(self, sample, timesteps, context, cd_kv=None):
+        cd_kv = cd_kv or {}
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps[None]
@@ -226,24 +244,28 @@ class UNet2DCondition(nn.Module):
 
         h = self.conv_in(sample)
         skips = [h]
-        for blk in self.down_blocks:
+        for i, blk in enumerate(self.down_blocks):
             for j, resnet in enumerate(blk.resnets):
                 h = resnet(h, temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context)
+                    h = blk.attentions[j](h, context,
+                                          cd_kv.get(f"down_blocks.{i}.attentions.{j}"))
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[1](mid.attentions[0](mid.resnets[0](h, temb), context), temb)
+        h = mid.attentions[0](mid.resnets[0](h, temb), context,
+                              cd_kv.get("mid_block.attentions.0"))
+        h = mid.resnets[1](h, temb)
 
-        for blk in self.up_blocks:
+        for i, blk in enumerate(self.up_blocks):
             for j, resnet in enumerate(blk.resnets):
                 h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context)
+                    h = blk.attentions[j](h, context,
+                                          cd_kv.get(f"up_blocks.{i}.attentions.{j}"))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))

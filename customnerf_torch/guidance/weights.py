@@ -64,6 +64,15 @@ def _load_into(module, state: dict, what: str, path: str):
     print(f"[INFO] loaded {what} weights from {path}")
 
 
+def _keep_added_rows(model, state: dict):
+    """A token table grown by added modifier tokens (``text.register_token``)
+    keeps its added rows when a 49408-row table loads into it."""
+    key = "text_model.embeddings.token_embedding.weight"
+    have = model.state_dict()[key]
+    if key in state and state[key].shape[0] < have.shape[0]:
+        state[key] = torch.cat([state[key], have[state[key].shape[0]:].cpu()])
+
+
 def load_sd_weights(guidance, weights_dir: str):
     """Fill ``guidance.unet``, ``guidance.vae`` and the text encoder from
     ``weights_dir``."""
@@ -84,6 +93,7 @@ def load_sd_weights(guidance, weights_dir: str):
     if te_path:
         state = {k: v for k, v in load_torch_state(te_path).items()
                  if not k.endswith("position_ids")}
+        _keep_added_rows(guidance.text_encoder.model, state)
         _load_into(guidance.text_encoder.model, state, "text encoder", te_path)
     else:
         print(f"[WARN] no text encoder under {weights_dir}/text_encoder — "

@@ -1,34 +1,25 @@
 """PNG read and write with ``zlib`` and numpy: the port's stand-in for
 ``cv2.imread`` / ``cv2.imwrite`` on PNG files, so that it depends on
-neither ``cv2`` nor PIL.
+neither ``cv2`` nor PIL.  ``.jpg``/``.jpeg`` paths go to ``utils/jpeg.py``.
 
 Reads non-interlaced 8-bit grayscale, gray+alpha, RGB and RGBA PNGs with
 any of the five row filters.  Writes 8-bit grayscale and RGB with filter 0.
 Everything else (interlacing, 16-bit or sub-byte samples, palettes) raises
-``ValueError`` naming the file.  Arrays are RGB, not cv2's BGR.  A
-``.jpg``/``.jpeg`` path raises ``NotImplementedError``: JPEG decode is a
-ROADMAP item, and the port never falls back to another decoder.
+``ValueError`` naming the file.  Arrays are RGB, not cv2's BGR.
 """
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 
 import numpy as np
 
+from customnerf_torch.utils import jpeg
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_ITEM = "JPEG decode on the card"
 # colour type → samples a pixel
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def _check_jpeg(path: str):
-    if os.path.splitext(str(path))[1].lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG images are not supported by the port yet "
-            f"(ROADMAP.md queue A, item '{JPEG_ITEM}'); convert them to PNG")
 
 
 def _chunks(data: bytes, path: str):
@@ -94,8 +85,9 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarra
 
 def read(path: str) -> np.ndarray:
     """A PNG file → uint8 [H, W] (gray) or [H, W, C] (C = 2, 3 or 4: gray
-    and alpha, RGB, RGBA)."""
-    _check_jpeg(path)
+    and alpha, RGB, RGBA); a JPEG file → uint8 [H, W, 3] RGB."""
+    if jpeg.is_jpeg_path(path):
+        return jpeg.read(path)
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -130,8 +122,9 @@ def read_rgb(path: str) -> np.ndarray:
 
 
 def dims(path: str):
-    """(H, W) from the PNG header alone."""
-    _check_jpeg(path)
+    """(H, W) from the PNG header alone (a JPEG's from its frame header)."""
+    if jpeg.is_jpeg_path(path):
+        return jpeg.dims(path)
     with open(path, "rb") as f:
         head = f.read(24)
     if head[:8] != SIGNATURE or head[12:16] != b"IHDR":

@@ -252,8 +252,18 @@ def test_guards_and_unported_versions():
         StableDiffusionGuidance(_port_opt("--pretrained"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*SD 2.x"):
         StableDiffusionGuidance(_port_opt("--sd_version", "2.1"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Custom Diffusion"):
-        StableDiffusionGuidance(_port_opt("--use_cd", "x"), device="cpu")
+    # --use_cd is ported: an artifact directory's adapters and token load
+    # (outside --test), a missing one leaves the stack as it is, as in JAX
+    import tempfile
+    from customnerf_torch.guidance.custom_diffusion import extract_cd_kv, save_cd_artifacts
+    with tempfile.TemporaryDirectory() as d:
+        plain = port_guidance(_port_opt())
+        save_cd_artifacts(d, extract_cd_kv(plain.unet), {"<new1>": torch.ones(CTX)})
+        g = port_guidance(_port_opt("--use_cd", d))
+        assert set(g.cd_kv) == set(extract_cd_kv(plain.unet))
+        assert g.text_encoder.tokenizer.add_token("<new1>") == 49408
+        assert port_guidance(_port_opt("--use_cd", d, "--test")).cd_kv is None
+        assert port_guidance(_port_opt("--use_cd", os.path.join(d, "none"))).cd_kv is None
 
 
 def test_sd_weights_dir_gives_the_same_eps_as_jax(tmp_path, capsys):

@@ -1,7 +1,8 @@
 """The port stands alone: ``customnerf_torch``, ``chip_smoke.py`` and the
 study tools in ``tools/`` import nothing of JAX, nothing of the JAX package,
-and none of ``transformers``, ``safetensors`` or ``cv2`` (the card's machine
-may lack them), and the entry points run on the card unless the caller asks
+and none of ``transformers``, ``safetensors``, ``cv2`` or PIL (the card's
+machine may lack them; the image, data and guidance paths decode and resize
+on their own), and the entry points run on the card unless the caller asks
 for the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not
 speed): the trainer loop, the CLI on a nerfstudio fixture then ``--test``,
 and phase 1 → checkpoint → phase 2 (editing), on the ``-O`` tri-plane path
@@ -22,7 +23,7 @@ from test_torch_guidance import one_thread  # noqa: E402,F401
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors",
-             "cv2"):
+             "cv2", "PIL"):
     sys.modules[name] = None          # any import of them now fails
 import customnerf_torch
 mods = [m.name for m in pkgutil.walk_packages(customnerf_torch.__path__,
@@ -33,13 +34,16 @@ import chip_smoke
 import tools.device_probe, tools.kernel_study
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("customnerf_tpu", "jax", "jaxlib", "flax", "optax", "transformers",
-              "safetensors", "cv2") and sys.modules[m] is not None)
+              "safetensors", "cv2", "PIL") and sys.modules[m] is not None)
 assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.data.nerfstudio", "customnerf_torch.data.llff",
         "customnerf_torch.data.dtu", "customnerf_torch.data.fixtures",
         "customnerf_torch.ops.grid", "customnerf_torch.ops.morton",
         "customnerf_torch.ops.regularizers",
-        "customnerf_torch.engine.torch_shim"} <= set(mods)
+        "customnerf_torch.engine.torch_shim", "customnerf_torch.utils.jpeg",
+        "customnerf_torch.guidance.custom_diffusion", "customnerf_torch.guidance.sampler",
+        "customnerf_torch.guidance.retrieve", "customnerf_torch.guidance.validate",
+        "customnerf_torch.tune_custom_diffusion"} <= set(mods)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -91,10 +95,10 @@ def test_entry_points_raise_without_cpu_request(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_name_their_roadmap_item():
-    """``-O2``, ``--compact_frac -1`` and the tiled / hash grid are ported
-    and construct; ``--mesh_shape``, ``--ckpt_format orbax``, Custom
-    Diffusion and SD 2.x still raise, naming their ROADMAP item."""
+def test_unported_options_name_their_roadmap_item(tmp_path):
+    """``-O2``, ``--compact_frac -1``, the tiled / hash grid and ``--use_cd``
+    are ported and construct; ``--mesh_shape``, ``--ckpt_format orbax`` and
+    SD 2.x still raise, naming their ROADMAP item."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
@@ -117,10 +121,20 @@ def test_unported_options_name_their_roadmap_item():
         opt = parse_args(f"--data_type synthetic {grid} {flags}".split())
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             Trainer(opt, device="cpu", log=quiet)
-    for flags in ("--use_cd x", "--sd_version 2.1"):
-        opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained {flags}".split())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StableDiffusionGuidance(opt, device="cpu")
+    opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained --sd_version 2.1".split())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*SD 2.x"):
+        StableDiffusionGuidance(opt, device="cpu")
+    # --use_cd builds the guidance with the artifacts' adapters and token
+    from customnerf_torch.guidance.custom_diffusion import extract_cd_kv, save_cd_artifacts
+    stack = tiny_stack()
+    cd_dir = str(tmp_path / "cd")
+    save_cd_artifacts(cd_dir, extract_cd_kv(build_tiny_guidance(
+        parse_args(["--data_type", "synthetic"]), stack).unet), {"<new1>": torch.ones(32)})
+    opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained "
+                     f"--allow_random_guidance --use_cd {cd_dir}".split())
+    g = build_tiny_guidance(opt, stack)
+    assert g.cd_kv is not None and len(g.cd_kv) == 10
+    assert g.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
 
 
 TINY = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
@@ -129,6 +143,30 @@ TINY = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
         "--data_type synthetic --h 16 --w 16 --train_size 6 --iters 12 "
         "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
         "--max_steps 32 --ckpt scratch").split()
+
+
+def tiny_stack():
+    """The tiny SD configs of the phase-2 drives (context width 32)."""
+    from customnerf_torch.guidance.unet import UNetConfig
+    from customnerf_torch.guidance.vae import VAEConfig
+    return dict(unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                                    cross_attention_dim=32, attention_head_dim=4,
+                                    norm_num_groups=8),
+                vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
+                                  norm_num_groups=8))
+
+
+def build_tiny_guidance(opt, stack):
+    """``StableDiffusionGuidance`` on the CPU at the tiny widths, weights
+    from ``--seed`` as on the card."""
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.text import CLIPTextConfig, CLIPTextModel, TextEncoder
+    gen = torch.Generator().manual_seed(opt.seed)
+    text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4), generator=gen))
+    return StableDiffusionGuidance(opt, device="cpu", text_encoder=text, **stack)
 
 
 def test_tiny_training_run_on_cpu(tmp_path):
@@ -321,3 +359,106 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     assert edit.global_step == 12 and edit.n_updates == 12
     assert all(math.isfinite(v) for v in edit.stats["loss"]) and edit.pt_dict
     assert not torch.equal(edit.field.grid_table, before)
+
+
+C1_WARNINGS = {"steps_per_dispatch": (["--steps_per_dispatch", "8"], "K-step dispatch"),
+               "triplane_fwd_bf16": (["--triplane_fwd_bf16"], "bf16 policy"),
+               "triplane_bwd": (["--triplane_bwd", "scatter"], "same numbers"),
+               "compact_layout": (["--compact_layout", "wide"], "same numbers")}
+
+
+@pytest.mark.parametrize("flag", sorted(C1_WARNINGS) + ["profile", "validate_weights"])
+def test_c1_flags_warn_trace_or_run_the_drill(tmp_path, capsys, monkeypatch, flag):
+    """The flags the JAX package acts on: each warns (naming its ROADMAP item
+    or saying the JAX paths compute the same numbers), traces the first
+    epoch (``--profile``) or runs the drill and exits without training
+    (``--validate_weights``)."""
+    import json
+    from customnerf_torch.config import parse_args
+    if flag in C1_WARNINGS:
+        extra, why = C1_WARNINGS[flag]
+        parse_args(TINY + extra)
+        out = capsys.readouterr().out
+        assert f"[WARN] --{flag}=" in out and why in out, out
+        parse_args(TINY)
+        assert "[WARN]" not in capsys.readouterr().out
+    elif flag == "profile":
+        from customnerf_torch.data.base import NeRFDataset
+        from customnerf_torch.engine.trainer import Trainer
+        opt = parse_args(TINY + ["--profile", "--workspace", str(tmp_path)])
+        lines = []
+        tr = Trainer(opt, device="cpu", log=lines.append)
+        tr.train(NeRFDataset(opt, "train", device="cpu").dataloader(), max_epochs=2)
+        assert os.listdir(tmp_path / "profile") == ["trace_ep0001.json"]
+        with open(tmp_path / "profile" / "trace_ep0001.json") as f:
+            events = json.load(f)["traceEvents"]
+        assert any("aten::" in e.get("name", "") for e in events)
+        assert not opt.profile and sum("--profile" in l for l in lines) == 1
+    else:
+        from customnerf_torch import __main__ as cli
+        from customnerf_torch.guidance import validate
+
+        def no_trainer(*a, **k):
+            raise AssertionError("--validate_weights built a trainer")
+
+        monkeypatch.setattr(validate, "StableDiffusionGuidance",
+                            lambda opt, device=None: build_tiny_guidance(opt, tiny_stack()))
+        monkeypatch.setattr(cli, "Trainer", no_trainer)
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--validate_weights", "--data_type", "synthetic"], device="cpu")
+        assert e.value.code == 0
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert report["ok"] and report["eps_prediction"]["finite"]
+
+
+def test_tiny_tune_then_use_cd_editing_on_cpu(tmp_path, monkeypatch):
+    """The image-driven edit from end to end, the CPU asked for: JPEG concept
+    images → ``python -m customnerf_torch.tune_custom_diffusion`` (2 steps,
+    a checkpoint) → phase 1 → ``--pretrained --editing_from … --use_cd
+    <its output>`` editing with ``<new1>`` in the prompts."""
+    import numpy as np
+    from customnerf_torch import tune_custom_diffusion
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.utils.jpeg import write_jpeg
+    quiet = lambda *_: None                                     # noqa: E731
+    inst = tmp_path / "inst"
+    inst.mkdir()
+    rs = np.random.RandomState(0)
+    for i in range(3):                          # 48×40: enlarged to 64
+        write_jpeg(str(inst / f"v{i}.jpg"), (rs.rand(48, 40, 3) * 255).astype(np.uint8))
+    stack = tiny_stack()
+    out = tune_custom_diffusion.main(
+        ["--instance_data_dir", str(inst), "--instance_prompt", "bear", "--output_dir",
+         str(tmp_path / "cd"), "--resolution", "64", "--max_train_steps", "2",
+         "--train_batch_size", "1", "--checkpointing_steps", "1"],
+        device="cpu", log=quiet,
+        guidance=build_tiny_guidance(parse_args(["--data_type", "synthetic", "--seed", "42"]),
+                                     stack))
+    assert sorted(os.listdir(out)) == ["<new1>.bin", "checkpoint-1",
+                                       "pytorch_custom_diffusion_weights.bin"]
+
+    p1 = parse_args(TINY + ["--iters", "6", "--workspace", str(tmp_path / "recon")])
+    recon = Trainer(p1, device="cpu", log=quiet, use_checkpoint=p1.ckpt)
+    recon.train(NeRFDataset(p1, "train", device="cpu").dataloader(), max_epochs=1)
+    ckpt = tmp_path / "recon" / "checkpoints" / "df_ep0001.pth"
+    p2 = parse_args(TINY + [
+        "--iters", "6", "--workspace", str(tmp_path / "edit"), "--pretrained",
+        "--editing_from", str(ckpt), "--text", "a <new1> bear in a forest",
+        "--text_fg", "a <new1> bear", "--lambda_sd", "0.01", "--keep_bg", "1000",
+        "--cfg", "100", "--random_bg_c", "--detach_bg", "--stage_time", "--sd_version",
+        "1.5", "--allow_random_guidance", "--use_cd", out])
+    guidance = build_tiny_guidance(p2, stack)
+    assert guidance.cd_kv is not None
+    assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
+    x, ctx = torch.randn(2, 4, 8, 8), guidance.get_text_embeds(["a <new1> bear"], [""])
+    with torch.no_grad():
+        with_cd = guidance.unet(x, torch.tensor([500, 500]), ctx, cd_kv=guidance.cd_kv)
+        without = guidance.unet(x, torch.tensor([500, 500]), ctx)
+    assert not torch.equal(with_cd, without)
+    edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=1)
+    assert edit.global_step == 6 and all(math.isfinite(v) for v in edit.stats["loss"])

@@ -7,6 +7,8 @@ them on the card with
 machine has no JAX, which ``tests/conftest.py`` imports).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -264,6 +266,130 @@ def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
     assert set(aux) == {"loss_sds", "loss_bg"}
     assert all(bool(torch.isfinite(v)) for v in aux.values())
     assert any(bool((p.detach() != b).any()) for p, b in zip(tr.field.parameters(), before))
+
+
+def _tiny_guidance(opt, device, seed=0):
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.text import (CLIPTextConfig, CLIPTextModel,
+                                                TextEncoder)
+    from customnerf_torch.guidance.unet import UNetConfig
+    from customnerf_torch.guidance.vae import VAEConfig
+    text = TextEncoder(model=build(
+        CLIPTextModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=4),
+        device=device, generator=torch.Generator(device=device).manual_seed(seed)))
+    return StableDiffusionGuidance(
+        opt, device=device, text_encoder=text,
+        unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                            cross_attention_dim=32, attention_head_dim=4,
+                            norm_num_groups=8),
+        vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
+                          norm_num_groups=8))
+
+
+def _jpeg_concepts(d, n=2, size=48):
+    from customnerf_torch.utils.jpeg import write_jpeg
+    os.makedirs(d, exist_ok=True)
+    rs = np.random.RandomState(0)
+    for i in range(n):
+        write_jpeg(os.path.join(d, f"v{i}.jpg"), (rs.rand(size, size, 3) * 255).astype(np.uint8))
+    return d
+
+
+def test_tuning_step_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """One Custom Diffusion step (batch 2 with prior) at reduced width on
+    the card against the same step on the CPU, the same weights and draws:
+    the loss to 1e-4 relative, and the gradient AdamW is handed (adapters
+    and token row) to 1e-4 of each tensor's largest entry (cuDNN and cuBLAS
+    sum in other orders, TF32 off in cuBLAS and cuDNN).  The update itself is not compared
+    entry by entry: Adam's first step sends every entry to ±lr, so an entry
+    whose gradient is within rounding of zero may go either way."""
+    from customnerf_torch.config import Config
+    from customnerf_torch.guidance import custom_diffusion as cd
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    opt = Config(data_type="synthetic", seed=0)
+    g_cpu, g_card = _tiny_guidance(opt, "cpu"), _tiny_guidance(opt, cuda)
+    for a, b in ((g_cpu.unet, g_card.unet), (g_cpu.vae, g_card.vae),
+                 (g_cpu.text_encoder.model, g_card.text_encoder.model)):
+        b.load_state_dict(a.state_dict())
+    inst = _jpeg_concepts(str(tmp_path / "inst"))
+    cls = _jpeg_concepts(str(tmp_path / "cls"), 2, 64)
+    gen = torch.Generator().manual_seed(5)
+    fixed = [{k: torch.randn(2, 4, 8, 8, generator=gen) for k in ("vae", "noise", "vae2", "noise2")}]
+    grads, step = [], torch.optim.AdamW.step
+
+    def spy(self, *a, **k):
+        grads.append([p.grad.detach().cpu().clone() for gr in self.param_groups
+                      for p in gr["params"]])
+        return step(self, *a, **k)
+
+    monkeypatch.setattr(torch.optim.AdamW, "step", spy)
+    losses = []
+    for name, g in (("cpu", g_cpu), ("card", g_card)):
+        cd.train_custom_diffusion(opt, inst, "bear", str(tmp_path / name), class_dir=cls,
+                                  class_prompt="bear", steps=1, lr=1e-3, image_size=64,
+                                  batch_size=2, checkpointing_steps=0, guidance=g,
+                                  draws=lambda i: fixed[i], log=lambda *_: None,
+                                  on_step=lambda s, v: losses.append(v))
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+    assert len(grads) == 2 and len(grads[0]) == len(grads[1]) == 2 * 10 + 1
+    for i, (want, got) in enumerate(zip(*grads)):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 1e-4 * scale, (i, tuple(want.shape), err, scale)
+    assert float(grads[0][-1].abs().max()) > 0            # the token row's
+
+
+def test_use_cd_editing_step_on_card(cuda, tmp_path, monkeypatch):
+    """JPEG concept images → 2 tuning steps on the card → phase 1 → one
+    ``--use_cd`` LGIE/SDS editing step: both kernels launch, the adapters
+    change ε, the losses are finite."""
+    from customnerf_torch.config import Config, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance import custom_diffusion as cd
+    from customnerf_torch.ops import fused_mlp, triplane_kernels
+
+    inst = _jpeg_concepts(str(tmp_path / "inst"))
+    cd_dir = cd.train_custom_diffusion(
+        Config(data_type="synthetic", seed=0), inst, "bear", str(tmp_path / "cd"),
+        steps=2, lr=1e-3, image_size=64, batch_size=1, checkpointing_steps=0,
+        guidance=_tiny_guidance(Config(data_type="synthetic", seed=0), cuda),
+        log=lambda *_: None)
+    field = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 8 "
+             "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
+             "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
+             "--data_type synthetic --h 16 --w 16 --train_size 4 --iters 8 "
+             "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
+             "--max_steps 32 --ckpt scratch").split()
+    recon = Trainer(parse_args(field + ["--workspace", str(tmp_path / "r")]),
+                    use_checkpoint="scratch", log=lambda *_: None)
+    recon.train(NeRFDataset(recon.opt, "train").dataloader(), max_epochs=2)
+    opt = parse_args(field + [
+        "--workspace", str(tmp_path / "e"), "--pretrained", "--editing_from",
+        str(tmp_path / "r" / "checkpoints" / "df_ep0002.pth"), "--text",
+        "a <new1> bear in a forest", "--text_fg", "a <new1> bear", "--lambda_sd", "0.01",
+        "--keep_bg", "100", "--random_bg_c", "--detach_bg", "--stage_time",
+        "--allow_random_guidance", "--use_cd", cd_dir])
+    guidance = _tiny_guidance(opt, cuda)
+    assert guidance.cd_kv is not None and all(
+        v.is_cuda for e in guidance.cd_kv.values() for v in e.values())
+    ctx = guidance.get_text_embeds(["a <new1> bear"], [""])
+    x = torch.randn(2, 4, 8, 8, device=cuda)
+    t = torch.tensor([500, 500], device=cuda)
+    with torch.no_grad():
+        assert not torch.equal(guidance.unet(x, t, ctx, cd_kv=guidance.cd_kv),
+                               guidance.unet(x, t, ctx))
+    tr = Trainer(opt, guidance=guidance, use_checkpoint="scratch", log=lambda *_: None)
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    batch = NeRFDataset(opt, "train").dataloader().item(0)
+    n_mlp, n_dt = fused_mlp.fused_mlp_forward.launches, triplane_kernels.plane_dtable.launches
+    loss, aux, _ = tr.train_step(batch)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_forward.launches > n_mlp
+    assert triplane_kernels.plane_dtable.launches > n_dt
+    assert all(bool(torch.isfinite(v)) for v in aux.values())
 
 
 def test_nerfstudio_fixture_run_on_card(cuda, tmp_path):

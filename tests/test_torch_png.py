@@ -107,10 +107,12 @@ def test_unsupported_files_raise(tmp_path):
     _write_raw(palette, 4, 4, 8, 3, 0, b"\0" * (4 * 5))
     with pytest.raises(ValueError, match="p.png.*palette"):
         png.read(palette)
+    # a .jpg path goes to utils/jpeg.py (tests/test_torch_jpeg.py); a
+    # progressive one raises there, naming the file and its ROADMAP row
     jpg = str(tmp_path / "photo.jpg")
-    cv2.imwrite(jpg, _image((8, 8, 3), 0))
+    cv2.imwrite(jpg, _image((8, 8, 3), 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     for fn in (png.read, png.dims, lambda p: resample.load(p, 4, 4)):
-        with pytest.raises(NotImplementedError, match="photo.jpg.*JPEG decode on the card"):
+        with pytest.raises(ValueError, match="photo.jpg.*progressive JPEG"):
             fn(jpg)
     gif = tmp_path / "x.png"
     gif.write_bytes(b"GIF89a" + b"\0" * 40)
