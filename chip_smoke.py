@@ -8,37 +8,47 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 1. setup: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions, and the kernels built from ``customnerf_torch/csrc`` (seconds).
 2. trainer (the main path): the flagship reconstruction recipe
-   (``config.FLAGSHIP_ARGS``, ``scripts/bear.sh:18-20``) on the synthetic
-   provider at 128×128 = 16,384 rays a step, through the port's ``Trainer``,
-   with the occupancy grid refreshed every 4 steps so that it leaves its
-   warm-up.  The launch counters are zeroed just before and read just after;
-   both kernels must have run, and the refresh must have taken the
-   density-only head.  Every loss must be finite and every parameter must
+   (``config.FLAGSHIP_ARGS``, ``scripts/bear.sh:18-20``) with ``--backend
+   pallas`` (the JAX package's Pallas route: the f32 fused head; dT keeps
+   its default bf16 operands) on the synthetic provider at 128×128 = 16,384
+   rays a step, through the port's ``Trainer``, with the occupancy grid
+   refreshed every 4 steps so that it leaves its warm-up.  The launch
+   counters (one a kernel mode) are zeroed just before and read just after;
+   K1's f32 mode and dT's bf16 mode must have run and no other mode, and
+   the refresh must have taken the density-only head.  Then 4 more steps
+   with the tri-plane spec's ``mm_bf16`` off (counters zeroed and read
+   again): dT's f32 mode must launch.  Every loss must be finite and every parameter must
    have moved; the loss on a fixed view is printed before and after (on
    this scene it does not fall within 40 steps from the flax init: the
    quality phase checks learning, with PSNR gates); one validation view is
    rendered through ``render_image`` and its PSNR printed.
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the inputs the main path gave it — the fused field MLP on one train
-   step's 229,376 compacted samples and, density-only, on one refresh's
-   4,194,304 queries (whose sigma must equal the full head's bit for bit),
-   the tri-plane table gradient on the XY plane of each level
-   ((R, C) = (128, 16) and (512, 8)) of the last train step — with
-   CUDA-event device times (``engine/measure.py``) of the kernel, the plain
-   version and, where one exists, a single library call.  These launches
-   come after the counters were read.
+3. kernels: each hand-written kernel, in the mode the path ran, against
+   its plain PyTorch version on the inputs the path gave it — the fused
+   field MLP on one train step's 229,376 compacted samples and,
+   density-only, on one refresh's 4,194,304 queries (whose sigma must equal
+   the full head's bit for bit), the tri-plane table gradient on the XY
+   plane of each level ((R, C) = (128, 16) and (512, 8)) of the last train
+   step, in bf16 and, from the steps with ``mm_bf16`` off, in f32 — with
+   CUDA-event device times (``engine/measure.py``) of the kernel, of the
+   other mode's kernel on the same inputs, of the plain version and, where
+   one exists, of a single library call.  Tolerances: K1-f32 1e-4 and
+   K1-bf16 1e-2 of the largest output, dT 1e-5 of the largest texel sum in
+   either mode.  These launches come after the counters were read.
 4. checkpoint: the trainer of phase 2 saves its checkpoint into
    ``chiprun_out/``; an editing trainer (``scripts/bear.sh``'s phase-2
-   flags, ``--editing_from`` that file) is built from it, and its frozen
-   field must render the validation view bit for bit as the saving trainer
-   does (``perturb=False``, the restored occupancy grid equal to the saved).
+   flags, ``--editing_from`` that file: bf16 heads) is built from it; its
+   frozen field must hold the saved parameters bit for bit and, in the
+   saving trainer's f32 head, render the validation view bit for bit as the
+   saving trainer does (``perturb=False``, the restored occupancy grid equal
+   to the saved).
 5. full width: the SD 1.5 stack (UNet, VAE, CLIP ViT-L/14 text, CLIP
-   ViT-B/32 matcher) is built on the card from a seeded generator, in
-   float32, and its parameter counts must equal the JAX package's
+   ViT-B/32 matcher) is built on the card from a seeded generator, UNet and
+   VAE stored in bf16, the text towers in f32 (the JAX package's rule), and
+   its parameter counts must equal the JAX package's
    (``guidance/sds.py::FULL_WIDTH_PARAMS``, pinned by a CPU test).
 6. editing (the second path): 8 LGIE/SDS steps on the same 128×128 frames
    (16,384 rays a step).  Counters zeroed just before and read just after;
-   both kernels must have launched, both LGIE branches and the clip_view
+   K1's and dT's bf16 modes must have launched, both LGIE branches and the clip_view
    prompt selection must have run, every loss must be finite and the field
    must have changed.  Prints the step's median ms and its split (render to
    latents, UNet, backward + Adam), its peak memory, the SD stack's init
@@ -50,7 +60,7 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    phase 4: 4 synthetic frames at 128×128 written as JPEG
    (``utils/jpeg.py::write_jpeg``) are the concept images; ``retrieve``
    generates 2 class images (25 DDIM steps at 512², seconds per image);
-   ``train_custom_diffusion`` takes 8 steps at full width in f32 (batch 2
+   ``train_custom_diffusion`` takes 8 steps at full width in bf16 (batch 2
    with prior, a checkpoint at step 4, one validation sample at step 8;
    median step, peak memory, artifact bytes; every loss finite, every
    adapter and the token row moved), and a second call resumes from
@@ -103,8 +113,12 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    fill on its warm grid and prints the fraction it picks beside the
    recipe's 0.35.
 10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
-   editing, parity and quality rows), then the last line ``{"ok": true,
-   "device": {...}}``.
+   editing, parity and quality rows; all four kernel modes), then the last
+   line ``{"ok": true, "device": {...}}``.
+
+Every phase but the 40-step reconstruction runs the JAX package's default
+precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
+operands, the SD stack in bf16.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits nonzero, with
 no result, when no CUDA device is available.  Details go to
@@ -121,17 +135,22 @@ import statistics
 import sys
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): TF32 on the tensor
-# cores, f32 outside them, and HBM3 bandwidth.  bound_ms = max(operations /
-# the peak of the unit that runs them, bytes / HBM).
+# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 on the
+# tensor cores, f32 outside them, and HBM3 bandwidth.  bound_ms =
+# max(operations / the peak of the unit that runs them, bytes / HBM).
+PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TF32_PASSES = 3               # K1 runs each f32 product as three TF32 products
 
-SMOKE_FLAGS = ("--backend pallas --data_type synthetic --h 128 --w 128 "
+SMOKE_FLAGS = ("--data_type synthetic --h 128 --w 128 "
                "--seed 0 --update_extra_interval 4 --use_ckpt scratch "
                "--ckpt scratch").split()
+# the 40-step reconstruction runs the JAX package's Pallas route: the f32
+# fused head (every other phase runs the default policy: bf16 heads)
+RECON_FLAGS = ["--backend", "pallas"]
+DT_F32_STEPS = 4              # steps with the tri-plane spec's mm_bf16 off
 RECON_WORKSPACE = os.path.join("chiprun_out", "smoke_recon")
 # scripts/bear.sh:39-48, phase 2, on the synthetic provider with random SD
 # weights; --iters 8 puts the last half of the steps under --stage_time
@@ -158,6 +177,33 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# the four kernel modes, by the names of the {"kernels": ...} line
+K1, K1_BF16, DT, DT_BF16 = ("fused_field_mlp", "fused_field_mlp_bf16",
+                            "plane_dtable", "plane_dtable_bf16")
+
+
+def zero_counts():
+    """Set every launch count to 0 (just before a path is driven)."""
+    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    for fn in (fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable):
+        fn.launches = fn.launches_bf16 = 0
+
+
+def read_counts():
+    """Each kernel mode's launches since :func:`zero_counts`."""
+    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    mlp, dt = fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable
+    return {K1: mlp.launches, K1_BF16: mlp.launches_bf16,
+            DT: dt.launches, DT_BF16: dt.launches_bf16}
+
+
+def check_launched(launches, kernels, path):
+    """The modes a path must have launched have, and no other mode has."""
+    for name, n in launches.items():
+        assert (n > 0) == (name in kernels), \
+            f"{name} launched {n} times on the {path} path (expected: {kernels})"
+
+
 # ----------------------------------------------------------------- trainer
 def run_trainer():
     """The main path.  Returns its summary and the kernels' inputs as the
@@ -168,10 +214,11 @@ def run_trainer():
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.trainer import Trainer, psnr
     from customnerf_torch.models import field
-    from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
+    from customnerf_torch.ops import triplane
     from customnerf_torch.ops.occupancy import WARMUP_UPDATES
 
-    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + ["--workspace", RECON_WORKSPACE])
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + RECON_FLAGS
+                     + ["--workspace", RECON_WORKSPACE])
     trainer = Trainer(opt)
     dev = trainer.device
     train = NeRFDataset(opt, "train", device=dev).dataloader()
@@ -188,8 +235,7 @@ def run_trainer():
     with captured_calls(field, "fused_field_mlp", keep=4) as mlp_calls, \
             captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
         # the main path starts here: counters read only launches of this run
-        fused_mlp.fused_mlp_forward.launches = 0
-        triplane_kernels.plane_dtable.launches = 0
+        zero_counts()
         t_start = time.time()
         loss_before = fixed_loss()
         start_params = [p.detach().clone() for p in trainer.field.parameters()]
@@ -220,8 +266,7 @@ def run_trainer():
         out = trainer.render_image(view.rays_o, view.rays_d)
         torch.cuda.synchronize()
         wall_s = time.time() - t_start
-        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
-                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+        launches = read_counts()
 
     img = out["image"]
     assert img.shape == (view.H * view.W, 3), img.shape
@@ -232,15 +277,14 @@ def run_trainer():
     moved = [float((p.detach() - q).abs().max())
              for p, q in zip(trainer.field.parameters(), start_params)]
     assert all(m > 0 for m in moved), f"a parameter did not move: {moved}"
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the main path"
+    check_launched(launches, (K1, DT_BF16), "main")
     steady = [s for s in steps if s["warm"]]
     assert steady, "the occupancy grid never left its warm-up"
     assert statistics.mean(s["overflow_frac"] for s in steady) < 1.0, \
         "every block overflowed: the compacted path never ran exactly"
     for n, (args, _) in mlp_inputs.items():
         assert args[0].shape[0] == n, (n, args[0].shape)
-    assert mlp_inputs[REFRESH_QUERIES][1] == {"with_rgb": False}, \
+    assert mlp_inputs[REFRESH_QUERIES][1].get("with_rgb") is False, \
         "the refresh did not take the density-only head"
     summary = {
         "steps": steps, "refresh_ms": refresh_ms, "launches": launches,
@@ -254,89 +298,140 @@ def run_trainer():
     return summary, mlp_inputs, list(dt_calls)
 
 
+def run_f32_dtable_steps(trainer):
+    """DT_F32_STEPS more steps of the main path's trainer with its tri-plane
+    spec's ``mm_bf16`` off (the JAX package's f32 table gradient, the
+    setting of its f32 parity tests): counters zeroed before and read
+    after, dT's f32 mode must launch and its bf16 mode must not.  Returns
+    the summary and the last step's dT calls."""
+    import dataclasses
+    import torch
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.ops import triplane
+
+    train = NeRFDataset(trainer.opt, "train", device=trainer.device).dataloader()
+    cfg = trainer.field.cfg
+    trainer.field.cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, mm_bf16=False))
+    try:
+        with captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
+            zero_counts()
+            losses = []
+            for _ in range(DT_F32_STEPS):
+                trainer.global_step += 1
+                losses.append(float(trainer.train_step(train.item(0))[0]))
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        trainer.field.cfg = cfg
+    check_launched(launches, (K1, DT), "f32 table gradient")
+    assert all(math.isfinite(v) for v in losses), losses
+    return {"steps": DT_F32_STEPS, "losses": losses, "launches": launches}, list(dt_calls)
+
+
 # ----------------------------------------------------------------- kernels
-def check_fused_mlp(x, v, ws, with_rgb=True):
-    """K1 against reference_forward (f32 cuBLAS, TF32 off) on the inputs the
-    main path gave it."""
+def check_fused_mlp(x, v, ws, with_rgb=True, bf16=False):
+    """K1 in the mode the path ran (``bf16``) against its plain version on
+    the inputs the path gave it (f32 cuBLAS with TF32 off, or the bf16
+    head's cuBLAS bf16 GEMMs), with the other mode's kernel time on the same
+    inputs beside it."""
     import torch
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import fused_mlp as fm
 
     B, in_dim = x.shape
     dir_dim, hid, n_out = ws[5].shape[0] - ws[1].shape[0], ws[0].shape[1], ws[6].shape[1]
-    sig_k, rgb_k = fm.fused_mlp_forward(x, v, ws, with_rgb)
-    sig_p, rgb_p = fm.reference_forward(x, v, ws, with_rgb)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    sig_k, rgb_k = fm.fused_mlp_forward(x, v, ws, with_rgb, bf16)
+    sig_p, rgb_p = fm.reference_forward(x, v, ws, with_rgb, dtype)
     torch.cuda.synchronize()
     outs = [(sig_k, sig_p)] + ([(rgb_k, rgb_p)] if with_rgb else [])
     err = max(float((k - p).abs().max()) for k, p in outs)
     scale = max(float(p.abs().max()) for _, p in outs)
-    # split-TF32 (three TF32 products, each operand's dropped part ≤ 2^-22
-    # of it) against f32 with another summation order over ≤ 91-term dots
-    # in 3-5 layers: well under 1e-4 of the largest output; a wrong index or
-    # a missed tile gives errors of order one
-    tol = 1e-4 * max(scale, 1.0)
+    if bf16:
+        # the same bf16 roundings; each layer sums in another order than
+        # cuBLAS, so a sum near a rounding boundary lands one ulp apart and
+        # carries on: 1e-2 of the largest output, about 2.5 bf16 ulps
+        tol = 1e-2 * max(scale, 1e-6)
+    else:
+        # split-TF32 (three TF32 products, each operand's dropped part ≤
+        # 2^-22 of it) against f32 with another summation order over ≤
+        # 91-term dots in 3-5 layers: well under 1e-4 of the largest output;
+        # a wrong index or a missed tile gives errors of order one
+        tol = 1e-4 * max(scale, 1.0)
     if not (err <= tol and all(bool(torch.isfinite(k).all()) for k, _ in outs)):
-        raise AssertionError(f"fused_mlp B={B}: max_abs_err {err} > tol {tol}")
+        raise AssertionError(f"fused_mlp bf16={bf16} B={B}: max_abs_err {err} > tol {tol}")
     sigma_bitwise = None
     if not with_rgb:
         # sigma of the density-only head is the full head's, bit for bit
         zeros = torch.zeros(B, dir_dim, device=x.device)
-        sigma_bitwise = bool(torch.equal(fm.fused_mlp_forward(x, zeros, ws)[0], sig_k))
+        sigma_bitwise = bool(torch.equal(fm.fused_mlp_forward(x, zeros, ws, True, bf16)[0],
+                                         sig_k))
         if not sigma_bitwise:
             raise AssertionError("density-only sigma differs from the full call's")
     reps = 20 if B < 10 ** 6 else 5
-    k_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb), reps)
-    call_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb), reps,
+    k_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb, bf16), reps)
+    call_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb, bf16), reps,
                         host_ahead=False)
-    p_ms = device_ms(lambda: fm.reference_forward(x, v, ws, with_rgb), reps)
+    p_ms = device_ms(lambda: fm.reference_forward(x, v, ws, with_rgb, dtype), reps)
+    other_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb, not bf16), reps)
     used = ws if with_rgb else ws[:5]
     macs = sum(w.shape[0] * w.shape[1] for w in used)
     nbytes = (B * (in_dim + 1 + (dir_dim + n_out if with_rgb else 0)) * 4
               + macs * 4)
-    b_ms, b_by = bound(TF32_PASSES * 2.0 * macs * B, nbytes, PEAK_TF32_FLOPS)
+    if bf16:
+        b_ms, b_by = bound(2.0 * macs * B, nbytes, PEAK_BF16_FLOPS)
+        peak = "one pass at the dense bf16 tensor rate 989 TFLOP/s; HBM3 3.35 TB/s"
+    else:
+        b_ms, b_by = bound(TF32_PASSES * 2.0 * macs * B, nbytes, PEAK_TF32_FLOPS)
+        peak = "3 passes at the dense TF32 tensor rate 495 TFLOP/s; HBM3 3.35 TB/s"
     f32_ms, _ = bound(2.0 * macs * B, nbytes)
-    return {"name": "fused_field_mlp",
+    return {"name": K1_BF16 if bf16 else K1,
             "shape": f"B={B} in={in_dim} dir={dir_dim} hidden={hid} out={n_out}"
                      + ("" if with_rgb else " density-only"),
             "route": "cuda", "source": "customnerf_torch/csrc/fused_mlp.cu",
             "replaces": "customnerf_tpu/ops/fused_mlp_pallas.py:59",
             "max_abs_err": err, "tolerance": tol, "ms": k_ms, "kernel_ms": k_ms,
             "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by,
-            "bound_peak": "3 passes at the dense TF32 tensor rate 495 TFLOP/s; "
-                          "HBM3 3.35 TB/s",
+            "bound_by": b_by, "bound_peak": peak,
             "bound_f32_fma_ms": f32_ms, "library_ms": None,
-            "sigma_bitwise": sigma_bitwise}
+            "other_mode_ms": other_ms, "sigma_bitwise": sigma_bitwise}
 
 
-def check_dtable(u0, v0, fu, fv, g, R: int, C: int):
-    """dT kernel against its plain version (index_add_) and a single
-    index_add_ call (the library yardstick), on one plane of a train step."""
+def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
+    """dT in the mode the path ran (``bf16``) against its plain version
+    (index_add_ of the same, rounded, corner contributions) and a single
+    index_add_ call (the library yardstick), on one plane of a step."""
     import torch
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import triplane_kernels as tk
 
     B = u0.shape[0]
-    got = tk.plane_dtable(u0, v0, fu, fv, g, R, C)
-    want = tk.plane_dtable_reference(u0, v0, fu, fv, g, R, C)
+    got = tk.plane_dtable(u0, v0, fu, fv, g, R, C, bf16=bf16)
+    want = tk.plane_dtable_reference(u0, v0, fu, fv, g, R, C, bf16=bf16)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    # both sum in an order set by atomics; a texel takes up to a few
-    # thousand terms: a few ulp of the largest texel sum
+    # both sum in an order set by atomics (the same bf16 roundings in the
+    # bf16 mode); a texel takes up to a few thousand terms: a few ulp of the
+    # largest texel sum
     tol = 1e-5 * max(float(want.abs().max()), 1e-6)
     if not err <= tol:
-        raise AssertionError(f"plane_dtable R={R} C={C}: max_abs_err {err} > tol {tol}")
+        raise AssertionError(f"plane_dtable bf16={bf16} R={R} C={C}: max_abs_err "
+                             f"{err} > tol {tol}")
     # into a zeroed block, as the main path calls it (the step zero-fills
     # the whole table gradient once)
     into = torch.zeros(R * R, C, device=g.device)
-    k_ms = device_ms(lambda: tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=into), 20)
-    call_ms = device_ms(lambda: tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=into),
-                        20, host_ahead=False)
+    k_ms = device_ms(lambda: tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=into,
+                                             bf16=bf16), 20)
+    call_ms = device_ms(lambda: tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=into,
+                                                bf16=bf16), 20, host_ahead=False)
     p_ms = device_ms(lambda: tk.plane_dtable_reference(u0, v0, fu, fv, g, R, C,
-                                                       out=into), 20)
-    rows, w = tk.corner_rows_weights(u0, v0, fu, fv, R)
-    rows = rows.reshape(-1)
-    vals = (w[:, :, None] * g[:, None, :]).reshape(-1, C)
+                                                       out=into, bf16=bf16), 20)
+    other_ms = device_ms(lambda: tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=into,
+                                                 bf16=not bf16), 20)
+    rows, vals = tk.corner_values(u0, v0, fu, fv, g, R, C, bf16)
+    rows, vals = rows.reshape(-1), vals.reshape(-1, C)
     out = torch.zeros(R * R, C, device=g.device)
     lib_ms = device_ms(lambda: out.index_add_(0, rows, vals), 20)
     # samples whose cotangent is all zero (dead compaction slots) add
@@ -344,12 +439,12 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int):
     live = (g != 0).any(dim=1)
     n_live = int(live.sum())
     sel = [t[live].contiguous() for t in (u0, v0, fu, fv, g)]
-    live_ms = device_ms(lambda: tk.plane_dtable(*sel, R, C, out=into), 20)
+    live_ms = device_ms(lambda: tk.plane_dtable(*sel, R, C, out=into, bf16=bf16), 20)
     # every g is read (to find the zeros); corners and fractions of the live
     # samples; the plane written once
     nbytes = B * 4 * C + n_live * 16 + R * R * C * 4
     b_ms, b_by = bound(8.0 * C * n_live, nbytes)
-    return {"name": "plane_dtable", "shape": f"R={R} C={C} B={B}",
+    return {"name": DT_BF16 if bf16 else DT, "shape": f"R={R} C={C} B={B}",
             "route": "cuda", "source": "customnerf_torch/csrc/triplane_dtable.cu",
             "replaces": "customnerf_tpu/ops/triplane_pallas.py:57, "
                         "customnerf_tpu/ops/triplane_pallas.py:166",
@@ -358,7 +453,14 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int):
             "bound_by": b_by,
             "bound_peak": "HBM3 3.35 TB/s; f32 67 TFLOP/s",
             "library_ms": lib_ms, "live_share": n_live / B,
-            "live_rows_ms": live_ms}
+            "live_rows_ms": live_ms, "other_mode_ms": other_ms}
+
+
+def dtable_rows(calls):
+    """dT against its plain version on the XY plane of each level of a
+    step's captured calls ((level 0: XY, XZ, YZ), (level 1: ...))."""
+    return [check_dtable(*calls[i][0][:7], bf16=calls[i][1].get("bf16", False))
+            for i in (0, 3)]
 
 
 # ----------------------------------------------------------------- editing
@@ -370,13 +472,15 @@ def _equal_renders(a, b) -> bool:
 
 
 def run_checkpoint(recon):
-    """Phase 4: save, build the editing trainer from the file, and render
-    the validation view through the frozen field bit for bit as the saving
-    trainer.  Returns (editing trainer, its options, summary)."""
+    """Phase 4: save, build the editing trainer from the file (the default
+    policy: bf16 heads), check that its frozen field holds the saved
+    parameters bit for bit and, in the saving trainer's f32 head, renders
+    the validation view bit for bit as the saving trainer.  Returns
+    (editing trainer, its options, summary)."""
     import torch
     from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.engine.trainer import Trainer, build_field
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
 
     path = recon.save_checkpoint()
@@ -388,11 +492,18 @@ def run_checkpoint(recon):
     assert torch.equal(occ_a.bitfield, occ_b.bitfield) and \
         torch.equal(occ_a.density_grid, occ_b.density_grid) and \
         occ_a.iter_density == occ_b.iter_density, "occupancy grid not restored"
+    frozen = trainer.field_pretrained
+    assert frozen.fused_bf16 and not recon.field.fused_bf16
+    assert all(torch.equal(a, b) for a, b in zip(frozen.state_dict().values(),
+                                                  recon.field.state_dict().values()))
     view = NeRFDataset(opt, "val", device=trainer.device).dataloader().item(0)
     saved = recon.render_image(view.rays_o, view.rays_d, perturb=False)
+    as_saved = build_field(recon.opt, trainer.device)
+    as_saved.load_state_dict(frozen.state_dict())
     loaded = trainer.render_image(view.rays_o, view.rays_d, perturb=False,
-                                  field=trainer.field_pretrained)
+                                  field=as_saved)
     assert _equal_renders(saved, loaded), "the reloaded field renders differently"
+    del as_saved
     return trainer, opt, {"checkpoint": os.path.relpath(path),
                           "bytes": os.path.getsize(path), "bitwise": True}
 
@@ -401,9 +512,10 @@ def sd_bounds(guidance):
     """The least time the card could take for the SD parts of an editing
     step, from FLOPs counted by ``torch.utils.flop_counter`` on the meta
     device (matmuls and convolutions; elementwise work is not counted) at
-    the f32 peak, and the bytes of each part's weights and inputs/outputs at
-    the HBM peak: the UNet's forward on [2, 4, 64, 64], and the VAE
-    encoder's forward and its backward to the image at 512²."""
+    the peak of the stack's dtype (bf16 on the card), and the bytes of each
+    part's weights (in that dtype) and f32 inputs/outputs at the HBM peak:
+    the UNet's forward on [2, 4, 64, 64], and the VAE encoder's forward and
+    its backward to the image at 512²."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from customnerf_torch.guidance.layers import build, n_params
@@ -425,15 +537,18 @@ def sd_bounds(guidance):
     with FlopCounterMode(display=False) as fc:
         z.sum().backward()
     bwd_flops = fc.get_total_flops()
-    enc_bytes = 4 * (n_params(vae.encoder) + n_params(vae.quant_conv)
-                     + img.numel() + 2 * z.numel())
-    unet_bytes = 4 * (n_params(unet) + 2 * 2 * lat.numel() + 2 * 77 * 768)
+    w = guidance.unet.conv_in.weight.element_size()
+    peak = PEAK_BF16_FLOPS if w == 2 else PEAK_F32_FLOPS
+    enc_bytes = (w * (n_params(vae.encoder) + n_params(vae.quant_conv))
+                 + 4 * (img.numel() + 2 * z.numel()))
+    unet_bytes = w * n_params(unet) + 4 * (2 * 2 * lat.numel() + 2 * 77 * 768)
     out = {}
     for name, flops, nbytes in (("unet_forward", unet_flops, unet_bytes),
                                 ("vae_encoder_forward", enc_flops, enc_bytes),
                                 ("vae_encoder_backward", bwd_flops, 2 * enc_bytes)):
-        ms, by = bound(flops, nbytes)
-        out[name] = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
+        ms, by = bound(flops, nbytes, peak)
+        out[name] = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by,
+                     "peak_flops": peak}
     return out
 
 
@@ -474,7 +589,7 @@ def editing_steps(trainer, opt, n_steps):
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.models import field
-    from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
+    from customnerf_torch.ops import triplane
 
     dev = trainer.device
     train = NeRFDataset(opt, "train", device=dev).dataloader()
@@ -486,8 +601,7 @@ def editing_steps(trainer, opt, n_steps):
     with captured_calls(field, "fused_field_mlp", keep=4) as mlp_calls, \
             captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
         # the editing path starts here: counters read only its launches
-        fused_mlp.fused_mlp_forward.launches = 0
-        triplane_kernels.plane_dtable.launches = 0
+        zero_counts()
         for _ in range(n_steps):
             batch = train.item(0)
             refreshed = (opt.cuda_ray
@@ -514,8 +628,7 @@ def editing_steps(trainer, opt, n_steps):
                               loss_bg=float(aux["loss_bg"]),
                               local=bool(stats["local"]), t=int(stats["t"]),
                               pt_cached=len(trainer.pt_dict)))
-        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
-                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+        launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     assert all(math.isfinite(s[k]) for s in steps
                for k in ("loss", "loss_sds", "loss_bg")), steps
@@ -541,15 +654,17 @@ def run_editing(trainer, opt):
     counts = dict(guidance.param_counts(),
                   clip_view=n_params(trainer.clip_matcher.model))
     assert counts == FULL_WIDTH_PARAMS, (counts, FULL_WIDTH_PARAMS)
-    models = (guidance.unet, guidance.vae, guidance.text_encoder.model,
-              trainer.clip_matcher.model)
-    assert all(p.dtype == torch.float32 and p.is_cuda
-               for m in models for p in m.parameters()), "SD stack not f32 on the card"
+    # the JAX package's rule: UNet and VAE stored (and run) in bf16 on the
+    # card, the text tower and the CLIP view matcher in f32
+    for models, dtype in (((guidance.unet, guidance.vae), torch.bfloat16),
+                          ((guidance.text_encoder.model, trainer.clip_matcher.model),
+                           torch.float32)):
+        assert all(p.dtype == dtype and p.is_cuda for m in models
+                   for p in m.parameters()), f"SD stack not {dtype} on the card"
 
     steps, launches, peak, base_mem, mlp_input, dt_calls, moved, train = editing_steps(
         trainer, opt, EDIT_STEPS)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the editing path"
+    check_launched(launches, (K1_BF16, DT_BF16), "editing")
     assert {s["local"] for s in steps} == {True, False}, "an LGIE branch never ran"
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
 
@@ -566,7 +681,7 @@ def run_editing(trainer, opt):
     cached = [s for s in steps if s["pt_and_draws"] < 0.5 * statistics.median(t_pt)]
     summary = {
         "steps": steps, "launches": launches, "param_counts": counts,
-        "sd_init_s": guidance.init_seconds,
+        "sd_dtype": guidance.dtype, "sd_init_s": guidance.init_seconds,
         "peak_gb": peak / 1e9, "resident_before_steps_gb": base_mem / 1e9,
         "pt_render_ms": statistics.median(t_pt),
         "median_ms": {k: statistics.median(s[k] for s in steps) for k in (
@@ -713,8 +828,7 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
     trainer.clip_matcher = clip_matcher
     steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
         trainer, eopt, EDIT_STEPS)
-    for name, n_launch in launches.items():
-        assert n_launch > 0, f"{name} was not launched on the --use_cd editing path"
+    check_launched(launches, (K1_BF16, DT_BF16), "--use_cd editing")
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
     assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
     del trainer
@@ -830,7 +944,6 @@ def run_parity():
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.trainer import Trainer, psnr
     from customnerf_torch.models import field
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
     from customnerf_torch.ops.grid import GridSpec
 
     opt = parse_args(PARITY_FLAGS + ["--workspace", PARITY_WORKSPACE])
@@ -855,8 +968,7 @@ def run_parity():
             captured_calls(field, "encode_positions", keep=1,
                            when=lambda a, k: torch.is_grad_enabled()) as enc:
         # the parity path starts here: counters read only its launches
-        fused_mlp.fused_mlp_forward.launches = 0
-        triplane_kernels.plane_dtable.launches = 0
+        zero_counts()
         t_start = time.time()
         for _ in range(PARITY_STEPS):
             batch = train.item(0)
@@ -880,11 +992,10 @@ def run_parity():
         out = trainer.render_image(view.rays_o, view.rays_d)
         torch.cuda.synchronize()
         wall_s = time.time() - t_start
-        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
-                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+        launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    assert launches["fused_field_mlp"] > 0, "K1 was not launched on the parity path"
+    check_launched(launches, (K1_BF16,), "parity")
     assert all(math.isfinite(s["loss"]) for s in steps), steps
     moved = [float((p.detach() - q).abs().max())
              for p, q in zip(trainer.field.parameters(), start_params)]
@@ -971,7 +1082,7 @@ def run_parity_editing(recon, guidance, clip_matcher):
     assert trainer.occ_state is None
     steps, launches, peak, base_mem, mlp_input, _, moved, _ = editing_steps(
         trainer, opt, PARITY_EDIT_STEPS)
-    assert launches["fused_field_mlp"] > 0, "K1 was not launched on the parity editing path"
+    check_launched(launches, (K1_BF16,), "parity editing")
     assert mlp_input[0][0].shape[0] == PARITY_SAMPLES, mlp_input[0][0].shape
     del trainer
     return {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -1000,14 +1111,14 @@ BEAR_PARITY = ("-O2 --keyword lang_bear --iters 3000 --train_resolution_level 7 
 # parity field's 25.55, docs/PARITY.md:166)
 QUALITY_GATES = {"nerfstudio": 24.84, "llff": 24.51, "dtu": 24.78}
 PARITY_GATE = 25.05
-BOTH_KERNELS = ("fused_field_mlp", "plane_dtable")
+BOTH_KERNELS = (K1_BF16, DT_BF16)    # bear.sh's flags: the default policy
 # the flagship bear reads the reference layout (JPEG images, PNG masks)
 QUALITY_RUNS = [
     {"name": t, "data_type": t, "flags": BEAR_PHASE1, "gate": g,
      "kernels": BOTH_KERNELS, "jpeg": t == "nerfstudio"}
     for t, g in QUALITY_GATES.items()] + [
     {"name": "nerfstudio_parity", "data_type": "nerfstudio", "flags": BEAR_PARITY,
-     "gate": PARITY_GATE, "kernels": ("fused_field_mlp",)}]
+     "gate": PARITY_GATE, "kernels": (K1_BF16,)}]
 TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
 
 
@@ -1051,7 +1162,7 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.models import field
-    from customnerf_torch.ops import fused_mlp, triplane, triplane_kernels
+    from customnerf_torch.ops import triplane
 
     name, data_type, base_flags = run["name"], run["data_type"], run["flags"]
     ws = os.path.join(QUALITY_ROOT, f"ws_{name}")
@@ -1109,15 +1220,13 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
         stack.callback(setattr, Trainer, "save_checkpoint", save_ring)
         stack.callback(setattr, ckpt_io, "save_checkpoint", save_file)
         # this path starts here: counters read only its launches
-        fused_mlp.fused_mlp_forward.launches = 0
-        triplane_kernels.plane_dtable.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         trainer = cli(flags, log=quiet)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
-        launches = {"fused_field_mlp": fused_mlp.fused_mlp_forward.launches,
-                    "plane_dtable": triplane_kernels.plane_dtable.launches}
+        launches = read_counts()
 
     results = trainer.stats["results"]
     final, best = -results[-1], -trainer.stats["best_result"]
@@ -1134,8 +1243,7 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
                "validation_strips": len(strips), "checkpoints": ckpts,
                "test_frames": len(os.listdir(test_dir)), "launches": launches,
                "gate": run["gate"], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    for kernel in run["kernels"]:
-        assert launches[kernel] > 0, f"{kernel} was not launched on the {name} path"
+    check_launched(launches, run["kernels"], name)
     assert len(step_ms) == trainer.global_step >= trainer.opt.iters, len(step_ms)
     assert "df.pth" in ckpts and len(strips) == trainer.epoch, (ckpts, strips)
     inputs = {}
@@ -1255,7 +1363,7 @@ def quality_phase(procs):
             run_rows = [check_fused_mlp(*inputs["step"][0], **inputs["step"][1]),
                         check_fused_mlp(*inputs["density"][0], **inputs["density"][1])]
             if flagship:
-                run_rows += [check_dtable(*inputs["dtable"][i][0][:7]) for i in (0, 3)]
+                run_rows += dtable_rows(inputs["dtable"])
             for r in run_rows:
                 r["launches"] = summary["launches"][r["name"]]
                 r["path"] = f"quality {name}"
@@ -1357,6 +1465,7 @@ def run_all(card, procs) -> int:
     with captured_calls(Trainer, "train_step", keep=1) as last_step:
         tr, mlp_inputs, dt_calls = run_trainer()
     recon = last_step[-1][0][0]
+    tr["f32_dtable"], f32_dt_calls = run_f32_dtable_steps(recon)
     ms = tr["steady_ms_per_step"]
     log(f"[trainer] {card} | {TRAIN_STEPS} steps of {STEP_RAYS} rays | steady "
         f"{ms:.2f} ms/step = {STEP_RAYS / ms * 1e3:.0f} rays/s | slab fill "
@@ -1365,14 +1474,22 @@ def run_all(card, procs) -> int:
         f"refresh {statistics.median(tr['refresh_ms']):.1f} ms")
     log(f"[trainer] fixed-view loss {tr['loss_before']:.5f} -> {tr['loss_after']:.5f} "
         f"| launches {tr['launches']} | val view PSNR {tr['psnr_val0']:.2f} dB")
+    fd = tr["f32_dtable"]
+    log(f"[trainer] {fd['steps']} more steps with mm_bf16 off (the f32 table "
+        f"gradient): losses {[round(v, 5) for v in fd['losses']]} | launches "
+        f"{fd['launches']}")
 
-    # dT calls of the last step: (level 0: XY, XZ, YZ), (level 1: ...)
     rows = [check_fused_mlp(*args, **kw) for args, kw in
             (mlp_inputs[STEP_SAMPLES], mlp_inputs[REFRESH_QUERIES])]
-    rows += [check_dtable(*dt_calls[i][0][:7]) for i in (0, 3)]
+    rows += dtable_rows(dt_calls)
     for r in rows:
         r["launches"] = tr["launches"][r["name"]]
         r["path"] = "reconstruction"
+    f32_rows = dtable_rows(f32_dt_calls)
+    for r in f32_rows:
+        r["launches"] = fd["launches"][r["name"]]
+        r["path"] = "reconstruction, mm_bf16 off"
+    rows += f32_rows
 
     editor, edit_opt, ck = run_checkpoint(recon)
     log(f"[checkpoint] saved {ck['checkpoint']} ({ck['bytes']} bytes); the "
@@ -1381,8 +1498,9 @@ def run_all(card, procs) -> int:
     del recon
     ed, edit_mlp, edit_dt = run_editing(editor, edit_opt)
     med = ed["median_ms"]
-    log(f"[full width] SD 1.5 stack in float32, parameters {ed['param_counts']}, "
-        f"built on the card in {ed['sd_init_s']:.2f} s")
+    log(f"[full width] SD 1.5 stack, UNet and VAE in {ed['sd_dtype']} (text "
+        f"towers f32), parameters {ed['param_counts']}, built on the card in "
+        f"{ed['sd_init_s']:.2f} s")
     log(f"[editing] {card} | {EDIT_STEPS} steps of {STEP_RAYS} rays | median "
         f"{med['total']:.1f} ms/step ({ed['median_ms_pt_cached']} ms with the pt "
         f"render cached): pt + draws {med['pt_and_draws']:.1f}, render to "
@@ -1393,14 +1511,14 @@ def run_all(card, procs) -> int:
     for name, b in ed["sd_bounds"].items():
         log(f"[editing bound] {name}: {b['flops'] / 1e12:.3f} TFLOP, "
             f"{b['bytes'] / 1e9:.3f} GB -> {b['bound_ms']:.2f} ms ({b['bound_by']}; "
-            f"f32 67 TFLOP/s, HBM3 3.35 TB/s)")
+            f"{b['peak_flops'] / 1e12:.0f} TFLOP/s, HBM3 3.35 TB/s)")
     prof = ed["profile"]
     log(f"[editing profile] one step: {prof['kernel_ms']:.1f} ms of kernels in a "
         f"{prof['window_ms']:.1f} ms window ({prof['n_kernels']} launches); top: "
         + "; ".join(f"{t['name'][:60]} {t['ms']:.1f} ms x{t['launches']}"
                     for t in prof["top"][:5]))
     edit_rows = [check_fused_mlp(*edit_mlp[0], **edit_mlp[1])]
-    edit_rows += [check_dtable(*edit_dt[i][0][:7]) for i in (0, 3)]
+    edit_rows += dtable_rows(edit_dt)
     for r in edit_rows:
         r["launches"] = ed["launches"][r["name"]]
         r["path"] = "editing"
@@ -1416,7 +1534,7 @@ def run_all(card, procs) -> int:
     log(f"[image-driven] {card} | {CD_CONCEPTS} JPEG concept images at 128x128 | "
         f"{cdp['class_images']} DDIM class images (25 steps, 512x512) at "
         f"{cdp['class_s_per_image']:.2f} s each | Custom Diffusion {CD_STEPS} steps, "
-        f"batch 2 with prior, f32: median {cdp['tune_median_step_ms']:.1f} ms/step "
+        f"batch 2 with prior, {ed['sd_dtype']}: median {cdp['tune_median_step_ms']:.1f} ms/step "
         f"(of which the host's image reads {cdp['tune_host_data_ms_per_step']:.1f}), "
         f"peak {cdp['tune_peak_gb']:.2f} GB, losses {[round(v, 4) for v in cdp['tune_losses']]} "
         f"| resume from checkpoint-{CD_CHECKPOINT}: rel L2 {cdp['resume_rel_l2']:.3g} "
@@ -1429,7 +1547,7 @@ def run_all(card, procs) -> int:
         f"{cdp['edit']['peak_gb']:.2f} GB | eps change with the adapters "
         f"{cdp['eps_max_change_with_adapters']:.3g} | launches {cdp['edit']['launches']}")
     cd_rows = [check_fused_mlp(*cd_mlp[0], **cd_mlp[1])]
-    cd_rows += [check_dtable(*cd_dt[i][0][:7]) for i in (0, 3)]
+    cd_rows += dtable_rows(cd_dt)
     for r in cd_rows:
         r["launches"] = cdp["edit"]["launches"][r["name"]]
         r["path"] = "use_cd editing"
@@ -1448,7 +1566,8 @@ def run_all(card, procs) -> int:
     rows += quality_rows
     for r in rows:
         log(f"[kernel] {r['path']} {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
-            f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms plain "
+            f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms (the other mode "
+            f"{r['other_mode_ms']:.4f} ms) plain "
             f"{r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
             f"{r['call_ms']:.4f} ms) bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
@@ -1467,7 +1586,10 @@ def run_all(card, procs) -> int:
 
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches",
             "max_abs_err", "tolerance", "ms", "kernel_ms", "plain_ms",
-            "bound_ms", "bound_by", "bound_peak", "library_ms", "live_share")
+            "bound_ms", "bound_by", "bound_peak", "library_ms", "other_mode_ms",
+            "live_share")
+    missing = {K1, K1_BF16, DT, DT_BF16} - {r["name"] for r in rows}
+    assert not missing, f"no row for {missing}"
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

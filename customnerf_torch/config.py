@@ -5,15 +5,22 @@ the same flags and defaults, mirroring the reference CLI flag-for-flag
 (reference ``main.py:11-146``) so recipes like ``scripts/bear.sh`` parse
 unchanged, including ``-O`` → ``cuda_ray``.
 
+The precision flags act as in the JAX package:
+  * ``fp16`` (set by ``-O``/``-O2``) gives the field bf16 heads
+    (``FieldConfig.compute_dtype``, JAX ``trainer.py:117``);
+  * ``backend``: with ``xla`` (the default) the default fused head runs the
+    hand-written fused-MLP kernel's bf16 mode under ``fp16`` (the flax bf16
+    policy), with ``pallas`` its f32 mode (the JAX Pallas kernel is f32);
+    the variant heads follow ``fp16`` under either;
+  * ``triplane_fwd_bf16`` gathers bf16 tri-plane rows; the tri-plane table
+    gradient takes bf16 operands whatever the flags (``mm_bf16``, the JAX
+    default);
+  * the SD UNet and VAE are stored and run in bf16 on the card and in f32 on
+    the CPU (``guidance/sds.py``).
+
 Deviations, all documented here:
-  * ``fp16`` (set by ``-O``/``-O2``) is recorded but the port computes in
-    float32 throughout; a reduced-precision policy is later work.
-  * ``backend`` is accepted for flag compatibility only.  On the card the
-    default fused field head always runs the hand-written fused-MLP kernel
-    (``ops/fused_mlp.py``).
-  * ``steps_per_dispatch`` (ROADMAP queue A, 'K-step dispatch') and
-    ``triplane_fwd_bf16`` ('bf16 policy') are not ported: set to another
-    value than their default they warn, naming the item.
+  * ``steps_per_dispatch`` (ROADMAP queue A, 'K-step dispatch') is not
+    ported: set to another value than its default it warns, naming the item.
   * ``triplane_bwd`` and ``compact_layout`` choose, in the JAX package,
     between paths that compute the same numbers; the port has one path, and
     another value warns.
@@ -318,8 +325,6 @@ class Config:
     _UNPORTED_FLAGS = (
         ("steps_per_dispatch", 0, "is not ported yet: the port takes one step "
          "a call (ROADMAP.md queue A, item 'K-step dispatch')"),
-        ("triplane_fwd_bf16", False, "is not ported yet: the tri-plane gathers "
-         "stay float32 (ROADMAP.md queue A, item 'bf16 policy')"),
         ("triplane_bwd", "matmul", "has no effect in the port: in the JAX "
          "package it chooses between paths that compute the same numbers"),
         ("compact_layout", "planes", "has no effect in the port: in the JAX "

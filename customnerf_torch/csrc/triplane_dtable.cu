@@ -46,7 +46,20 @@
 //     checks this.
 // The order of the atomics, and so the last bits of a sum, varies from run
 // to run; the merge inside a run is in sample order.
+//
+// bf16 mode (cn_plane_dtable_bf16): the JAX package's default, TriplaneSpec.mm_bf16 =
+// True — `_dtable_kernel` with use_bf16 and `_plane_dtable` with
+// mm_dtype = bfloat16 multiply bf16(U) by bf16(V·g) and sum in f32:
+//
+//   dT[u·R + v, c] += Σ_b bf16(U[b, u]) · bf16(V[b, v] · g[b, c])
+//
+// Each sample's factors are rounded (round to nearest even) BEFORE they
+// enter the run's sums: the two u-weights (1 − fu, fu) and the two v-weight
+// products (1 − fv)·g, fv·g.  The product of two bf16 values is exact in
+// f32, so the run merge, the float4 atomics and the zero skip stay as they
+// are; only the order of the f32 sums differs from the JAX kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +74,16 @@ constexpr int THREADS = 256;
 #define CN_DTABLE_RUN 8
 #endif
 constexpr int RUN = CN_DTABLE_RUN;
+
+// x rounded to bf16 (to nearest even) and widened back
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 bf16_scaled(float w, const float4& g) {
+  return make_float4(bf16_round(w * g.x), bf16_round(w * g.y),
+                     bf16_round(w * g.z), bf16_round(w * g.w));
+}
 
 __device__ __forceinline__ void axpy(float4& acc, float w, const float4& g) {
   acc.x = fmaf(w, g.x, acc.x);
@@ -80,6 +103,7 @@ __device__ __forceinline__ float4 pick(const float4 (&a)[2][2], int i, int j) {
   return r;
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 plane_dtable_kernel(const int* __restrict__ u0, const int* __restrict__ v0,
                     const float* __restrict__ fu, const float* __restrict__ fv,
@@ -135,10 +159,19 @@ plane_dtable_kernel(const int* __restrict__ u0, const int* __restrict__ v0,
       cv = v;
     }
     const float fa = __ldg(fu + b), fw = __ldg(fv + b);
-    axpy(a[0][0], (1.f - fa) * (1.f - fw), gv);
-    axpy(a[0][1], (1.f - fa) * fw, gv);
-    axpy(a[1][0], fa * (1.f - fw), gv);
-    axpy(a[1][1], fa * fw, gv);
+    if (BF16) {
+      const float wu0 = bf16_round(1.f - fa), wu1 = bf16_round(fa);
+      const float4 g0 = bf16_scaled(1.f - fw, gv), g1 = bf16_scaled(fw, gv);
+      axpy(a[0][0], wu0, g0);
+      axpy(a[0][1], wu0, g1);
+      axpy(a[1][0], wu1, g0);
+      axpy(a[1][1], wu1, g1);
+    } else {
+      axpy(a[0][0], (1.f - fa) * (1.f - fw), gv);
+      axpy(a[0][1], (1.f - fa) * fw, gv);
+      axpy(a[1][0], fa * (1.f - fw), gv);
+      axpy(a[1][1], fa * fw, gv);
+    }
   }
   if (cu >= 0) {
 #pragma unroll
@@ -148,19 +181,35 @@ plane_dtable_kernel(const int* __restrict__ u0, const int* __restrict__ v0,
   }
 }
 
-}  // namespace
-
-extern "C" int cn_plane_dtable(const int* u0, const int* v0, const float* fu,
-                               const float* fv, const float* g, int64_t g_ld,
-                               float* out, int64_t out_ld, int64_t B, int R,
-                               int C, void* stream) {
+template <bool BF16>
+int launch(const int* u0, const int* v0, const float* fu, const float* fv,
+           const float* g, int64_t g_ld, float* out, int64_t out_ld, int64_t B,
+           int R, int C, void* stream) {
   if (B <= 0) return 0;
   if (R < 2 || C < 4 || C % 4 || g_ld % 4 || out_ld % 4 ||
       (uintptr_t)g % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
   const int64_t n = (B + RUN - 1) / RUN * (C / 4);
   const int64_t blocks = (n + THREADS - 1) / THREADS;
-  plane_dtable_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  plane_dtable_kernel<BF16><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       u0, v0, fu, fv, g, g_ld, out, out_ld, B, R, C);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cn_plane_dtable(const int* u0, const int* v0, const float* fu,
+                               const float* fv, const float* g, int64_t g_ld,
+                               float* out, int64_t out_ld, int64_t B, int R,
+                               int C, void* stream) {
+  return launch<false>(u0, v0, fu, fv, g, g_ld, out, out_ld, B, R, C, stream);
+}
+
+// The bf16-operand mode (bf16(U) · bf16(V·g), f32 sums); the same arguments.
+extern "C" int cn_plane_dtable_bf16(const int* u0, const int* v0,
+                                    const float* fu, const float* fv,
+                                    const float* g, int64_t g_ld, float* out,
+                                    int64_t out_ld, int64_t B, int R, int C,
+                                    void* stream) {
+  return launch<true>(u0, v0, fu, fv, g, g_ld, out, out_ld, B, R, C, stream);
 }

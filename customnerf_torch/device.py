@@ -7,14 +7,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  There is no silent CPU fallback: without a
-    CUDA device the caller must ask for ``device="cpu"`` explicitly."""
-    if device is None:
+    CUDA device the caller must ask for ``device="cpu"`` explicitly.  On the
+    card, cuBLAS's reduced-precision bf16 reductions are turned off: the
+    bf16 policy (flax's bf16 Dense and Conv) sums in f32."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -23,6 +23,12 @@ Kept exact (reference ``nerf/utils_init_nerf.py:243-394``):
 
 The bg colour, t and both noises come from the trainer's ``torch.Generator``
 (not ``jax.random``'s streams); ``draws`` hands them in for tests.
+
+Dtypes along the step, as in the JAX package: the render and the resized
+image are f32; the VAE encodes in the guidance's dtype (bf16 on the card)
+and gives f32 latents; the UNet casts them to its dtype and gives f32 ε;
+the SDS cotangent, the surrogate loss and the gradient into the NeRF are
+f32.
 """
 
 from __future__ import annotations

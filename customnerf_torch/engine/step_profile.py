@@ -164,15 +164,16 @@ def main(argv=None):
     dtable_calls = []
     for (args, kwargs), (_, in_step) in zip(dt_calls, sorted(dt_events)[-6:]):
         u0, v0, fu, fv, g, R, C = args[:7]
-        ld = kwargs["out"].stride(0)
+        ld, bf16 = kwargs["out"].stride(0), kwargs.get("bf16", False)
         wide = torch.zeros(R * R, ld, device=g.device)
         dtable_calls.append({
-            "R": R, "C": C,
+            "R": R, "C": C, "bf16": bf16,
             "live_share": float((g != 0).any(dim=1).float().mean()),
             "in_step_ms": in_step,
-            "replay_fresh_ms": device_ms(lambda: dtable(u0, v0, fu, fv, g, R, C), 20),
+            "replay_fresh_ms": device_ms(
+                lambda: dtable(u0, v0, fu, fv, g, R, C, bf16=bf16), 20),
             "replay_table_ld_ms": device_ms(
-                lambda: dtable(u0, v0, fu, fv, g, R, C, out=wide), 20),
+                lambda: dtable(u0, v0, fu, fv, g, R, C, out=wide, bf16=bf16), 20),
         })
 
     result = {

@@ -81,7 +81,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def build_encoder_spec(opt) -> GridSpec | TriplaneSpec:
-    """The tiled / hash grid (the reference field) or the tri-plane."""
+    """The tiled / hash grid (the reference field) or the tri-plane, whose
+    table gradient keeps the JAX package's bf16 operands (``mm_bf16``) and
+    whose forward gathers bf16 rows under ``--triplane_fwd_bf16``
+    (``trainer.py:80-95``)."""
     if opt.grid_type != "triplane":
         return GridSpec(input_dim=3, num_levels=opt.grid_levels,
                         level_dim=opt.grid_level_dim,
@@ -95,11 +98,15 @@ def build_encoder_spec(opt) -> GridSpec | TriplaneSpec:
     if len(chans) == 1:
         chans = chans * len(opt.triplane_res)
     return TriplaneSpec(resolutions=tuple(int(r) for r in opt.triplane_res),
-                        channels=tuple(chans))
+                        channels=tuple(chans),
+                        fwd_bf16=bool(opt.triplane_fwd_bf16))
 
 
-def build_field(opt, device=None) -> NeRFField:
-    cfg = FieldConfig(
+def field_config(opt) -> FieldConfig:
+    """The field of ``trainer.py:106-119``: bf16 heads under ``fp16``
+    (``-O``, ``-O2``, ``--fp16``), run by the fused kernel's bf16 mode with
+    ``--backend xla`` and by its f32 mode with ``--backend pallas``."""
+    return FieldConfig(
         bound=opt.bound,
         grid=build_encoder_spec(opt),
         train_conf=bool(opt.train_conf),
@@ -108,8 +115,13 @@ def build_field(opt, device=None) -> NeRFField:
         mask_no_dir=opt.mask_no_dir,
         mask_no_dir_nodetach=opt.mask_no_dir_nodetach,
         use_bias=opt.mlp_bias,
+        compute_dtype="bfloat16" if opt.fp16 else "float32",
+        backend=opt.backend,
     )
-    return NeRFField(cfg, seed=opt.seed, device=device)
+
+
+def build_field(opt, device=None) -> NeRFField:
+    return NeRFField(field_config(opt), seed=opt.seed, device=device)
 
 
 def render_settings(opt) -> RenderSettings:
@@ -186,7 +198,8 @@ class Trainer:
                       "checkpoints": [], "best_result": None}
         self.pt_dict = {}        # editing: frozen-model renders per img_path
         n_params = sum(p.numel() for p in self.field.parameters())
-        self.log(f"[INFO] Trainer | {self.device} | fp32 | #parameters: {n_params}")
+        self.log(f"[INFO] Trainer | {self.device} | {'bf16' if opt.fp16 else 'fp32'} "
+                 f"| #parameters: {n_params}")
 
         # checkpoint policy (utils_init_nerf.py:136-150)
         policy = use_checkpoint if use_checkpoint is not None else opt.use_ckpt

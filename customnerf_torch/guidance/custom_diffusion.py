@@ -11,6 +11,11 @@ and ``<new1>.bin``, the names ``nerf/sd.py:56-59`` reads).
 The trainable set is an explicit ``cd_kv`` table (``guidance/unet.py``):
 tensors keyed by the diffusers prefix of each cross-attention block, which
 the frozen UNet takes in place of its own attn2 weights, plus one token row.
+Tuning runs on the guidance's stack, bf16 on the card as in the JAX package
+(``custom_diffusion.py:316`` builds its guidance with the default dtype);
+the adapters (copied from the UNet's stored weights) and the token row stay
+f32 master weights under AdamW, cast to bf16 where the UNet uses them, and
+the artifacts hold their f32 bytes.
 The UNet, VAE and text tower stay frozen (``requires_grad_(False)``); the row
 goes into the embedding output where ``ids == token_id``, so no other row
 gets a gradient or a weight decay (the JAX ``embed_with_row``).
@@ -50,9 +55,9 @@ RESUME_ITEM = "Custom Diffusion resume state"
 
 
 def extract_cd_kv(unet, train_q_out: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Copies of the cross-attention (attn2) K/V weights of ``unet`` as the
-    adapter table; ``train_q_out`` adds Q and the output projection (weight
-    and bias): the reference's ``--freeze_model crossattn``
+    """f32 copies of the cross-attention (attn2) K/V weights of ``unet`` as
+    the adapter table; ``train_q_out`` adds Q and the output projection
+    (weight and bias): the reference's ``--freeze_model crossattn``
     (train_custom_diffusion.py:904-946)."""
     modules = dict(unet.named_modules())
     table = {}
@@ -64,7 +69,7 @@ def extract_cd_kv(unet, train_q_out: bool = False) -> Dict[str, Dict[str, torch.
         if train_q_out:
             entry.update(to_q=attn.to_q.weight, to_out=attn.to_out[0].weight,
                          to_out_bias=attn.to_out[0].bias)
-        table[prefix] = {k: v.detach().clone() for k, v in entry.items()}
+        table[prefix] = {k: v.detach().float().clone() for k, v in entry.items()}
     return table
 
 

@@ -6,7 +6,8 @@ validation samples.
 ``linspace(T − 1, 0, n).round()`` steps, ᾱ of the step after the last equal
 to 1; **standard** classifier-free guidance ``uncond + s·(cond − uncond)``
 (not SDS's text-anchored form); the guidance's ``cd_kv`` adapters in the
-UNet; then the VAE decode.
+UNet; then the VAE decode.  The latents and ε stay f32 between steps; the
+UNet and VAE compute in the guidance's dtype (bf16 on the card).
 """
 
 from __future__ import annotations

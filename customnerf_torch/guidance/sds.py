@@ -9,11 +9,15 @@ Semantics kept from the reference (``nerf/sd.py:34-154``):
   * grad = (1−ᾱ_t)·(ε̂ − ε)·λ_sd with NaNs zeroed; the loss value is
     0.5·Σ grad².
 
-The stack is built at full SD 1.5 width (UNet, VAE, CLIP ViT-L/14 text) and
-computes in float32 — the JAX package stores it in bf16 on an accelerator;
-the port's bf16 policy is later work.  Weights are random, drawn on the
-trainer's device from a ``torch.Generator`` seeded with ``--seed``, unless
-``--sd_weights`` names a local diffusers directory.  ``--use_cd <dir>``
+The stack is built at full SD 1.5 width (UNet, VAE, CLIP ViT-L/14 text).
+Precision is the JAX package's rule (``sds.py:60-66,120-128``): on the card
+the UNet and VAE are stored in bf16, once their weights and the adapters
+have loaded, and compute in bf16 under flax's policy (``layers.py``); on the
+CPU they stay f32.  The text tower stays f32 either way.  ε comes out f32,
+and the SDS gradient is formed in f32 from it.  Weights are random, drawn
+in f32 on the trainer's device from a ``torch.Generator`` seeded with
+``--seed`` (the same draw in either precision), unless ``--sd_weights``
+names a local diffusers directory.  ``--use_cd <dir>``
 (outside ``--test``) loads a Custom Diffusion artifact pair after the
 weights: the adapters go into every UNet call as ``cd_kv`` and the modifier
 tokens are registered on the text encoder, so prompts carry ``<new1>``.
@@ -21,6 +25,7 @@ tokens are registered on the text encoder, so prompts carry ``<new1>``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -45,6 +50,11 @@ RANDOM_WEIGHTS_ERROR = (
     "into random weights (plumbing tests/benchmarks only).")
 
 
+def sd_dtype(device) -> str:
+    """The JAX package's rule: bf16 on an accelerator, f32 on the CPU."""
+    return "float32" if torch.device(device).type == "cpu" else "bfloat16"
+
+
 def check_supported(opt):
     if str(opt.sd_version).startswith("2"):
         raise NotImplementedError(
@@ -53,8 +63,15 @@ def check_supported(opt):
 
 
 class StableDiffusionGuidance:
+    """``dtype`` ("float32" | "bfloat16") is the JAX signature's compute
+    dtype; ``None`` takes :func:`sd_dtype`'s rule.  Where the JAX package
+    forces f32 on a CPU whatever it is given, an explicit ``dtype`` stands
+    here, so that the bf16 stack can be held against the JAX modules on a
+    CPU."""
+
     def __init__(self, opt, device=None, unet_cfg: UNetConfig = UNetConfig(),
-                 vae_cfg: VAEConfig = VAEConfig(), text_encoder=None):
+                 vae_cfg: VAEConfig = VAEConfig(), text_encoder=None,
+                 dtype: str | None = None):
         check_supported(opt)
         if not opt.sd_weights and (opt.pretrained and not opt.test
                                    and not opt.allow_random_guidance):
@@ -62,6 +79,9 @@ class StableDiffusionGuidance:
             raise RuntimeError(RANDOM_WEIGHTS_ERROR)
         self.opt = opt
         self.device = resolve_device(device)
+        self.dtype = dtype or sd_dtype(self.device)
+        unet_cfg = dataclasses.replace(unet_cfg, dtype=self.dtype)
+        vae_cfg = dataclasses.replace(vae_cfg, dtype=self.dtype)
         t0 = time.time()
         gen = torch.Generator(device=self.device).manual_seed(int(opt.seed))
         self.unet = build(UNet2DCondition, unet_cfg, device=self.device,
@@ -84,6 +104,9 @@ class StableDiffusionGuidance:
         self.cd_kv = None
         if opt.use_cd is not None and not opt.test:
             self.load_cd(opt.use_cd)
+        # the storage cast, after the weights and the adapters have loaded
+        self.unet.to(self.unet.cfg.compute_dtype)
+        self.vae.to(self.vae.cfg.compute_dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.time() - t0
@@ -125,7 +148,9 @@ class StableDiffusionGuidance:
     @torch.no_grad()
     def sds_grad(self, latents, text_embeddings, t: int, noise):
         """dL_sds/dlatents and the loss value 0.5·Σ grad², for latents
-        [1, 4, h, w], text_embeddings [uncond; cond] and noise ε."""
+        [1, 4, h, w], text_embeddings [uncond; cond] and noise ε, all f32;
+        the UNet casts its inputs, and the gradient is formed in f32 from
+        its f32 ε (the JAX ``sds_loss_fn``)."""
         noisy = self.scheduler.add_noise(latents, noise, t)
         latent_in = torch.cat([noisy, noisy])
         tt = torch.full((latent_in.shape[0],), int(t), device=latents.device)

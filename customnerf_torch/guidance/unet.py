@@ -9,6 +9,14 @@ biases.  Attention is computed as the JAX package computes it: matmul →
 softmax → matmul in plain PyTorch, which at 64×64 latents and batch 2
 materialises 2×8×4096×4096 f32 scores (1.07 GB) per self-attention call.
 
+``UNetConfig.dtype`` is the compute dtype (flax's policy, ``layers.py``):
+the sample and context are cast to it at entry, the timestep features are
+computed in f32 and then cast (``unet.py:66,254-255``), the attention
+logits are f32 (``preferred_element_type=jnp.float32``, ``unet.py:141-144``)
+with the softmax in f32 and its output cast back before the value product,
+and ``conv_out`` computes in f32, so ε comes out f32.  The guidance
+(``sds.py``) stores the weights in the compute dtype.
+
 Custom Diffusion (``cd_kv``): a table keyed by the diffusers prefix of each
 cross-attention block (``down_blocks.0.attentions.0``, …,
 ``mid_block.attentions.0``, ``up_blocks.3.attentions.2``; 16 at full
@@ -29,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from customnerf_torch.guidance.layers import (Downsample2D, ResnetBlock2D,
-                                              Upsample2D)
+from customnerf_torch.guidance.layers import (Conv2d, Downsample2D, GroupNorm,
+                                              LayerNorm, Linear, ResnetBlock2D,
+                                              Upsample2D, compute_dtype)
 
 
 @dataclass(frozen=True)
@@ -44,6 +53,11 @@ class UNetConfig:
     # level (SD 1.5: 8) or one per level
     attention_head_dim: Union[int, Tuple[int, ...]] = 8
     norm_num_groups: int = 32
+    dtype: str = "float32"      # the compute dtype: "float32" | "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return compute_dtype(self.dtype)
 
     def heads_at(self, level: int) -> int:
         hd = self.attention_head_dim
@@ -63,24 +77,26 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000):
 class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = Linear(in_dim, dim)
+        self.linear_2 = Linear(dim, dim)
 
     def forward(self, t):
         return self.linear_2(F.silu(self.linear_1(t)))
 
 
 def attention(q, k, v, heads: int):
-    """[b, n, h·d] queries against [b, m, h·d] keys/values: matmul →
-    softmax → matmul, in the input's dtype."""
+    """[b, n, h·d] queries against [b, m, h·d] keys/values: the logits and
+    the softmax in f32 (products of the inputs' values, exact in f32, summed
+    in f32), the probabilities cast to the values' dtype for the value
+    product."""
     b, n, inner = q.shape
     m = k.shape[1]
     d = inner // heads
     q = q.view(b, n, heads, d).transpose(1, 2)
     k = k.view(b, m, heads, d).transpose(1, 2)
     v = v.view(b, m, heads, d).transpose(1, 2)
-    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-    out = torch.matmul(scores.softmax(dim=-1), v)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    out = torch.matmul(scores.softmax(dim=-1).to(v.dtype), v)
     return out.transpose(1, 2).reshape(b, n, inner)
 
 
@@ -91,31 +107,35 @@ class Attention(nn.Module):
         inner = heads * dim_head
         ctx = context_dim or query_dim
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(ctx, inner, bias=False)
-        self.to_v = nn.Linear(ctx, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(ctx, inner, bias=False)
+        self.to_v = Linear(ctx, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
     def forward(self, x, context=None, cd_kv=None):
         """``cd_kv``: Custom Diffusion weights replacing K and V (and Q and
-        the output projection where the entry has them)."""
+        the output projection where the entry has them), cast to the
+        compute dtype at use (the adapters stay f32 master weights)."""
         context = x if context is None else context
         kv = cd_kv or {}
 
         def proj(name, inp):
-            return F.linear(inp, kv[name]) if name in kv else getattr(self, name)(inp)
+            if name in kv:
+                return F.linear(inp, kv[name].to(inp.dtype))
+            return getattr(self, name)(inp)
 
         out = attention(proj("to_q", x), proj("to_k", context), proj("to_v", context),
                         self.heads)
         if "to_out" in kv:
-            return F.linear(out, kv["to_out"], kv["to_out_bias"])
+            return F.linear(out, kv["to_out"].to(out.dtype),
+                            kv["to_out_bias"].to(out.dtype))
         return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -127,7 +147,7 @@ class FeedForward(nn.Module):
         super().__init__()
         # net.1 is diffusers' dropout: no parameters
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -136,11 +156,11 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, ctx_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, heads, dim_head)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
         self.attn2 = Attention(dim, heads, dim_head, context_dim=ctx_dim)
-        self.norm3 = nn.LayerNorm(dim)
+        self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
     def forward(self, x, context, cd_kv=None):
@@ -154,11 +174,11 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int, ctx_dim: int, groups: int):
         super().__init__()
-        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.norm = GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, heads, channels // heads, ctx_dim)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x, context, cd_kv=None):
         b, c, h, w = x.shape
@@ -203,7 +223,7 @@ class UNet2DCondition(nn.Module):
         temb_ch = ch[0] * 4
         groups, ctx, L = cfg.norm_num_groups, cfg.cross_attention_dim, cfg.layers_per_block
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
 
         self.down_blocks = nn.ModuleList()
@@ -230,19 +250,21 @@ class UNet2DCondition(nn.Module):
                 has_attn=i > 0, sampler="up" if i < n - 1 else None))
             prev = rev[i]
 
-        self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(groups, ch[0], eps=1e-5)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1, f32=True)
 
     def forward(self, sample, timesteps, context, cd_kv=None):
         cd_kv = cd_kv or {}
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps[None]
+        dt = self.cfg.compute_dtype
         temb = self.time_embedding(
-            timestep_embedding(timesteps, self.cfg.block_out_channels[0]))
+            timestep_embedding(timesteps, self.cfg.block_out_channels[0]).to(dt))
         temb = temb.expand(sample.shape[0], -1)
+        context = context.to(dt)
 
-        h = self.conv_in(sample)
+        h = self.conv_in(sample.to(dt))
         skips = [h]
         for i, blk in enumerate(self.down_blocks):
             for j, resnet in enumerate(blk.resnets):

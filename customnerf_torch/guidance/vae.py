@@ -5,6 +5,14 @@ Module names are diffusers' (``encoder.down_blocks.0.resnets.1``,
 ``encoder.mid_block.attentions.0.to_q``, ``quant_conv``).  SDS uses
 ``encode``: images in [-1, 1] → posterior sample × 0.18215
 (reference ``nerf/sd.py:97-105``); ``decode`` inverts it.
+
+``VAEConfig.dtype`` is the compute dtype (flax's policy, ``layers.py``):
+the encoder and decoder cast their input to it, the mid-block attention
+takes f32 logits and softmax (``vae.py:73``), and the convolutions on the
+latent side (the encoder's and decoder's ``conv_out``, ``quant_conv``,
+``post_quant_conv``) compute in f32, as the JAX package's
+``dtype=jnp.float32`` convs do: the moments, the posterior sample and the
+decoded image are f32.
 """
 
 from __future__ import annotations
@@ -17,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from customnerf_torch.guidance.layers import (Downsample2D, ResnetBlock2D,
-                                              Upsample2D)
+from customnerf_torch.guidance.layers import (Conv2d, Downsample2D, GroupNorm,
+                                              Linear, ResnetBlock2D, Upsample2D,
+                                              compute_dtype)
 
 
 @dataclass(frozen=True)
@@ -29,6 +38,11 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
+    dtype: str = "float32"      # the compute dtype: "float32" | "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return compute_dtype(self.dtype)
 
 
 class VAEAttention(nn.Module):
@@ -36,19 +50,19 @@ class VAEAttention(nn.Module):
 
     def __init__(self, channels: int, groups: int):
         super().__init__()
-        self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.group_norm = GroupNorm(groups, channels, eps=1e-6)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x):
         b, c, h, w = x.shape
         res = x
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(c))
-        x = self.to_out[0](torch.matmul(scores.softmax(dim=-1), v))
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(c))
+        x = self.to_out[0](torch.matmul(scores.softmax(dim=-1).to(v.dtype), v))
         return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + res
 
 
@@ -87,17 +101,19 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         ch, g = list(cfg.block_out_channels), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.down_blocks = nn.ModuleList(
             [_Level(ch[max(i - 1, 0)], ch[i], cfg.layers_per_block, g,
                     "down" if i < len(ch) - 1 else None)
              for i in range(len(ch))])
         self.mid_block = _Mid(ch[-1], g)
-        self.conv_norm_out = nn.GroupNorm(g, ch[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, ch[-1], eps=1e-6)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1,
+                               f32=True)
+        self.compute_dtype = cfg.compute_dtype
 
     def forward(self, x):
-        h = self.conv_in(x)
+        h = self.conv_in(x.to(self.compute_dtype))
         for blk in self.down_blocks:
             h = blk(h)
         h = self.mid_block(h)
@@ -108,17 +124,18 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = _Mid(rev[0], g)
         self.up_blocks = nn.ModuleList(
             [_Level(rev[max(i - 1, 0)], rev[i], cfg.layers_per_block + 1, g,
                     "up" if i < len(rev) - 1 else None)
              for i in range(len(rev))])
-        self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, rev[-1], eps=1e-6)
+        self.conv_out = Conv2d(rev[-1], cfg.in_channels, 3, padding=1, f32=True)
+        self.compute_dtype = cfg.compute_dtype
 
     def forward(self, z):
-        h = self.mid_block(self.conv_in(z))
+        h = self.mid_block(self.conv_in(z.to(self.compute_dtype)))
         for blk in self.up_blocks:
             h = blk(h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))
@@ -130,10 +147,10 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
-                                    2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
-                                         cfg.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * cfg.latent_channels,
+                                 2 * cfg.latent_channels, 1, f32=True)
+        self.post_quant_conv = Conv2d(cfg.latent_channels,
+                                      cfg.latent_channels, 1, f32=True)
 
     def moments(self, images):
         """images [B, 3, H, W] in [-1, 1] → (mean, logvar), each

@@ -9,7 +9,9 @@ CLIP, one view match on ``RandomState(0)``'s probe, and prints per-model
 parameter counts, checksums and dtypes, then the whole report as one JSON
 line.  The report keeps the JAX package's keys.  ``leaves`` counts the state
 dict's parameter tensors, ``checksum`` is the float64 sum of |x| over them;
-shapes are the port's (NCHW latents).
+shapes are the port's (NCHW latents).  The drill runs on the guidance as
+the production path builds it: UNet and VAE stored in bf16 on the card,
+f32 on the CPU (``dtypes`` says which).
 
     python -m customnerf_torch --validate_weights --sd_weights DIR \\
         --clip_weights DIR --sd_version 1.5

@@ -9,7 +9,11 @@ with ``load_state_dict`` as they are; the VAE's older attention names
 (``query/key/value/proj_attn``, some stored as 1×1 convs) are renamed.
 ``.safetensors`` files need the ``safetensors`` package and are refused
 without it.  A sub-model without a file keeps its random weights, with a
-warning, as in the JAX package.
+warning, as in the JAX package.  The files are read as f32 and each tensor
+is cast to its parameter's dtype as it loads: the guidance loads them into
+its f32 modules before its storage cast (``sds.py``), as the JAX package
+casts after ``load_sd_weights``, and a module already stored in bf16 takes
+them rounded.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ def vae_state(src: dict) -> dict:
 
 
 def _load_into(module, state: dict, what: str, path: str):
-    dev = next(module.parameters()).device
-    module.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    have = module.state_dict()
+    module.load_state_dict({k: v.to(have[k].device, have[k].dtype) if k in have else v
+                            for k, v in state.items()})
     print(f"[INFO] loaded {what} weights from {path}")
 
 

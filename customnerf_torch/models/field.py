@@ -12,11 +12,19 @@ Default fused head, all bias-free and 64 wide (tcnn FullyFusedMLP parity):
 (Dense-ReLU-Dense → 1) and ``rgb_net`` on ``[view_en ‖ fea]`` with 3 + conf
 sigmoid outputs.  σ = trunc_exp(density_raw + gaussian_blob(x)).
 
-The default head goes through :func:`fused_field_mlp` — the counterpart of
-``make_pallas_apply`` (``field.py:193-239``): on the card the hand-written
-fused-MLP kernel, on the CPU its plain version.  The variants of
-``field.py:123-184`` take plain PyTorch heads, as the JAX package takes its
-flax heads for them (``make_pallas_apply`` covers the default head only):
+The default head goes through :func:`fused_field_mlp`: on the card the
+hand-written fused-MLP kernel, on the CPU its plain version.  Its mode
+follows the JAX package's precision rules: ``compute_dtype="bfloat16"``
+(the trainer's choice under ``fp16``, i.e. ``-O``/``-O2``) with
+``backend="xla"`` runs the flax bf16 head (the kernel's bf16 mode, then the
+sigmoid in bf16); otherwise the f32 mode, the counterpart of
+``make_pallas_apply`` (``field.py:193-239``) under ``--backend pallas``.
+The variants of ``field.py:123-184`` take plain PyTorch heads in
+``compute_dtype``, as the JAX package takes its flax heads for them
+(``make_pallas_apply`` covers the default head only); in bf16 each Dense
+takes bf16 inputs and weights, sums in f32 and rounds its output to bf16,
+and the sigmoids run in bf16 before the f32 cast (``field.py:84-106``;
+``ops/activations.py::sigmoid_bf16``):
 
   * ``use_bias`` (``--mlp_bias``): every Dense layer with a bias;
   * ``detach_mask_from_field``: an rgb net with 3 outputs and a separate
@@ -39,9 +47,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from customnerf_torch.ops.activations import trunc_exp
+from customnerf_torch.ops.activations import sigmoid_bf16, trunc_exp
 from customnerf_torch.ops.frequency import freq_encode, freq_encode_dim
 from customnerf_torch.ops.fused_mlp import fused_field_mlp
 from customnerf_torch.ops.grid import GridSpec, grid_encode
@@ -53,6 +62,11 @@ from customnerf_torch.utils import threefry
 PARITY_GRID = GridSpec(input_dim=3, num_levels=16, level_dim=2,
                        base_resolution=16, log2_hashmap_size=21,
                        desired_resolution=8192, gridtype="tiled")
+
+
+def _sigmoid(x, dtype):
+    """flax's sigmoid in the compute dtype, then f32."""
+    return (sigmoid_bf16(x) if dtype == torch.bfloat16 else torch.sigmoid(x)).float()
 
 
 def encode_positions(x01, table, spec):
@@ -82,10 +96,23 @@ class FieldConfig:
     mask_no_dir: bool = False
     mask_no_dir_nodetach: bool = False
     use_bias: bool = False
+    compute_dtype: str = "float32"    # "bfloat16" under the fp16 flag
+    backend: str = "xla"              # "pallas": the f32 fused head
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, "
+                             f"got {self.compute_dtype}")
+        if self.backend not in ("xla", "pallas"):
+            raise ValueError(f"backend must be xla|pallas, got {self.backend}")
 
     @property
     def dir_dim(self) -> int:
         return freq_encode_dim(self.dir_multires)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
 
 
 class MLP(nn.Module):
@@ -111,16 +138,25 @@ class MLP(nn.Module):
         """[in, out] matrices in layer order (the flax Dense.kernel layout)."""
         return [l.weight.t().contiguous() for l in self.layers()]
 
-    def forward(self, x):
+    def forward(self, x, dtype=torch.float32):
+        """The pre-activation output in ``dtype``: each layer takes its input
+        and weights in ``dtype`` (flax's Dense under a compute dtype)."""
         *hidden, out = self.layers()
+        x = x.to(dtype)
+
+        def dense(layer, h):
+            bias = None if layer.bias is None else layer.bias.to(dtype)
+            return F.linear(h, layer.weight.to(dtype), bias)
+
         for layer in hidden:
-            x = torch.relu(layer(x))
-        return out(x)
+            x = torch.relu(dense(layer, x))
+        return dense(out, x)
 
 
 class NeRFField(nn.Module):
     """Grid or tri-plane field: the default fused rgb + conf head, or a
-    variant's plain heads (``fused`` tells which)."""
+    variant's plain heads (``fused`` tells which; ``fused_bf16`` whether the
+    fused head runs the kernel's bf16 mode)."""
 
     def __init__(self, cfg: FieldConfig, seed: int = 0, device=None):
         super().__init__()
@@ -130,6 +166,7 @@ class NeRFField(nn.Module):
         h, bias = cfg.hidden, cfg.use_bias
         split_conf = cfg.detach_mask_from_field or cfg.mask_no_dir
         self.fused = cfg.train_conf and not split_conf and not bias
+        self.fused_bf16 = cfg.dtype == torch.bfloat16 and cfg.backend == "xla"
         table, kernel = self._draws(cfg.grid, int(seed))
         self.grid_table = nn.Parameter(table)
         self.feature_net = MLP(cfg.grid.output_dim, h, h, 2, bias)
@@ -211,19 +248,19 @@ class NeRFField(nn.Module):
         return xf, encode_positions(x01, self.grid_table, c.grid).contiguous()
 
     def _plain_heads(self, x_en, view_en):
-        """The variants' heads (``field.py:167-185``) → (sigma_raw [N],
-        radiance [N, R] after its sigmoids)."""
-        c = self.cfg
-        fea = self.feature_net(x_en)
-        sigma_raw = self.density_net(fea)[..., 0]
-        rgb_in = torch.cat([view_en, fea], dim=-1)
-        radiance = torch.sigmoid(self.rgb_net(rgb_in))
+        """The variants' heads (``field.py:167-185``) in ``compute_dtype`` →
+        (sigma_raw [N], radiance [N, R] after its sigmoids), both f32."""
+        c, dt = self.cfg, self.cfg.dtype
+        fea = self.feature_net(x_en, dt)
+        sigma_raw = self.density_net(fea, dt)[..., 0].float()
+        rgb_in = torch.cat([view_en.to(dt), fea], dim=-1)
+        radiance = _sigmoid(self.rgb_net(rgb_in, dt), dt)
         if self.conf_net is not None:
             if c.mask_no_dir:
                 conf_in = fea if c.mask_no_dir_nodetach else fea.detach()
             else:
                 conf_in = rgb_in.detach()
-            radiance = torch.cat([radiance, torch.sigmoid(self.conf_net(conf_in))], -1)
+            radiance = torch.cat([radiance, _sigmoid(self.conf_net(conf_in, dt), dt)], -1)
         return sigma_raw, radiance
 
     def forward(self, x, d):
@@ -234,8 +271,9 @@ class NeRFField(nn.Module):
         view_en = freq_encode(d.reshape(-1, 3), self.cfg.dir_multires)
         if self.fused:
             sigma_raw, rgb_raw = fused_field_mlp(x_en, view_en.contiguous(),
-                                                 self.weights())
-            radiance = torch.sigmoid(rgb_raw)
+                                                 self.weights(), bf16=self.fused_bf16)
+            radiance = _sigmoid(rgb_raw, torch.bfloat16 if self.fused_bf16
+                                else torch.float32)
         else:
             sigma_raw, radiance = self._plain_heads(x_en, view_en)
         sigma = trunc_exp(sigma_raw + self.gaussian_blob(xf))
@@ -243,14 +281,16 @@ class NeRFField(nn.Module):
 
     def density(self, x):
         """x: [..., 3] world coords → sigma [...].  The default head runs the
-        fused kernel without its rgb part: the same sigma as
-        ``make_pallas_apply``'s density, which runs the full head on zero
-        directions."""
+        fused kernel without its rgb part, in the mode of ``forward``: the
+        same sigma as ``make_pallas_apply``'s density (the full head on zero
+        directions), or as the flax bf16 heads'."""
         xf, x_en = self._encode(x)
         if self.fused:
-            sigma_raw, _ = fused_field_mlp(x_en, None, self.weights(), with_rgb=False)
+            sigma_raw, _ = fused_field_mlp(x_en, None, self.weights(), with_rgb=False,
+                                           bf16=self.fused_bf16)
         else:
-            sigma_raw = self.density_net(self.feature_net(x_en))[..., 0]
+            dt = self.cfg.dtype
+            sigma_raw = self.density_net(self.feature_net(x_en, dt), dt)[..., 0].float()
         return trunc_exp(sigma_raw + self.gaussian_blob(xf)).reshape(x.shape[:-1])
 
 

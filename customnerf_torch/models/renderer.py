@@ -11,7 +11,10 @@ consecutive depth gaps.  ``render_rays_fast`` is the occupancy-grid path
 [N, n_keep] slab — or, with ``compact_frac`` > 0, on its cross-ray
 compaction — and composite every kept sample over its own march step
 (const dt).  Both add the fg/bg σ decomposition through the confidence
-mask (reference renderer.py:383-418, 597-718).
+mask (reference renderer.py:383-418, 597-718).  The field hands back f32
+σ and radiance under either head precision (the bf16 heads widen their
+outputs), so the composites, ``sample_pdf`` and their gradients run in f32,
+as the JAX renderer's do.
 """
 
 from __future__ import annotations

@@ -23,3 +23,11 @@ class _TruncExp(torch.autograd.Function):
 
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     return _TruncExp.apply(x)
+
+
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of a bf16 array, the way JAX lowers it:
+    1 / (1 + exp(−x)), each of the three ops rounded to bf16 (flax's heads
+    under a bf16 compute dtype, ``models/field.py:101-104``).  A sigmoid
+    rounded once differs from it by an ulp on about a third of the inputs."""
+    return torch.reciprocal(1.0 + torch.exp(-x.to(torch.bfloat16)))

@@ -54,6 +54,10 @@ _SIGNATURES = {
         _vp,                                       # stream
     ],
 }
+# the bf16 modes take the f32 modes' arguments (K1's scratch holds bf16)
+_SIGNATURES["cn_fused_mlp_bf16_forward"] = _SIGNATURES["cn_fused_mlp_forward"]
+_SIGNATURES["cn_fused_mlp_bf16_packed_elems"] = _SIGNATURES["cn_fused_mlp_packed_floats"]
+_SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
 
 
 def _sources():

@@ -8,11 +8,16 @@ in one flat table ``[table_size, max_C]``; a level of width C reads the
 leading C columns.
 
 Forward: four row gathers per plane (the JAX ``_encode_impl`` semantics —
-the TPU's packed single-row gathers are a TPU device and are not ported).
+the TPU's packed single-row gathers are a TPU device and are not ported);
+with ``fwd_bf16`` (``--triplane_fwd_bf16``) the gathered rows are rounded
+to bf16 and the corners summed in f32, as the JAX ``_encode_packed`` rounds
+the plane block before its gather (``triplane.py:239-249``).
 Backward: an ``autograd.Function`` whose table gradient goes through the dT
-kernel (``ops/triplane_kernels.py``), written in place into the flat
-gradient, and whose input gradient is ``_encode_mm_bwd``'s
-(``triplane.py:608-619``).
+kernel (``ops/triplane_kernels.py``) in the mode ``mm_bf16`` picks (bf16
+operands by default, as in the JAX package), written in place into the
+flat gradient, and whose input gradient is ``_encode_mm_bwd``'s
+(``triplane.py:608-619``), from the same (rounded) corner values as the
+forward.
 
 Semantics: inputs in [0, 1]³, align-corners texel centres, the lower corner
 clipped to R−2, out-of-range inputs give zero features and zero gradients,
@@ -39,11 +44,16 @@ class TriplaneSpec:
     """Static metadata of a multi-resolution tri-plane encoding.
 
     ``channels`` is an int (same width every level) or a per-level tuple,
-    e.g. ``resolutions=(128, 512), channels=(16, 8)``."""
+    e.g. ``resolutions=(128, 512), channels=(16, 8)``.  ``mm_bf16``: the
+    table gradient multiplies bf16 operands (f32 sums); ``fwd_bf16``: the
+    forward gathers bf16-rounded rows.  Both default as in the JAX
+    package's ``TriplaneSpec`` (``triplane.py:70,76``)."""
 
     resolutions: Tuple[int, ...] = (128, 512)
     channels: int | Tuple[int, ...] = 16
     input_dim: int = 3
+    mm_bf16: bool = True
+    fwd_bf16: bool = False
 
     def __post_init__(self):
         if self.input_dim != 3:
@@ -117,11 +127,13 @@ def corner_data(x: torch.Tensor, spec: TriplaneSpec):
     return out
 
 
-def _gather_corners(table, u0, v0, R, C, base):
-    """Corner values [B, 4, C] in the order (u,v) (u,v+1) (u+1,v) (u+1,v+1)."""
+def _gather_corners(table, u0, v0, R, C, base, bf16=False):
+    """Corner values [B, 4, C] in the order (u,v) (u,v+1) (u+1,v) (u+1,v+1),
+    rounded to bf16 (and widened back) with ``bf16``."""
     r00 = base + u0.long() * R + v0.long()
     rows = torch.stack([r00, r00 + 1, r00 + R, r00 + R + 1], dim=1)
-    return table[:, :C][rows]
+    vals = table[:, :C][rows]
+    return vals.to(torch.bfloat16).float() if bf16 else vals
 
 
 def _out_of_range(x):
@@ -131,7 +143,7 @@ def _out_of_range(x):
 def _encode_forward(x, table, spec: TriplaneSpec):
     outs = []
     for u0, v0, fu, fv, _ab, R, C, base in corner_data(x, spec):
-        vals = _gather_corners(table, u0, v0, R, C, base)
+        vals = _gather_corners(table, u0, v0, R, C, base, spec.fwd_bf16)
         w = torch.stack([(1 - fu) * (1 - fv), (1 - fu) * fv,
                          fu * (1 - fv), fu * fv], dim=1)
         outs.append((vals * w[:, :, None]).sum(dim=1))
@@ -164,9 +176,9 @@ class _TriplaneEncode(torch.autograd.Function):
                 # in place into the level's leading C columns; the others
                 # stay zero (the JAX backward pads them, triplane.py:604-605)
                 plane_dtable(u0, v0, fu, fv, gk, R, C,
-                             out=dtable[base:base + R * R])
+                             out=dtable[base:base + R * R], bf16=spec.mm_bf16)
             if need_dx:
-                vals = _gather_corners(table, u0, v0, R, C, base)
+                vals = _gather_corners(table, u0, v0, R, C, base, spec.fwd_bf16)
                 gv = (vals * gk[:, None, :]).sum(dim=-1)        # [B, 4]
                 g00, g01, g10, g11 = gv.unbind(dim=1)
                 dfu = (g10 - g00) * (1 - fv) + (g11 - g01) * fv

@@ -80,7 +80,9 @@ def test_jax_checkpoint_loads_in_the_port_and_renders_the_same(tmp_path):
                           {"loss": [0.5]}, opt_state=jtx_state,
                           extra=JTrainer._occ_extra(host_occ))
 
-    tr = Trainer(_opt(tmp_path), device="cpu", log=quiet, use_checkpoint=path)
+    # --backend pallas: the f32 fused head, as the JAX field's f32 heads below
+    tr = Trainer(_opt(tmp_path, "--backend", "pallas"), device="cpu", log=quiet,
+                 use_checkpoint=path)
     assert (tr.epoch, tr.global_step, tr.n_updates) == (3, 30, 0)
     got = params_to_flax(tr.field.state_dict())
     for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(params)):

@@ -19,6 +19,7 @@ column of the kernel it feeds by that sample's share — 9e-4 of the leaf
 when seen, held to 1e-3.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -223,9 +224,9 @@ def test_coarse_pass_runs_density_only_without_a_graph(dense_setup, monkeypatch)
     seen = []
     real = tfield.fused_field_mlp
 
-    def spy(x_en, view_en, weights, with_rgb=True):
+    def spy(x_en, view_en, weights, with_rgb=True, bf16=False):
         seen.append((x_en.shape[0], with_rgb, torch.is_grad_enabled()))
-        return real(x_en, view_en, weights, with_rgb)
+        return real(x_en, view_en, weights, with_rgb, bf16)
 
     monkeypatch.setattr(tfield, "fused_field_mlp", spy)
     tren.render_rays(tf, torch.tensor(o), torch.tensor(d), ts, train=True,
@@ -242,11 +243,13 @@ def test_o2_trainer_step_matches_jax(monkeypatch):
     assert not jopt.cuda_ray and not topt.cuda_ray and topt.grid_type == "tiled"
     spec = jtrainer.build_encoder_spec(jopt)
     assert isinstance(spec, jgrid.GridSpec)
-    # the JAX field in its f32 setting (-O2 sets fp16: its trainer would
+    # both fields in their f32 setting (-O2 sets fp16: either trainer would
     # pick bf16 heads)
     jf = jfield.NeRFField(jfield.FieldConfig(bound=2.0, grid=spec,
                                              compute_dtype="float32"))
-    field = ttrainer.build_field(topt, device="cpu")
+    field = tfield.NeRFField(dataclasses.replace(ttrainer.field_config(topt),
+                                                 compute_dtype="float32"),
+                             seed=topt.seed, device="cpu")
     assert field.cfg.grid == tgrid.GridSpec(**GRID, gridtype="tiled")
     params = convert.params_to_flax(field.state_dict())
     rng = np.random.RandomState(0)

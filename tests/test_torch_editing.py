@@ -40,7 +40,8 @@ from customnerf_tpu.ops import occupancy as jocc
 from customnerf_torch import config as tconfig
 from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine import convert, editing
-from customnerf_torch.engine.trainer import Trainer, build_field
+from customnerf_torch.engine.trainer import Trainer, build_field, field_config
+from customnerf_torch.models.field import NeRFField
 from customnerf_torch.guidance.layers import build
 from customnerf_torch.guidance.sds import StableDiffusionGuidance
 from customnerf_torch.guidance.text import CLIPTextConfig, CLIPTextModel, TextEncoder
@@ -64,6 +65,16 @@ VAE = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_gro
 SIDE = 64
 G = 16
 T = 420
+
+
+def f32_field(opt):
+    """``build_field(opt)`` in the JAX side's f32 setting: f32 heads
+    (``compute_dtype="float32"``; ``-O`` picks bf16 ones) and an f32
+    tri-plane table gradient (``mm_bf16=False``)."""
+    cfg = field_config(opt)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              grid=dataclasses.replace(cfg.grid, mm_bf16=False))
+    return NeRFField(cfg, seed=opt.seed, device="cpu")
 
 
 def quiet(*_):
@@ -154,7 +165,7 @@ def world(tmp_path_factory):
 
 def _port_trainer(w, *flags):
     opt = dataclasses.replace(w["topt"], **{f: True for f in flags})
-    field = build_field(opt, device="cpu")
+    field = f32_field(opt)
     field.load_state_dict(convert.params_from_flax(w["params"]))
     tr = Trainer(opt, field=field, device="cpu", log=quiet, guidance=w["tg"])
     tr.occ_state = tocc.state_from_grid(torch.tensor(w["dens"]), 1.0, 10.0, grid_size=G)

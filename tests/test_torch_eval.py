@@ -35,7 +35,8 @@ from customnerf_torch import config as tconfig
 from customnerf_torch.data import base as tbase
 from customnerf_torch.data import fixtures
 from customnerf_torch.engine import convert
-from customnerf_torch.engine.trainer import Trainer, build_field
+from customnerf_torch.engine.trainer import Trainer, build_field, field_config
+from customnerf_torch.models.field import NeRFField
 from customnerf_torch.ops import occupancy as tocc
 from customnerf_torch.utils import png
 
@@ -52,6 +53,16 @@ FLAGS = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 4 "
          "--keyword lang_bear --eval_resolution_level 3 --iters 100").split()
 
 
+def f32_field(opt):
+    """``build_field(opt)`` in the JAX side's f32 setting: f32 heads
+    (``compute_dtype="float32"``; ``-O`` picks bf16 ones) and an f32
+    tri-plane table gradient (``mm_bf16=False``)."""
+    cfg = field_config(opt)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              grid=dataclasses.replace(cfg.grid, mm_bf16=False))
+    return NeRFField(cfg, seed=opt.seed, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
     return fixtures.write("nerfstudio", str(tmp_path_factory.mktemp("bear")), 8, 40, 30)
@@ -65,7 +76,7 @@ def _pair(scene, workspace):
     spec = dataclasses.replace(jtrainer.build_encoder_spec(jopt), mm_bf16=False)
     jf = jfield.NeRFField(jfield.FieldConfig(bound=2.0, grid=spec))
     jt = jtrainer.Trainer("df", jopt, field=jf, workspace=str(workspace / "jax"))
-    field = build_field(topt, device="cpu")
+    field = f32_field(topt)
     params = convert.params_to_flax(field.state_dict())
     rng = np.random.RandomState(0)
     params["params"]["grid_table"] = (rng.randn(

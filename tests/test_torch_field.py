@@ -41,7 +41,7 @@ def _jax_field():
 
 
 def _torch_field(params):
-    cfg = tfield.FieldConfig(bound=BOUND, grid=triplane.TriplaneSpec(RES, CH))
+    cfg = tfield.FieldConfig(bound=BOUND, grid=triplane.TriplaneSpec(RES, CH, mm_bf16=False))
     f = tfield.NeRFField(cfg, seed=0, device="cpu")
     f.load_state_dict(convert.params_from_flax(params))
     return f
@@ -206,8 +206,8 @@ def test_field_variant_matches_flax(name):
         lambda a: (rng.randn(*a.shape) * (0.5 if a.ndim == 2 and a.shape[0] > 100
                                           else 0.3)).astype(np.float32)
         if a.ndim == 1 or a.shape[0] > 100 else a, params)
-    tf = tfield.NeRFField(tfield.FieldConfig(bound=BOUND, grid=triplane.TriplaneSpec(RES, CH),
-                                             **kw), device="cpu")
+    tf = tfield.NeRFField(tfield.FieldConfig(
+        bound=BOUND, grid=triplane.TriplaneSpec(RES, CH, mm_bf16=False), **kw), device="cpu")
     tf.load_state_dict(convert.params_from_flax(params))
     assert not tf.fused
     x, d = _inputs(211, 6)

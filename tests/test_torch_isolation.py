@@ -362,20 +362,35 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
 
 
 C1_WARNINGS = {"steps_per_dispatch": (["--steps_per_dispatch", "8"], "K-step dispatch"),
-               "triplane_fwd_bf16": (["--triplane_fwd_bf16"], "bf16 policy"),
                "triplane_bwd": (["--triplane_bwd", "scatter"], "same numbers"),
                "compact_layout": (["--compact_layout", "wide"], "same numbers")}
 
 
-@pytest.mark.parametrize("flag", sorted(C1_WARNINGS) + ["profile", "validate_weights"])
+@pytest.mark.parametrize("flag", sorted(C1_WARNINGS) + ["profile", "validate_weights",
+                                                       "triplane_fwd_bf16"])
 def test_c1_flags_warn_trace_or_run_the_drill(tmp_path, capsys, monkeypatch, flag):
     """The flags the JAX package acts on: each warns (naming its ROADMAP item
     or saying the JAX paths compute the same numbers), traces the first
-    epoch (``--profile``) or runs the drill and exits without training
-    (``--validate_weights``)."""
+    epoch (``--profile``), runs the drill and exits without training
+    (``--validate_weights``) or, ported since, acts without a warning
+    (``--triplane_fwd_bf16``: the field's encoder gathers bf16 rows)."""
     import json
     from customnerf_torch.config import parse_args
-    if flag in C1_WARNINGS:
+    if flag == "triplane_fwd_bf16":
+        from customnerf_torch.engine.trainer import build_field
+        opt = parse_args(TINY + ["--triplane_fwd_bf16"])
+        assert "[WARN]" not in capsys.readouterr().out
+        field, plain = build_field(opt, device="cpu"), build_field(parse_args(TINY), "cpu")
+        assert field.cfg.grid.fwd_bf16 and not plain.cfg.grid.fwd_bf16
+        x = torch.rand(64, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+        with torch.no_grad():
+            a, b = field._encode(x)[1], plain._encode(x)[1]
+            table = plain.grid_table.to(torch.bfloat16).float()
+            plain.grid_table.copy_(table)
+            c = plain._encode(x)[1]
+        # the same field on bf16-rounded rows: the table's values, rounded
+        assert not torch.equal(a, b) and torch.allclose(a, c, rtol=0, atol=1e-7)
+    elif flag in C1_WARNINGS:
         extra, why = C1_WARNINGS[flag]
         parse_args(TINY + extra)
         out = capsys.readouterr().out

@@ -125,9 +125,10 @@ def test_reference_file_drives_the_trainer_as_it_drives_jax(tmp_path, how):
     tree = _tree("fused", seed=3)
     path = str(tmp_path / "ref.pth")
     jshim.export_reference_checkpoint(tree, path)
+    # --backend pallas: the f32 fused head, as the JAX field's f32 heads below
     flags = ["-O2", *GRID_FLAGS, "--num_steps", "8", "--upsample_steps", "8",
              "--bound", "2", "--data_type", "synthetic", "--soft_mask",
-             "--workspace", str(tmp_path / "ws")]
+             "--backend", "pallas", "--workspace", str(tmp_path / "ws")]
     if how == "ckpt":
         tr = Trainer(parse_args(flags), device="cpu", log=quiet, use_checkpoint=path)
         field = tr.field

@@ -35,7 +35,7 @@ def setup():
                              mm_bf16=False, bwd_chunk=256)
     jf = jfield.NeRFField(jfield.FieldConfig(bound=BOUND, grid=spec))
     tf = tfield.NeRFField(tfield.FieldConfig(
-        bound=BOUND, grid=triplane.TriplaneSpec(RES, CH)), device="cpu")
+        bound=BOUND, grid=triplane.TriplaneSpec(RES, CH, mm_bf16=False)), device="cpu")
     params = convert.params_to_flax(tf.state_dict())
     rng = np.random.RandomState(0)
     params["params"]["grid_table"] = (rng.randn(

@@ -30,7 +30,8 @@ from customnerf_tpu.ops import occupancy as jocc
 from customnerf_torch import config as tconfig
 from customnerf_torch.data.base import RayBatch
 from customnerf_torch.engine import convert
-from customnerf_torch.engine.trainer import Trainer, build_field
+from customnerf_torch.engine.trainer import Trainer, build_field, field_config
+from customnerf_torch.models.field import NeRFField
 from customnerf_torch.ops import occupancy as tocc
 
 FLAGS = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
@@ -39,6 +40,16 @@ FLAGS = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
          "--data_type synthetic --occ_grid_size 16 --iters 100 --lr 0.01"
          ).split()
 G = 16
+
+
+def f32_field(opt):
+    """``build_field(opt)`` in the JAX side's f32 setting: f32 heads
+    (``compute_dtype="float32"``; ``-O`` picks bf16 ones) and an f32
+    tri-plane table gradient (``mm_bf16=False``)."""
+    cfg = field_config(opt)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              grid=dataclasses.replace(cfg.grid, mm_bf16=False))
+    return NeRFField(cfg, seed=opt.seed, device="cpu")
 
 
 def _batch(n, seed):
@@ -84,7 +95,7 @@ def run_both_steps(n_rays=2048):
     # bf16 heads, and its tri-plane table gradient runs in bf16 by default
     spec = dataclasses.replace(build_encoder_spec(jopt), mm_bf16=False)
     jf = jfield.NeRFField(jfield.FieldConfig(bound=2.0, grid=spec))
-    field = build_field(topt, device="cpu")
+    field = f32_field(topt)
     params = convert.params_to_flax(field.state_dict())
     rng = np.random.RandomState(0)
     params["params"]["grid_table"] = (rng.randn(

@@ -24,7 +24,7 @@ RES, CH = (8, 16), (4, 2)
 def _specs(res=RES, ch=CH):
     jspec = jtri.TriplaneSpec(resolutions=res, channels=ch, bwd="matmul",
                               mm_bf16=False, bwd_chunk=64)
-    return jspec, triplane.TriplaneSpec(resolutions=res, channels=ch)
+    return jspec, triplane.TriplaneSpec(resolutions=res, channels=ch, mm_bf16=False)
 
 
 def _points(n, seed):
