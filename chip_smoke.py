@@ -34,6 +34,33 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    one exists, of a single library call.  Tolerances: K1-f32 1e-4 and
    K1-bf16 1e-2 of the largest output, dT 1e-5 of the largest texel sum in
    either mode.  These launches come after the counters were read.
+4a. K steps a dispatch (``--steps_per_dispatch``, 8 on the card): a
+   flagship trainer (the default policy) loads phase 4's checkpoint (its
+   grid warm) and, from one saved state (parameters, Adam state, update
+   counter, generator), takes 24 eager steps (twice, and once more on a
+   side stream: the card's own spread), then the same 24 steps as 3
+   dispatches of K = 8 (one captured CUDA graph of a step, replayed; then
+   again, replays only): per-step losses within 1e-2 relative, every
+   parameter within 2·lr_g a step, within 1e-2·lr_g a step in RMS and
+   within 8 times the spread's RMS (floor 1e-4·lr_g a step; the card's
+   atomic sums run in another order, and Adam's ±lr steps flip where a
+   gradient is near zero); each kernel mode launched, as the kernels count
+   on the card, exactly (steps + warm-up)/steps times as often, the
+   wrappers counting the warm-up steps only, and the replays-only run
+   exactly as often; median ms a step of both, the capture's ms, peaks and the
+   device-busy share of both (``engine/step_profile.py::dispatch_busy``);
+   K1-bf16 and dT-bf16 held against their plain versions on the inputs the
+   captured step holds after its last replay.  The same check runs on the
+   parity step (8b: 16 steps, 2 dispatches), the editing step and the
+   ``--use_cd`` editing step (8 steps, one dispatch; losses within 5e-2:
+   the render's differences pass through the SD stack's bf16 at cfg 100).
+4d. checkpoints, on the flagship state of 4a (~180 MB with Adam) and the
+   parity state (8b, 575 MB): the ms a save holds the training thread,
+   synchronous against ``--ckpt_format orbax``'s ``AsyncSaver`` (first
+   save, with its pinned buffers, and a later one); an asynchronous file
+   written while a dispatch of steps ran reloads bit for bit as the state
+   at the save; a write that cannot land (its directory under a file)
+   raises at ``wait()``.
 4. checkpoint: the trainer of phase 2 saves its checkpoint into
    ``chiprun_out/``; an editing trainer (``scripts/bear.sh``'s phase-2
    flags, ``--editing_from`` that file: bf16 heads) is built from it; its
@@ -101,11 +128,16 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    the end); the flagship bear run reads the reference layout, its images
    as JPEG (the PNGs encoded by ``write_jpeg`` at quality 95) and its masks
    as PNG, with the decode seconds of the 28 views and the JPEGs' PSNR
-   against the PNGs printed; LLFF, DTU and the parity bear read PNG.  Counters zeroed before and read after each run; its kernels
-   must launch.  Each run's final eval PSNR must reach its gate (the JAX
+   against the PNGs printed; LLFF, DTU and the parity bear read PNG.
+   The runs take the card's default K = 8 (dispatches of 8 steps, the
+   refresh moved by the JAX rule); the parity bear writes its checkpoints
+   with ``--ckpt_format orbax``.  Counters zeroed before and read after
+   each run (the kernels' own counts on the card, which see the replays);
+   its kernels must launch.  Each run's final eval PSNR must reach its gate (the JAX
    anchor less 0.5 dB; 25.05 dB for the parity field); prints the best
-   PSNR, the median step, the wall time and the share of it spent writing
-   checkpoints.  On both bear runs, ``--test`` from ``df.pth`` must write
+   PSNR, the median step (a dispatch's ms over its steps), the wall time
+   and the share of it that saves held the training thread (writes, or
+   snapshots and waits when asynchronous).  On both bear runs, ``--test`` from ``df.pth`` must write
    73 frames and the mp4 or the JAX package's warning, and K1 (at a step
    and density-only) is held against its plain version on that run's
    inputs, dT at (128, 16) and (512, 8) on the flagship's.  After the
@@ -113,8 +145,8 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    fill on its warm grid and prints the fraction it picks beside the
    recipe's 0.35.
 10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
-   editing, parity and quality rows; all four kernel modes), then the last
-   line ``{"ok": true, "device": {...}}``.
+   editing, parity, quality and the graph paths' rows; all four kernel
+   modes), then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase but the 40-step reconstruction runs the JAX package's default
 precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
@@ -183,18 +215,39 @@ K1, K1_BF16, DT, DT_BF16 = ("fused_field_mlp", "fused_field_mlp_bf16",
 
 
 def zero_counts():
-    """Set every launch count to 0 (just before a path is driven)."""
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    """Set every launch count to 0 (just before a path is driven): the
+    wrappers' and the kernels' own counts on the card."""
+    from customnerf_torch.ops import fused_mlp, kernels, triplane_kernels
     for fn in (fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable):
         fn.launches = fn.launches_bf16 = 0
+    kernels.reset_device_launches()
 
 
-def read_counts():
-    """Each kernel mode's launches since :func:`zero_counts`."""
+def read_wrapper_counts():
+    """Each kernel mode's launches since :func:`zero_counts` as its wrapper
+    counted them: eager launches only (a replayed graph runs no wrapper)."""
     from customnerf_torch.ops import fused_mlp, triplane_kernels
     mlp, dt = fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable
     return {K1: mlp.launches, K1_BF16: mlp.launches_bf16,
             DT: dt.launches, DT_BF16: dt.launches_bf16}
+
+
+def read_counts(graphed=False):
+    """Each kernel mode's launches since :func:`zero_counts`, as the kernel
+    counted them on the card (``ops/kernels.py::device_launches``), a
+    replayed graph's included.  On an eager path they must equal the
+    wrappers' counts; on a ``graphed`` one the wrappers counted only the
+    eager launches (warm-up steps, evaluation renders): no more than the
+    kernels."""
+    from customnerf_torch.ops import kernels
+    k1, k1_bf16 = kernels.device_launches("fused_mlp")
+    dt, dt_bf16 = kernels.device_launches("plane_dtable")
+    device = {K1: k1, K1_BF16: k1_bf16, DT: dt, DT_BF16: dt_bf16}
+    wrappers = read_wrapper_counts()
+    for name, n in device.items():
+        assert (wrappers[name] <= n) if graphed else (wrappers[name] == n), \
+            f"{name}: the wrapper counted {wrappers[name]}, the kernel {n} launches"
+    return device
 
 
 def check_launched(launches, kernels, path):
@@ -298,6 +351,36 @@ def run_trainer():
     return summary, mlp_inputs, list(dt_calls)
 
 
+DISPATCH_WORKSPACE = os.path.join("chiprun_out", "smoke_dispatch")
+
+
+def run_flagship_dispatch(ckpt_path):
+    """(a) The flagship (``config.FLAGSHIP_ARGS``, the default policy) from
+    the main path's checkpoint (its grid warm): 24 eager steps against 3
+    dispatches of K = 8 (:func:`dispatch_check`), K1 and dT held against
+    their plain versions on the graph's inputs; then (d) the checkpoint
+    blocking times on this state (~180 MB with Adam)."""
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.ops.occupancy import WARMUP_UPDATES
+
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + ["--workspace", DISPATCH_WORKSPACE])
+    tr = Trainer(opt, use_checkpoint=ckpt_path, log=lambda *_: None)
+    assert tr.occ_state.iter_density > WARMUP_UPDATES and tr.n_updates > 0
+    assert tr.steps_per_dispatch() == GRAPH_K
+    train = NeRFDataset(opt, "train", device=tr.device).dataloader()
+    batches = [train.item(i % len(train)) for i in range(FLAGSHIP_DISPATCHES * GRAPH_K)]
+    summary, mlp, dt = dispatch_check(tr, batches, "reconstruction", "flagship dispatch (graph)")
+    check_launched(summary["graph_launches"], (K1_BF16, DT_BF16), "flagship dispatch")
+    rows = dispatch_rows(mlp, dt, summary)
+    try:
+        summary["checkpoint"] = checkpoint_blocking(tr, batches[:GRAPH_K], "flagship")
+    finally:
+        shutil.rmtree(DISPATCH_WORKSPACE, ignore_errors=True)
+    return summary, rows
+
+
 def run_f32_dtable_steps(trainer):
     """DT_F32_STEPS more steps of the main path's trainer with its tri-plane
     spec's ``mm_bf16`` off (the JAX package's f32 table gradient, the
@@ -328,6 +411,298 @@ def run_f32_dtable_steps(trainer):
     check_launched(launches, (K1, DT), "f32 table gradient")
     assert all(math.isfinite(v) for v in losses), losses
     return {"steps": DT_F32_STEPS, "losses": losses, "launches": launches}, list(dt_calls)
+
+
+# ------------------------------------------------------ K steps a dispatch
+GRAPH_K = 8                   # --steps_per_dispatch's value on the card
+FLAGSHIP_DISPATCHES = 3
+PARITY_DISPATCHES = 2
+EDIT_DISPATCHES = 1
+# graphed against eager steps from one saved state: the same draws and
+# kernels; they differ by the order of the card's atomic sums (dT,
+# index_add_), which Adam's ±lr steps turn into sign flips where a gradient
+# is near zero, and (editing) by the SD stack's bf16 roundings of the
+# render that follows, amplified by cfg 100
+LOSS_RTOL = {"reconstruction": 1e-2, "editing": 5e-2}
+# a parameter tensor's RMS distance from the eager run's, in lr_g a step:
+# within PARAM_RMS_LR, and within SPREAD_RATIO times the card's own spread
+# (the larger distance of a second eager run and of an eager run on a side
+# stream) or SPREAD_FLOOR, whichever is larger.  Read on an H100: ratios up
+# to 1.5 (the flagship's grid table), the editing paths' distances 1e-5 to
+# 1e-4 (under the floor), and on every path the side-stream run as close as
+# the second eager run: the stream does not move the sums
+PARAM_RMS_LR = 1e-2
+SPREAD_RATIO = 8.0
+SPREAD_FLOOR = 1e-4
+
+
+def _timed_capture():
+    """Patch the trainer's StepGraph to time each capture (warm-up steps
+    included); returns the list the times go to and the undo function."""
+    import torch
+    from customnerf_torch.engine import trainer as trainer_mod
+    base, times = trainer_mod.StepGraph, []
+
+    class Timed(base):
+        def __init__(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().__init__(*a, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    trainer_mod.StepGraph = Timed
+    return times, lambda: setattr(trainer_mod, "StepGraph", base)
+
+
+def dispatch_check(tr, batches, kind, path):
+    """From one saved state (parameters, Adam state, update counter,
+    generator, LGIE stream), ``len(batches)`` steps five times: eager, eager
+    again, eager on a side stream, in dispatches of GRAPH_K (one captured
+    step replayed), and in dispatches again (replays only).  The first
+    graphed run against the first eager one: per-step losses within
+    LOSS_RTOL, every parameter within 2·lr_g a step, its RMS distance within
+    PARAM_RMS_LR·lr_g a step and within SPREAD_RATIO times the distance of
+    the second or the side-stream eager run (or SPREAD_FLOOR; the second
+    graphed run's distance from the first is recorded), each kernel mode launched, as
+    the kernels counted on the card, (steps + warm-up steps)/steps times as
+    often as eager (the wrappers counting the warm-up steps only), and the
+    replays-only run exactly as often.  The summary holds the median ms a
+    step of both, the capture's ms, peaks and the busy share of both
+    (``engine/step_profile.py::dispatch_busy``).  Returns (summary, K1's and
+    dT's inputs as the graph holds them)."""
+    import contextlib
+    import torch
+    from customnerf_torch.engine import editing as ed
+    from customnerf_torch.engine.dispatch import WARMUP_STEPS, SavedState
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.step_profile import dispatch_busy
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import triplane
+
+    editing = kind == "editing"
+    n = len(batches)
+    if editing:                     # every view's pt entry before the state is saved
+        for b in batches:
+            ed._get_pt(tr, b, ed._bg_color(tr))
+    saved = SavedState([*tr.field.parameters(), tr._count_t], tr.optimizer.state,
+                       tr.generator)
+    host = (tr.n_updates, tr.global_step, tr.np_rng.get_state())
+
+    def restore():
+        saved.restore()
+        tr.n_updates, tr.global_step = host[:2]
+        tr.np_rng.set_state(host[2])
+
+    def run(graphed, stream=None):
+        """One run from the saved state: per-call ms, losses, the kernels'
+        and the wrappers' launch counts, the peak, parameters and moments."""
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            for i in range(0, n, GRAPH_K if graphed else 1):
+                t0 = time.perf_counter()
+                if not graphed:
+                    tr.global_step += 1
+                    losses.append(tr.train_step(batches[i])[0])
+                elif editing:
+                    losses += list(ed.editing_steps_many(tr, batches[i:i + GRAPH_K])[0])
+                else:
+                    group = batches[i:i + GRAPH_K]
+                    losses += list(tr.train_many(group)[0])
+                    tr.global_step += len(group)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out = {"ms": ms, "losses": torch.stack(losses),
+               "launches": read_counts(graphed=graphed),
+               "wrapper_launches": read_wrapper_counts(),
+               "peak": torch.cuda.max_memory_allocated(),
+               "params": [p.detach().clone() for p in tr.field.parameters()],
+               "moments": [v.detach().clone() for st in tr.optimizer.state.values()
+                           for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]}
+        restore()
+        return out
+
+    eager = run(False)
+    spread = {"eager_again": run(False), "eager_side_stream": run(False, torch.cuda.Stream())}
+    for r in spread.values():
+        del r["moments"]
+    captures, undo = _timed_capture()
+    try:
+        with captured_calls(field, "fused_field_mlp", keep=1,
+                            when=lambda a, k: torch.is_grad_enabled()) as mlp, \
+                captured_calls(triplane, "plane_dtable", keep=6) as dt:
+            graph = run(True)
+        spread["graph_again"] = run(True)
+    finally:
+        undo()
+    assert len(captures) == 1, captures
+    eager_counts, graph_counts = eager["launches"], graph["launches"]
+    for name, e in eager_counts.items():
+        assert graph_counts[name] * n == e * (n + WARMUP_STEPS), (path, name, eager_counts, graph)
+        assert graph["wrapper_launches"][name] * n == e * WARMUP_STEPS, (path, name, graph)
+        assert spread["graph_again"]["launches"][name] == e, (path, name, spread)
+        assert spread["graph_again"]["wrapper_launches"][name] == 0, (path, name, spread)
+    steady = [ms / len(batches[i * GRAPH_K:(i + 1) * GRAPH_K]) for i, ms in enumerate(graph["ms"])]
+    steady[0] = (graph["ms"][0] - captures[0]) / min(GRAPH_K, n)
+    a, b = eager["losses"], graph["losses"]
+    loss_rel = float(((a - b).abs() / a.abs()).max())
+    lr = tr.opt.lr
+    params = []
+    for i, (pname, p) in enumerate(tr.field.named_parameters()):
+        lr_steps = lr * (10.0 if pname == "grid_table" else 1.0) * n
+        e = eager["params"][i]
+
+        def rms(x, y=e):
+            return float((x - y).pow(2).mean().sqrt()) / lr_steps
+
+        q = {"name": pname, "lr_g": lr_steps / n,
+             "max_over_lr_steps": float((graph["params"][i] - e).abs().max()) / lr_steps,
+             "rms_over_lr_steps": rms(graph["params"][i]),
+             "eager_again_rms_over_lr_steps": rms(spread["eager_again"]["params"][i]),
+             "eager_side_stream_rms_over_lr_steps":
+                 rms(spread["eager_side_stream"]["params"][i]),
+             "graph_again_rms_over_lr_steps":       # from the first graphed run
+                 rms(spread["graph_again"]["params"][i], graph["params"][i])}
+        q["spread_ratio"] = q["rms_over_lr_steps"] / max(
+            SPREAD_FLOOR, q["eager_again_rms_over_lr_steps"],
+            q["eager_side_stream_rms_over_lr_steps"])
+        params.append(q)
+    mom_rel = max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+                  for x, y in zip(graph["moments"], eager["moments"]))
+    worst = max(params, key=lambda q: q["spread_ratio"])
+    log(f"[dispatch {path}] RMS distance from the eager run, in lr_g·steps, of "
+        f"{worst['name']} (the largest spread ratio): graphed "
+        f"{worst['rms_over_lr_steps']:.3g}, eager again "
+        f"{worst['eager_again_rms_over_lr_steps']:.3g}, eager on a side stream "
+        f"{worst['eager_side_stream_rms_over_lr_steps']:.3g} (ratio "
+        f"{worst['spread_ratio']:.3g}); graphed again from graphed "
+        f"{worst['graph_again_rms_over_lr_steps']:.3g}; ratios: "
+        + ", ".join(f"{q['name']} {q['spread_ratio']:.3g}" for q in params))
+    assert loss_rel <= LOSS_RTOL[kind], (path, loss_rel, a, b)
+    assert all(q["max_over_lr_steps"] <= 2.0 for q in params), (path, params)
+    assert all(q["rms_over_lr_steps"] <= PARAM_RMS_LR for q in params), (path, params)
+    assert all(q["spread_ratio"] <= SPREAD_RATIO for q in params), (path, params)
+    assert all(math.isfinite(v) for v in b.tolist())
+    busy = dispatch_busy(tr, batches[:GRAPH_K])
+    summary = {
+        "path": path, "steps": n, "k": GRAPH_K, "eager_ms": eager["ms"],
+        "graph_ms": graph["ms"], "capture_ms": captures[0],
+        "median_eager_ms": statistics.median(eager["ms"]),
+        "median_graph_ms": statistics.median(steady),
+        "eager_peak_gb": eager["peak"] / 1e9, "graph_peak_gb": graph["peak"] / 1e9,
+        "eager_launches": eager_counts, "graph_launches": graph_counts,
+        "graph_wrapper_launches": graph["wrapper_launches"],
+        "replay_only_launches": spread["graph_again"]["launches"],
+        "loss_max_rel": loss_rel, "moments_max_rel": mom_rel, "params": params,
+        "eager_losses": a.tolist(), "graph_losses": b.tolist(),
+        "busy_eager": busy["eager"]["busy_share"], "busy_graph": busy["graph"]["busy_share"],
+        "busy": busy}
+    log(f"[dispatch {path}] {n} steps eager vs {n // GRAPH_K} dispatches of K = "
+        f"{GRAPH_K}: median {summary['median_eager_ms']:.2f} vs "
+        f"{summary['median_graph_ms']:.2f} ms/step (capture with {WARMUP_STEPS} "
+        f"warm-up steps {captures[0]:.0f} ms) | busy {summary['busy_eager']:.3f} vs "
+        f"{summary['busy_graph']:.3f} | peak {summary['eager_peak_gb']:.2f} vs "
+        f"{summary['graph_peak_gb']:.2f} GB | losses within {loss_rel:.2g} rel, "
+        f"moments {mom_rel:.2g} rel, params max {max(q['max_over_lr_steps'] for q in params):.3g}"
+        f" lr·steps, RMS {max(q['rms_over_lr_steps'] for q in params):.3g} lr·steps | "
+        f"launches counted on the card {graph_counts} (wrappers: "
+        f"{graph['wrapper_launches']}; replays only {spread['graph_again']['launches']})")
+    return summary, mlp[-1], list(dt)
+
+
+def dispatch_rows(mlp, dt, summary, with_dt=True):
+    """K1 (and dT) held against their plain versions on the inputs the
+    captured step holds after the last replay."""
+    rows = [check_fused_mlp(*mlp[0], **mlp[1])]
+    if with_dt:
+        rows += dtable_rows(dt)
+    for r in rows:
+        r["launches"] = summary["graph_launches"][r["name"]]
+        r["path"] = summary["path"]
+    return rows
+
+
+def checkpoint_blocking(tr, batches, label):
+    """The time a save blocks the training thread, synchronous against
+    ``AsyncSaver`` (twice: its first save allocates the pinned buffers);
+    an asynchronous file written while a dispatch went on reloads bit for
+    bit as the state at the save; a write that cannot land raises at
+    ``wait()``.  Deletes its files."""
+    import torch
+    from customnerf_torch.engine import checkpoint as ckpt_io
+    from customnerf_torch.engine.convert import params_from_flax
+
+    def steps():
+        tr.train_many(batches)
+        tr.global_step += len(batches)
+
+    def blocked(saver):
+        # after steps: a new state, whose snapshot the save takes
+        tr.saver = saver
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.epoch += 1
+        path = tr.save_checkpoint()
+        return path, (time.perf_counter() - t0) * 1e3
+
+    steps()
+    sync_path, sync_ms = blocked(None)
+    nbytes = os.path.getsize(sync_path)
+    saver = ckpt_io.AsyncSaver()
+    steps()
+    _, first_ms = blocked(saver)
+    tr.wait_for_saves()
+    steps()
+    want = {k: v.detach().cpu().clone() for k, v in tr.field.state_dict().items()}
+    adam = [v.detach().cpu().clone() for s in tr.optimizer.state.values()
+            for k, v in s.items() if k in ("exp_avg", "exp_avg_sq")]
+    path, async_ms = blocked(saver)
+    t0 = time.perf_counter()
+    tr.train_many(batches)              # steps go on while the worker writes
+    tr.global_step += len(batches)
+    torch.cuda.synchronize()
+    steps_ms = (time.perf_counter() - t0) * 1e3
+    pending = saver.pending
+    t0 = time.perf_counter()
+    tr.wait_for_saves()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    params, meta = ckpt_io.load_checkpoint(path)
+    got = params_from_flax(params)
+    assert all(torch.equal(got[k], want[k]) for k in want), "async file differs"
+    state = meta[ckpt_io.TORCH_OPTIMIZER_KEY]["state_dict"]["state"]
+    saved = [state[i][k] for i in sorted(state) for k in ("exp_avg", "exp_avg_sq")]
+    assert all(torch.equal(x, y) for x, y in zip(saved, adam)), "async Adam state differs"
+    assert not torch.equal(tr.field.grid_table.detach().cpu(), want["grid_table"])
+    # a directory that cannot be created: the worker fails, wait() raises
+    good = tr.ckpt_path
+    blocker = os.path.join(good, "not_a_directory")
+    with open(blocker, "w"):
+        pass
+    tr.ckpt_path = os.path.join(blocker, "checkpoints")
+    tr.save_checkpoint()
+    try:
+        tr.wait_for_saves()
+        raise AssertionError("a failed write passed silently")
+    except OSError as e:
+        failed = f"{type(e).__name__}: {e}"
+    tr.ckpt_path, tr.saver = good, None
+    shutil.rmtree(good, ignore_errors=True)
+    out = {"bytes": nbytes, "sync_block_ms": sync_ms, "async_first_block_ms": first_ms,
+           "async_block_ms": async_ms, "steps_during_write_ms": steps_ms,
+           "pending_after_steps": pending, "wait_ms": wait_ms, "bitwise": True,
+           "failed_write": failed}
+    log(f"[checkpoint {label}] {nbytes} bytes: a save blocks the training thread "
+        f"{sync_ms:.1f} ms synchronously, {first_ms:.1f} ms asynchronously at the first "
+        f"save (pinned buffers) and {async_ms:.1f} ms after; {len(batches)} steps "
+        f"({steps_ms:.1f} ms) ran during the write (still pending: {pending}), then "
+        f"waited {wait_ms:.1f} ms; reloads bit for bit; a failed write raised at "
+        f"wait(): {failed[:80]}")
+    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -693,7 +1068,18 @@ def run_editing(trainer, opt):
         "sd_bounds": sd_bounds(guidance),
         "profile": profile_editing_step(trainer, view),
     }
+    summary["dispatch"], summary["dispatch_rows"] = editing_dispatch(
+        trainer, train, "editing dispatch (graph)")
     return summary, mlp_input, dt_calls
+
+
+def editing_dispatch(trainer, train, path):
+    """(c) EDIT_DISPATCHES × K editing steps: eager against dispatches of
+    K = 8 (:func:`dispatch_check`), K1 and dT on the graph's inputs."""
+    batches = [train.item(i % len(train)) for i in range(EDIT_DISPATCHES * GRAPH_K)]
+    summary, mlp, dt = dispatch_check(trainer, batches, "editing", path)
+    check_launched(summary["graph_launches"], (K1_BF16, DT_BF16), path)
+    return summary, dispatch_rows(mlp, dt, summary)
 
 
 # ------------------------------------------------------------ image-driven
@@ -831,6 +1217,9 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
     check_launched(launches, (K1_BF16, DT_BF16), "--use_cd editing")
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
     assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
+    cd_dispatch, cd_dispatch_rows = editing_dispatch(
+        trainer, NeRFDataset(eopt, "train", device=trainer.device).dataloader(),
+        "use_cd editing dispatch (graph)")
     del trainer
     guidance.cd_kv = None
     summary = {
@@ -842,6 +1231,7 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
         "resume_token_row_max_diff": row_diff, "adapters": len(a),
         "adapter_min_change": min(moved.values()), "artifact_bytes": art_bytes,
         "eps_max_change_with_adapters": eps_diff,
+        "dispatch": cd_dispatch, "dispatch_rows": cd_dispatch_rows,
         "edit": {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
                  "resident_before_steps_gb": base_mem / 1e9,
                  "field_max_change": field_moved,
@@ -1106,6 +1496,8 @@ BEAR_PHASE1 = ("-O --grid_type triplane --triplane_res 128 512 "
 BEAR_PARITY = ("-O2 --keyword lang_bear --iters 3000 --train_resolution_level 7 "
                "--eval_resolution_level 4 --bound 2 --train_conf 0.01 "
                "--soft_mask --ckpt scratch").split()
+# the parity bear run writes its checkpoints off the training thread
+ASYNC_CKPT = ["--ckpt_format", "orbax"]
 # final eval PSNR gates: the JAX package's anchor on each fixture less the
 # 0.5 dB band of docs/PARITY.md:151-216 (25.34, 25.01 and 25.28 dB; the
 # parity field's 25.55, docs/PARITY.md:166)
@@ -1117,8 +1509,8 @@ QUALITY_RUNS = [
     {"name": t, "data_type": t, "flags": BEAR_PHASE1, "gate": g,
      "kernels": BOTH_KERNELS, "jpeg": t == "nerfstudio"}
     for t, g in QUALITY_GATES.items()] + [
-    {"name": "nerfstudio_parity", "data_type": "nerfstudio", "flags": BEAR_PARITY,
-     "gate": PARITY_GATE, "kernels": (K1_BF16,)}]
+    {"name": "nerfstudio_parity", "data_type": "nerfstudio",
+     "flags": BEAR_PARITY + ASYNC_CKPT, "gate": PARITY_GATE, "kernels": (K1_BF16,)}]
 TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
 
 
@@ -1168,32 +1560,38 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
     ws = os.path.join(QUALITY_ROOT, f"ws_{name}")
     flags = base_flags + ["--data_type", data_type, "--data_path", data_path,
                           "--workspace", ws]
-    step_ms, in_step, saves = [], [False], {"ring_s": 0.0, "best_s": 0.0, "bytes": 0,
-                                           "files": 0}
-    train_step, save_ring, save_file = (Trainer.train_step, Trainer.save_checkpoint,
-                                        ckpt_io.save_checkpoint)
+    step_ms, in_step = [], [False]
+    saves = {"write_s": 0.0, "wait_s": 0.0, "bytes": 0, "files": 0}
+    train_many, write, wait, write_file = (Trainer.train_many, Trainer._write,
+                                           Trainer.wait_for_saves, ckpt_io.write_checkpoint)
 
-    def timed_step(self, *a, **kw):
+    def timed_many(self, batches):
+        # the quality runs take the card's default: dispatches of 8 steps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         in_step[0] = True
-        out = train_step(self, *a, **kw)
+        out = train_many(self, batches)
         in_step[0] = False
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.extend([(time.perf_counter() - t0) * 1e3 / len(batches)] * len(batches))
         return out
 
-    def timed_ring(self, *a, **kw):
+    def timed_write(self, *a, **kw):
+        # the time a save holds the training thread (all of the write when
+        # synchronous; the snapshot and the wait for the previous write
+        # under --ckpt_format orbax)
         t0 = time.perf_counter()
-        path = save_ring(self, *a, **kw)
-        saves["ring_s"] += time.perf_counter() - t0
-        return path
+        out = write(self, *a, **kw)
+        saves["write_s"] += time.perf_counter() - t0
+        return out
 
-    def timed_file(path, *a, **kw):
+    def timed_wait(self):
         t0 = time.perf_counter()
-        out = save_file(path, *a, **kw)
-        if os.path.basename(path) == "df.pth":       # the best result's file
-            saves["best_s"] += time.perf_counter() - t0
+        wait(self)
+        saves["wait_s"] += time.perf_counter() - t0
+
+    def counted_file(path, state):
+        out = write_file(path, state)
         saves["bytes"] += os.path.getsize(path)
         saves["files"] += 1
         return out
@@ -1214,11 +1612,12 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
         if capture_dt:
             dt_calls = stack.enter_context(captured_calls(triplane, "plane_dtable",
                                                           keep=6))
-        Trainer.train_step, Trainer.save_checkpoint = timed_step, timed_ring
-        ckpt_io.save_checkpoint = timed_file
-        stack.callback(setattr, Trainer, "train_step", train_step)
-        stack.callback(setattr, Trainer, "save_checkpoint", save_ring)
-        stack.callback(setattr, ckpt_io, "save_checkpoint", save_file)
+        Trainer.train_many, Trainer._write = timed_many, timed_write
+        Trainer.wait_for_saves, ckpt_io.write_checkpoint = timed_wait, counted_file
+        stack.callback(setattr, Trainer, "train_many", train_many)
+        stack.callback(setattr, Trainer, "_write", write)
+        stack.callback(setattr, Trainer, "wait_for_saves", wait)
+        stack.callback(setattr, ckpt_io, "write_checkpoint", write_file)
         # this path starts here: counters read only its launches
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1226,19 +1625,23 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
         trainer = cli(flags, log=quiet)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
-        launches = read_counts()
+        launches = read_counts(graphed=True)
 
     results = trainer.stats["results"]
     final, best = -results[-1], -trainer.stats["best_result"]
     strips = sorted(os.listdir(os.path.join(ws, "validation")))
     ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
     test_dir = os.path.join(ws, "results", f"df_ep{trainer.epoch:04d}_test")
-    ckpt_s = saves["ring_s"] + saves["best_s"]
+    ckpt_s = saves["write_s"] + saves["wait_s"]
     summary = {"name": name, "data_type": data_type, "final_psnr": final,
                "best_psnr": best, "psnr_by_epoch": [-r for r in results],
                "steps": len(step_ms), "median_step_ms": statistics.median(step_ms),
                "mean_step_ms": statistics.mean(step_ms), "wall_s": wall_s,
                "checkpoint_s": ckpt_s, "checkpoint_share": ckpt_s / wall_s,
+               "checkpoint_write_block_s": saves["write_s"],
+               "checkpoint_wait_s": saves["wait_s"],
+               "ckpt_format": trainer.opt.ckpt_format,
+               "steps_per_dispatch": trainer.steps_per_dispatch(),
                "checkpoint_files": saves["files"], "checkpoint_bytes": saves["bytes"],
                "validation_strips": len(strips), "checkpoints": ckpts,
                "test_frames": len(os.listdir(test_dir)), "launches": launches,
@@ -1345,7 +1748,9 @@ def quality_phase(procs):
             f"({100 * summary['checkpoint_share']:.1f} %, {summary['checkpoint_files']} "
             f"files, {summary['checkpoint_bytes'] / 1e9:.2f} GB) | "
             f"{summary['validation_strips']} strips | peak {summary['peak_gb']:.2f} GB "
-            f"| launches {summary['launches']}")
+            f"| K = {summary['steps_per_dispatch']}, --ckpt_format "
+            f"{summary['ckpt_format']}: saves blocked {summary['checkpoint_write_block_s']:.1f} s, "
+            f"waits {summary['checkpoint_wait_s']:.1f} s | launches {summary['launches']}")
         if "autotune" in summary:
             a = summary["autotune"]
             log(f"[autotune {name}] measured slab fill {a['slab_fill']:.4f} on the "
@@ -1397,6 +1802,15 @@ def parity_phase(card, guidance, clip_matcher):
     for r in rows:
         r["launches"] = pa["launches"][r["name"]]
         r["path"] = "parity reconstruction"
+    # (b) the parity step as dispatches of K = 8, then (d) its checkpoints
+    from customnerf_torch.data.base import NeRFDataset
+    train = NeRFDataset(opt, "train", device=recon.device).dataloader()
+    batches = [train.item(i % len(train)) for i in range(PARITY_DISPATCHES * GRAPH_K)]
+    pa["dispatch"], mlp, _ = dispatch_check(recon, batches, "reconstruction",
+                                            "parity dispatch (graph)")
+    check_launched(pa["dispatch"]["graph_launches"], (K1_BF16,), "parity dispatch")
+    rows += dispatch_rows(mlp, None, pa["dispatch"], with_dt=False)
+    pa["checkpoint"] = checkpoint_blocking(recon, batches[:GRAPH_K], "parity")
     pa["grid_encode"] = ge = time_grid_encode(*enc_args)
     log(f"[parity grid] encode of the fine pass's {ge['points']} points: forward "
         f"{ge['forward_ms']:.2f} ms, backward {ge['backward_ms']:.2f} ms (device "
@@ -1495,6 +1909,8 @@ def run_all(card, procs) -> int:
     log(f"[checkpoint] saved {ck['checkpoint']} ({ck['bytes']} bytes); the "
         f"editing trainer's frozen field renders the validation view bit for "
         f"bit; occupancy grid restored")
+    tr["dispatch"], flagship_rows = run_flagship_dispatch(ck["checkpoint"])
+    rows += flagship_rows
     del recon
     ed, edit_mlp, edit_dt = run_editing(editor, edit_opt)
     med = ed["median_ms"]
@@ -1522,7 +1938,7 @@ def run_all(card, procs) -> int:
     for r in edit_rows:
         r["launches"] = ed["launches"][r["name"]]
         r["path"] = "editing"
-    rows += edit_rows
+    rows += edit_rows + ed.pop("dispatch_rows")
 
     guidance, clip_matcher = editor.guidance, editor.clip_matcher
     del editor
@@ -1551,7 +1967,7 @@ def run_all(card, procs) -> int:
     for r in cd_rows:
         r["launches"] = cdp["edit"]["launches"][r["name"]]
         r["path"] = "use_cd editing"
-    rows += cd_rows
+    rows += cd_rows + cdp.pop("dispatch_rows")
     # the checkpoint (~180 MB with its Adam state) has served its purpose
     shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
     drill = run_drill()

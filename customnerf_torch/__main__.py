@@ -50,7 +50,11 @@ importance samples, the defaults)::
 written by the original CustomNeRF (torch-ngp / tcnn ``.pth``:
 ``pos_en.embeddings`` and ``*.params`` keys), on the ``-O2`` grid field.
 ``--compact_frac -1`` sizes the ``-O`` path's compaction from the slab fill
-it measures once the occupancy grid has warmed up.
+it measures once the occupancy grid has warmed up.  ``--steps_per_dispatch``
+K (≤ 0, the default: 8 on the card, 1 on the CPU) takes K steps a dispatch,
+on the card as replays of one captured CUDA graph of a step;
+``--ckpt_format orbax`` writes the ``.pth`` checkpoints off the training
+thread (waited for before the program exits).
 
 Without ``--sd_weights`` (a local diffusers directory) or
 ``--allow_random_guidance`` the editing phase refuses to run.
@@ -97,6 +101,7 @@ def main(argv=None, log=print, device=None):
     test_loader = NeRFDataset(opt, "test", R_path=opt.R_path,
                               device=trainer.device).dataloader()
     trainer.test(test_loader, split="test")
+    trainer.wait_for_saves()        # never exit with a half-written file
     return trainer
 
 

@@ -99,6 +99,11 @@
 
 namespace {
 
+// Launches of each head kernel, counted on the card by the kernel itself
+// (block 0, thread 0): [0] the f32 mode, [1] the bf16 mode.  A replayed CUDA
+// graph's launches count here too; no host code runs for them.
+__device__ unsigned long long g_launches[2];
+
 constexpr int HID = 64;
 constexpr int NB = HID / 8;    // n8 blocks of a hidden layer's output
 constexpr int KBH = HID / 8;   // k8 blocks of a hidden layer's input
@@ -297,6 +302,7 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ view,
                  const float* __restrict__ packed, int w_floats,
                  float* __restrict__ sigma, float* __restrict__ rgb, int64_t B,
                  int in_dim, int dir_dim, int n_out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches[0], 1ull);
   extern __shared__ __align__(16) float smem[];
   const int kb1 = (in_dim + 7) / 8;
   float* s_w1 = smem;
@@ -585,6 +591,7 @@ fused_mlp_bf16_kernel(const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ packed, int w_elems,
                       float* __restrict__ sigma, float* __restrict__ rgb,
                       int64_t B, int in_dim, int dir_dim, int n_out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches[1], 1ull);
   extern __shared__ __align__(16) unsigned char smem16[];
   const int kb1 = (in_dim + 15) / 16;
   const __nv_bfloat16* s_w1 = reinterpret_cast<const __nv_bfloat16*>(smem16);
@@ -858,4 +865,15 @@ extern "C" int cn_fused_mlp_bf16_forward(const float* x, const float* view,
                   : launch(fused_mlp_bf16_kernel<false>, smem, x, view,
                            (const __nv_bfloat16*)p, w_elems, sigma, rgb, B,
                            in_dim, dir_dim, n_out, s);
+}
+
+// The head kernels' launches counted on the card since the last reset:
+// out[0] the f32 mode's, out[1] the bf16 mode's (host memory).
+extern "C" int cn_fused_mlp_launch_counts(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+}
+
+extern "C" int cn_fused_mlp_reset_launch_counts() {
+  const unsigned long long zero[2] = {0, 0};
+  return (int)cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
 }

@@ -67,6 +67,11 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// Launches of the kernel, counted on the card by the kernel itself (block 0,
+// thread 0): [0] the f32 mode, [1] the bf16 mode.  A replayed CUDA graph's
+// launches count here too; no host code runs for them.
+__device__ unsigned long long g_launches[2];
+
 // Only a study build (tools/kernel_study.py) sets another run length with
 // -DCN_DTABLE_RUN=n, or leaves the atomics out with -DCN_DTABLE_NO_ATOMICS
 // (the time of everything else).
@@ -110,6 +115,8 @@ plane_dtable_kernel(const int* __restrict__ u0, const int* __restrict__ v0,
                     const float* __restrict__ g, int64_t g_ld,
                     float* __restrict__ out, int64_t out_ld, int64_t B, int R,
                     int C) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_launches[BF16 ? 1 : 0], 1ull);
   const int groups = C / 4;
   const int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   const int64_t run = t / groups;
@@ -212,4 +219,15 @@ extern "C" int cn_plane_dtable_bf16(const int* u0, const int* v0,
                                     int64_t out_ld, int64_t B, int R, int C,
                                     void* stream) {
   return launch<true>(u0, v0, fu, fv, g, g_ld, out, out_ld, B, R, C, stream);
+}
+
+// The kernel's launches counted on the card since the last reset: out[0]
+// the f32 mode's, out[1] the bf16 mode's (host memory).
+extern "C" int cn_plane_dtable_launch_counts(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+}
+
+extern "C" int cn_plane_dtable_reset_launch_counts() {
+  const unsigned long long zero[2] = {0, 0};
+  return (int)cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
 }

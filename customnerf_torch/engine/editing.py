@@ -1,6 +1,15 @@
 """LGIE editing: Local-Global Iterative Editing with SDS guidance
-(counterpart of ``customnerf_tpu/engine/editing.py``, single scene, one step
-a call).
+(counterpart of ``customnerf_tpu/engine/editing.py``, single scene).
+
+A step is a host pre-pass and a device step.  The pre-pass
+(:func:`editing_inputs`, the JAX order of ``editing.py:441-476``) draws the
+bg colour, takes the pt render from the cache (rendered the first time a
+view appears), picks ``--clip_view``'s prompt, draws the LGIE gate and t;
+its results are tensors.  The device step (:func:`editing_body`) reads only
+those tensors: ``use_fg`` selects the image with a ``torch.where``, as the
+JAX ``jnp.where(use_fg > 0.5, …)`` does, and t is a device tensor.  So the
+eager :func:`editing_step` and the K-step :func:`editing_steps_many` (on the
+card, replays of one captured device step) share both halves.
 
 One step renders the full frame once with the graph, resizes the chosen
 image (full, or foreground under the local branch) to 512² bilinear,
@@ -73,7 +82,8 @@ def prepare_text_embeddings(trainer):
 
 def _get_pt(trainer, batch, bg_color):
     """The frozen-model render of ``batch``'s image, computed once per
-    img_path (utils_init_nerf.py:243-265)."""
+    img_path (utils_init_nerf.py:243-265), with its ``--clip_view`` prompt
+    index (the argmax view, read once here)."""
     if batch.img_path in trainer.pt_dict:
         return trainer.pt_dict[batch.img_path]
     out = trainer.render_image(batch.rays_o, batch.rays_d, perturb=True,
@@ -92,10 +102,13 @@ def _get_pt(trainer, batch, bg_color):
     return entry
 
 
-def _select_text(trainer, match_probs):
-    """--clip_view: the argmax view's prompts (utils_init_nerf.py:267-280)."""
-    if trainer.opt.clip_view and match_probs is not None:
-        sel = int(match_probs.argmax())
+def _select_text(trainer, pt):
+    """--clip_view: the argmax view's prompts (utils_init_nerf.py:267-280);
+    the view index is read on the host once a pt entry."""
+    if trainer.opt.clip_view and pt.get("match_probs") is not None:
+        if "text_sel" not in pt:
+            pt["text_sel"] = int(pt["match_probs"].argmax())
+        sel = pt["text_sel"]
         return trainer.text_z[sel], trainer.text_z_fg[sel]
     return trainer.text_z, trainer.text_z_fg
 
@@ -123,40 +136,61 @@ def _lgie_gate(trainer, text_z, text_z_fg):
     return True, text_z_fg, opt.local_t_ratio
 
 
-def editing_step(trainer, batch, perturb: bool = True, draws=None, mark=None):
-    """One LGIE editing step.  Returns (loss, aux, render stats): ``aux``
-    holds ``loss_sds`` (0.5·Σ grad², the reference's value) and ``loss_bg``,
-    ``loss`` their sum.  ``draws`` may fix ``bg_color``, ``t``, ``noise``
-    (the SDS ε) and ``vae_noise`` (the posterior sample's ε); ``mark(name)``
-    is called at the stage boundaries ``pt`` (the cached frozen render and
-    the draws done), ``latents``, ``unet`` and ``update``.  The stats add
-    the LGIE branch (``local``) and ``t``."""
-    opt, guidance = trainer.opt, trainer.guidance
+def editing_inputs(trainer, batch, draws=None):
+    """The host pre-pass of one step at the current ``global_step``: the
+    bg colour, the pt entry, the prompt, the LGIE gate and t, in the JAX
+    order (``editing.py:441-476``).  Returns (inputs, local): ``inputs``
+    holds the tensors :func:`editing_body` reads (``use_fg`` a 0-d f32, t a
+    [1] int64); ``local`` is the gate's branch.  ``draws`` may fix
+    ``bg_color`` and ``t``."""
+    opt, guidance, dev = trainer.opt, trainer.guidance, trainer.device
     if guidance is None:
         raise RuntimeError("editing needs the SD guidance (--lambda_sd > 0)")
     draws = draws or {}
-    mark = mark or (lambda _: None)
     if not hasattr(trainer, "text_z"):
         prepare_text_embeddings(trainer)
-
     bg_color = draws["bg_color"] if "bg_color" in draws else _bg_color(trainer)
     pt = _get_pt(trainer, batch, bg_color)
-    text_z, text_z_fg = _select_text(trainer, pt["match_probs"])
+    text_z, text_z_fg = _select_text(trainer, pt)
     use_fg, text_emb, t_ratio = _lgie_gate(trainer, text_z, text_z_fg)
-    t = draws["t"] if "t" in draws else guidance.sample_timestep(
-        trainer.generator, trainer.global_step, t_ratio)
-    mark("pt")
+    if "t" in draws:
+        t = torch.as_tensor(draws["t"], dtype=torch.int64, device=dev).reshape(1)
+    else:
+        t = guidance.sample_timestep(trainer.generator, trainer.global_step,
+                                     t_ratio)
+    inputs = {"rays_o": batch.rays_o, "rays_d": batch.rays_d,
+              "pt_rgb_bg": pt["pt_rgb_bg"], "text_emb": text_emb, "t": t,
+              "use_fg": torch.full((), float(use_fg), device=dev)}
+    if bg_color is not None:
+        inputs["bg_color"] = torch.as_tensor(bg_color, dtype=torch.float32,
+                                             device=dev)
+    if opt.ori_bg:
+        inputs["gt"] = batch.rgbs
+        inputs["pt_mask"] = pt["pt_mask"]
+    return inputs, use_fg
 
-    H, W = batch.H, batch.W
+
+def editing_body(trainer, inputs, H: int, W: int, perturb: bool = True,
+                 draws=None, mark=None):
+    """The device step: render, resize, VAE encode, the SDS cotangent
+    (UNet without a graph), ``sum(latents · cotangent) + keep_bg · L1``,
+    backward and Adam.  Reads only ``inputs`` (from
+    :func:`editing_inputs`) and the trainer's state; ``draws`` may fix
+    ``noise`` (the SDS ε) and ``vae_noise``.  Returns ({``loss_sds``,
+    ``loss_bg``: detached}, render stats)."""
+    opt, guidance = trainer.opt, trainer.guidance
+    draws = draws or {}
+    mark = mark or (lambda _: None)
     n = H * W
-    out = trainer.render(batch.rays_o, batch.rays_d, train=True,
-                         perturb=perturb, bg_color=bg_color)
+    out = trainer.render(inputs["rays_o"], inputs["rays_d"], train=True,
+                         perturb=perturb, bg_color=inputs.get("bg_color"))
     pred_rgb_bg = out["bg"]["image"][:n].reshape(H, W, 3)
     pred_mask = out["render_mask"][:n].reshape(H, W, -1)
     loss = 0.0
     aux = {}
     if opt.lambda_sd:
-        img = out["fg"]["image"] if use_fg else out["image"]
+        fg = out["fg"]["image"] if "fg" in out else out["image"]
+        img = torch.where(inputs["use_fg"] > 0.5, fg, out["image"])
         img = img[:n].reshape(1, H, W, 3).permute(0, 3, 1, 2)
         img = F.interpolate(img, size=(RESIZE, RESIZE), mode="bilinear",
                             align_corners=False, antialias=True)
@@ -167,20 +201,61 @@ def editing_step(trainer, batch, perturb: bool = True, draws=None, mark=None):
         if noise is None:
             noise = torch.randn(latents.shape, generator=trainer.generator,
                                 device=latents.device)
-        cotangent, aux["loss_sds"] = guidance.sds_grad(latents.detach(),
-                                                       text_emb, t, noise)
+        cotangent, aux["loss_sds"] = guidance.sds_grad(
+            latents.detach(), inputs["text_emb"], inputs["t"], noise)
         mark("unet")
         loss = (latents * cotangent).sum()
     if opt.keep_bg:
-        target_bg = pt["pt_rgb_bg"]
+        target_bg = inputs["pt_rgb_bg"]
         if opt.ori_bg:
-            non_edit = (pt["pt_mask"].mean(-1, keepdim=True)
+            non_edit = (inputs["pt_mask"].mean(-1, keepdim=True)
                         + pred_mask.mean(-1, keepdim=True)) < 0.5
-            target_bg = torch.where(non_edit, batch.rgbs[:n].reshape(H, W, 3),
+            target_bg = torch.where(non_edit, inputs["gt"][:n].reshape(H, W, 3),
                                     target_bg)
         aux["loss_bg"] = opt.keep_bg * (target_bg - pred_rgb_bg).abs().mean()
         loss = loss + aux["loss_bg"]
     trainer.apply_gradients(loss)
     mark("update")
-    aux = {k: v.detach() for k, v in aux.items()}
-    return sum(aux.values()), aux, dict(out["stats"], local=use_fg, t=t)
+    return {k: v.detach() for k, v in aux.items()}, out["stats"]
+
+
+def editing_step(trainer, batch, perturb: bool = True, draws=None, mark=None):
+    """One eager LGIE editing step.  Returns (loss, aux, render stats):
+    ``aux`` holds ``loss_sds`` (0.5·Σ grad², the reference's value) and
+    ``loss_bg``, ``loss`` their sum.  ``draws`` may fix ``bg_color``, ``t``,
+    ``noise`` (the SDS ε) and ``vae_noise`` (the posterior sample's ε);
+    ``mark(name)`` is called at the stage boundaries ``pt`` (the pre-pass
+    done), ``latents``, ``unet`` and ``update``.  The stats add the LGIE
+    branch (``local``) and ``t``."""
+    inputs, local = editing_inputs(trainer, batch, draws)
+    if mark:
+        mark("pt")
+    aux, stats = editing_body(trainer, inputs, batch.H, batch.W,
+                              perturb=perturb, draws=draws, mark=mark)
+    return sum(aux.values()), aux, dict(stats, local=local, t=inputs["t"])
+
+
+def editing_steps_many(trainer, batches, draws=None):
+    """``len(batches)`` editing steps in one dispatch (JAX
+    ``editing.py:423-503``), each at its own ``global_step`` (incremented
+    here per step, as there).  Each step's pre-pass runs on the host just
+    before its device step, so the generator's draws come in the eager
+    order; the device steps are replays of one captured
+    :func:`editing_body` on the card and eager calls on the CPU.
+    ``draws`` (the CPU only): one dict a step, as :func:`editing_step`
+    takes.  All views
+    share one image shape.  Returns (losses [K], aux {name: [K]}) on the
+    device."""
+    if draws and trainer.device.type != "cpu":
+        raise ValueError("draws= fixes eager steps' draws; on the card a "
+                         "dispatch replays one captured step")
+    H, W = int(batches[0].H), int(batches[0].W)
+    outs = []
+    for j, batch in enumerate(batches):
+        trainer.global_step += 1
+        d = draws[j] if draws else None
+        inputs, _ = editing_inputs(trainer, batch, d)
+        outs += trainer._dispatch(
+            "edit", lambda x: editing_body(trainer, x, H, W, draws=d)[0], [inputs])
+    losses = torch.stack([sum(o.values()) for o in outs])
+    return losses, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

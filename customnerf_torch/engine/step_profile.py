@@ -14,9 +14,17 @@ its warm-up, then:
    share of that window and the kernels that took the most device time;
 3. times the tri-plane table gradient (dT) on the last traced step's own
    inputs, in the step (profiler) and replayed alone (CUDA events), with
-   the share of samples whose cotangent is nonzero.
+   the share of samples whose cotangent is nonzero;
+4. the device-busy share of eager steps and of one dispatch of K steps
+   (one captured step replayed K times, ``engine/dispatch.py``):
+   :func:`busy_share`.
 
-Prints one JSON line and writes it to ``chiprun_out/step_profile.json``.
+``--hw H W`` sets the frame (rays a step): ``--hw 57 42`` is the 2,394-ray
+step of the repo's fixtures at ``--train_resolution_level 7``.
+
+Prints one JSON line and writes it to ``chiprun_out/step_profile.json``
+(``device_busy_share`` is the profiled window's, stretched by the
+profiler's host overhead; ``busy_eager_vs_graph`` is :func:`busy_share`'s).
 Needs a CUDA device.
 """
 
@@ -33,6 +41,7 @@ import torch
 
 from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
 from customnerf_torch.data.base import NeRFDataset
+from customnerf_torch.engine.editing import editing_steps_many
 from customnerf_torch.engine.measure import captured_calls, card_line, device_ms
 from customnerf_torch.engine.trainer import Trainer
 from customnerf_torch.models import field as field_mod
@@ -77,16 +86,70 @@ def _wrap(owner, attr, spans, name):
     setattr(owner, attr, timed)
 
 
+def busy_share(run) -> dict:
+    """The device-busy share of ``run()``: the kernels' device time (by
+    ``torch.profiler``, user annotations left out) over the wall time of
+    the same call without the profiler, whose overhead would stretch the
+    host's share.  Each ``run()`` is called twice: timed, then traced."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            kernels[e.name][0] += 1
+            kernels[e.name][1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+    return {"wall_ms": wall_ms, "kernel_ms": busy, "busy_share": busy / wall_ms,
+            "n_kernels": sum(n for n, _ in kernels.values()),
+            "top": [{"name": k[:90], "launches": n, "ms": ms} for k, (n, ms) in top]}
+
+
+def dispatch_busy(trainer, batches) -> dict:
+    """:func:`busy_share` of ``len(batches)`` eager steps and of one
+    dispatch of them (reconstruction or editing; captured first, outside
+    the timed calls).  Takes 5·len(batches) steps of ``trainer``."""
+    def eager():
+        for b in batches:
+            trainer.global_step += 1
+            trainer.train_step(b)
+
+    def graphed():
+        if trainer.opt.pretrained:
+            editing_steps_many(trainer, batches)
+        else:
+            trainer.train_many(batches)
+            trainer.global_step += len(batches)
+
+    out = {"eager": busy_share(eager)}
+    graphed()                                # capture (if needed) outside
+    out["graph"] = busy_share(graphed)
+    for v in out.values():
+        v["ms_per_step"] = v["wall_ms"] / len(batches)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--warmup", type=int, default=24)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--hw", type=int, nargs=2, default=(128, 128),
+                    help="frame height and width: rays a step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA device")
 
-    opt = parse_args(FLAGSHIP_ARGS + "--data_type synthetic --h 128 --w 128 "
-                     "--seed 0 --update_extra_interval 4".split())
+    opt = parse_args(FLAGSHIP_ARGS + "--data_type synthetic --seed 0 "
+                     "--update_extra_interval 4".split()
+                     + ["--h", str(args.hw[0]), "--w", str(args.hw[1])])
     trainer = Trainer(opt, log=lambda *_: None, use_checkpoint="scratch")
     loader = NeRFDataset(opt, "train", device=trainer.device).dataloader()
 
@@ -176,6 +239,8 @@ def main(argv=None):
                 lambda: dtable(u0, v0, fu, fv, g, R, C, out=wide, bf16=bf16), 20),
         })
 
+    graphs = dispatch_busy(trainer, [loader.item(i % len(loader)) for i in range(8)])
+
     result = {
         "card": card_line(),
         "torch": torch.__version__,
@@ -187,6 +252,7 @@ def main(argv=None):
         "profile_window_ms": window_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / window_ms,
+        "busy_eager_vs_graph": graphs,
         "dtable_calls": dtable_calls,
         "top_kernels": [{"name": name[:90], "launches_per_step": n / 3,
                          "device_ms_per_step": ms / 3,

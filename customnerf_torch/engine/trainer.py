@@ -12,15 +12,27 @@ Reference semantics kept:
     refreshed every ``update_extra_interval`` steps before the step
     (utils_init_nerf.py:602-607); without it (``-O2``) the dense two-pass
     ``render_rays`` runs and there is no occupancy state to refresh, save
-    or restore (JAX ``trainer.py:188-193, 940-953, 1028``); one step a call;
+    or restore (JAX ``trainer.py:188-193, 940-953, 1028``);
+  * ``--steps_per_dispatch`` K (≤ 0: 8 on the card, 1 on the CPU, JAX
+    ``trainer.py:583-585``): an epoch's batches go in groups of K, the
+    refresh runs before a group when ``global_step % interval < len(group)``
+    (``trainer.py:587-616``), and a group is one ``train_many`` (or
+    ``editing_steps_many``) call — on the card one captured step replayed
+    once a batch (``engine/dispatch.py``), on the CPU a plain loop; the
+    losses stay on the device and are fetched once a dispatch, averaged per
+    epoch as ``trainer.py:627-648`` does;
   * ``--compact_frac -1``: compaction stays off until the grid has left its
     warm-up, then the measured slab fill sets the fraction once
     (``_autotune_compaction``, JAX ``trainer.py:507-572``);
   * ``render_image`` chunked by ``max_ray_batch`` (renderer.py:1749-1765);
   * checkpoints (``engine/checkpoint.py``): saved before training and
-    around each ``eval_interval`` (utils_init_nerf.py:492-506), the
-    ``--ckpt`` policy scratch|latest|latest_model|<path> and
-    ``--editing_from`` (utils_init_nerf.py:136-150); every load restores the
+    around each ``eval_interval`` (utils_init_nerf.py:492-506) from one
+    host snapshot a state (``_host_state``, JAX ``trainer.py:921-937``),
+    written off the training thread under ``--ckpt_format orbax``
+    (``AsyncSaver``; the files keep the ``.pth`` contract) with a wait
+    before pruning, loading and the end of ``train``; the ``--ckpt``
+    policy scratch|latest|latest_model|<path> and ``--editing_from``
+    (utils_init_nerf.py:136-150); every load restores the
     occupancy grid, ``model_only`` ones too;
   * editing (``--pretrained``): a frozen copy of the field loaded from
     ``--editing_from``, the pt-render cache, and ``train_step`` dispatching
@@ -44,8 +56,11 @@ installed, the mp4 (without it, the warning the JAX package logs when its
 writer fails); ``--clip_metrics`` scores the test renders with CLIP.
 ``--profile`` traces the first epoch with ``torch.profiler`` (Chrome trace
 under ``{workspace}/profile/``, where the JAX trainer writes its trace).
-Multi-scene and K-step editing, ``--mesh_shape`` and ``.orbax`` are later
-slices and raise ``NotImplementedError``.
+On the card the optimizer is ``torch.optim.Adam(capturable=True)`` and the
+decayed lr is computed on the device from an update counter, so that a
+captured step applies the lr of the update it replays.  Multi-scene editing
+and ``--mesh_shape`` are a later slice and raise ``NotImplementedError``;
+so does reading a JAX ``.orbax`` directory.
 """
 
 from __future__ import annotations
@@ -62,10 +77,11 @@ import torch
 from customnerf_torch.device import resolve_device
 from customnerf_torch.engine import checkpoint as ckpt_io
 from customnerf_torch.engine.convert import params_from_flax, params_to_flax
-from customnerf_torch.engine.editing import editing_step
+from customnerf_torch.engine.dispatch import StepGraph
+from customnerf_torch.engine.editing import editing_step, editing_steps_many
 from customnerf_torch.models.field import FieldConfig, NeRFField, param_groups
 from customnerf_torch.models.renderer import (RenderSettings, render_rays,
-                                              render_rays_fast)
+                                              render_rays_fast, scene_aabb)
 from customnerf_torch.ops.grid import GridSpec
 from customnerf_torch.ops.occupancy import (WARMUP_UPDATES, OccupancyState,
                                             init_state, march_rays_occupancy,
@@ -170,8 +186,6 @@ class Trainer:
         self.device = resolve_device(device)
         if opt.mesh_shape:
             raise _not_ported("--mesh_shape", "multi-device")
-        if opt.ckpt_format != "pth":
-            raise _not_ported(f"--ckpt_format {opt.ckpt_format}", ".orbax")
         self.opt = opt
         self.log = log
         self.guidance = guidance
@@ -183,11 +197,31 @@ class Trainer:
         self.ckpt_path = os.path.join(opt.workspace, "checkpoints")
 
         groups = param_groups(self.field)
+        # on the card: the lr a device tensor, written from a device update
+        # counter each step, so that a captured step replays the right lr
+        self._capturable = self.device.type == "cuda"
+        self._lr_t = self._count_t = None
+        if self._capturable:
+            self._lr_t = [torch.tensor(s * opt.lr, device=self.device)
+                          for s in (10.0, 1.0)]
+            self._count_t = torch.zeros((), dtype=torch.float64, device=self.device)
+        lrs = self._lr_t or [10.0 * opt.lr, opt.lr]
         self.optimizer = torch.optim.Adam(
-            [{"params": groups["grid"], "lr": 10.0 * opt.lr, "lr_scale": 10.0},
-             {"params": groups["mlp"], "lr": opt.lr, "lr_scale": 1.0}],
-            betas=(0.9, 0.99), eps=1e-15, weight_decay=opt.weight_decay)
+            [{"params": groups["grid"], "lr": lrs[0], "lr_scale": 10.0},
+             {"params": groups["mlp"], "lr": lrs[1], "lr_scale": 1.0}],
+            betas=(0.9, 0.99), eps=1e-15, weight_decay=opt.weight_decay,
+            capturable=self._capturable)
         self.n_updates = 0
+        self._graphs = {}            # kind -> (key, StepGraph)
+        self._state_version = 0      # bumped when a load replaces the state
+        self._host_cache = None      # (key, snapshot, ready): _host_state
+        # --ckpt_format orbax: the writer off the training thread (None:
+        # checkpoints are written on the calling thread)
+        self.saver = None
+        if opt.ckpt_format == "orbax":
+            self.saver = ckpt_io.AsyncSaver()
+            self.log("[INFO] --ckpt_format orbax: checkpoints are written off "
+                     "the training thread, as .pth files (the port has no orbax)")
         self.occ_state = None        # the -O occupancy grid; -O2 has none
         if opt.cuda_ray:
             self.occ_state = init_state(opt.cascade, grid_size=opt.occ_grid_size,
@@ -238,12 +272,25 @@ class Trainer:
         """Base lr of the ``count``-th update (0-based), per-step decay."""
         return self.opt.lr * 0.1 ** min(count / self.opt.iters, 1.0)
 
+    def steps_per_dispatch(self) -> int:
+        """``--steps_per_dispatch``, ≤ 0 resolved as the JAX package does:
+        8 on an accelerator, 1 on the CPU (``trainer.py:583-585``)."""
+        k = int(self.opt.steps_per_dispatch)
+        if k <= 0:
+            k = 1 if self.device.type == "cpu" else 8
+        return k
+
     # --------------------------------------------------- occupancy refresh
     def update_extra_state(self):
-        """Refresh the occupancy grid (reference renderer.py:1659-1717)."""
-        self.occ_state = update_grid(self.occ_state, self.field.density,
-                                     self.opt.bound, self.opt.density_thresh,
-                                     generator=self.generator)
+        """Refresh the occupancy grid (reference renderer.py:1659-1717),
+        in place: a captured step marches the tensors it was captured on."""
+        occ = self.occ_state
+        new = update_grid(occ, self.field.density, self.opt.bound,
+                          self.opt.density_thresh, generator=self.generator)
+        occ.density_grid.copy_(new.density_grid)
+        occ.bitfield.copy_(new.bitfield)
+        occ.mean_density.copy_(new.mean_density)
+        occ.iter_density = new.iter_density
 
     # -------------------------------------------------------------- render
     def render(self, rays_o, rays_d, train: bool, perturb: bool,
@@ -289,27 +336,47 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark("backward")
-        base = self.lr_at(self.n_updates)
+        if self._capturable:
+            # lr_at on the device, from the update counter
+            base = self.opt.lr * torch.pow(
+                0.1, torch.clamp(self._count_t / self.opt.iters, max=1.0))
+            for group, lr in zip(self.optimizer.param_groups, self._lr_t):
+                lr.copy_(group["lr_scale"] * base)
+        else:
+            base = self.lr_at(self.n_updates)
+            for group in self.optimizer.param_groups:
+                group["lr"] = group["lr_scale"] * base
         for group in self.optimizer.param_groups:
-            group["lr"] = group["lr_scale"] * base
             for p in group["params"]:
                 if p.grad is not None:
                     p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
         self.optimizer.step()
+        if self._capturable:
+            self._count_t += 1
         mark("adam")
         self.n_updates += 1
 
     def train_step(self, batch, perturb: bool = True, mark=None):
-        """One reconstruction step (render, loss, backward, NaN-zeroing,
-        Adam), or under ``--pretrained`` one editing step.  ``mark(name)``
-        is called at the stage boundaries: the dense render's, ``loss``,
-        ``backward`` and ``adam``, or the editing step's.  Returns (loss,
-        aux, render stats) as device tensors."""
+        """One eager reconstruction step (render, loss, backward,
+        NaN-zeroing, Adam), or under ``--pretrained`` one editing step.
+        ``mark(name)`` is called at the stage boundaries: the dense render's,
+        ``loss``, ``backward`` and ``adam``, or the editing step's.  Returns
+        (loss, aux, render stats) as device tensors."""
         if self.opt.pretrained:
             return editing_step(self, batch, perturb=perturb, mark=mark)
-        rays_o, rays_d = batch.rays_o, batch.rays_d
-        rgbs = batch.rgbs.reshape(-1, 3)
-        mask = batch.mask.reshape(-1)
+        return self._recon_step(self._recon_inputs(batch), perturb=perturb,
+                                mark=mark)
+
+    @staticmethod
+    def _recon_inputs(batch) -> dict:
+        return {"rays_o": batch.rays_o, "rays_d": batch.rays_d,
+                "rgbs": batch.rgbs.reshape(-1, 3), "mask": batch.mask.reshape(-1)}
+
+    def _recon_step(self, inputs, perturb: bool = True, mark=None):
+        """The step :meth:`train_step` takes and a dispatch captures:
+        (loss, aux, render stats), the stats' tensors detached."""
+        rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
+        rgbs, mask = inputs["rgbs"], inputs["mask"]
         if self.opt.batch_rays:
             n = rays_o.shape[0]
             sel = torch.randperm(n, generator=self.generator,
@@ -323,6 +390,58 @@ class Trainer:
         self.apply_gradients(loss, mark=mark)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, out["stats"]
 
+    def train_many(self, batches):
+        """``len(batches)`` reconstruction steps in one dispatch (JAX
+        ``trainer.py:434-455``): on the card, replays of one captured step;
+        on the CPU, the eager steps.  Returns (losses [K], aux {name: [K]})
+        on the device; ``global_step`` is the caller's."""
+        def step(inputs):
+            loss, aux, _ = self._recon_step(inputs)
+            return dict(aux, loss=loss)
+
+        outs = self._dispatch("recon", step, [self._recon_inputs(b) for b in batches])
+        return (torch.stack([o.pop("loss") for o in outs]),
+                {k: torch.stack([o[k] for o in outs]) for k in outs[0]})
+
+    def _dispatch(self, kind, step, inputs_list):
+        """``step`` on each of ``inputs_list``, in order: eager on the CPU,
+        else replays of one captured ``step`` (captured again whenever what
+        it was captured on changed).  Returns each step's outputs."""
+        if self.device.type == "cpu":
+            return [step(inputs) for inputs in inputs_list]
+        graph = self._step_graph(kind, step, inputs_list[0])
+        outs = []
+        for inputs in inputs_list:
+            out = graph.replay(inputs)
+            self.n_updates += 1
+            outs.append({k: v.clone() for k, v in out.items()})
+        return outs
+
+    def _graph_key(self, kind, inputs):
+        """What a captured step depends on besides its inputs' values."""
+        occ = self.occ_state
+        occ_key = None if occ is None else (
+            occ.density_grid.data_ptr(), occ.bitfield.data_ptr(),
+            occ.mean_density.data_ptr(), occ.iter_density > WARMUP_UPDATES)
+        return (kind, self._state_version, id(self.field.cfg), occ_key,
+                self.opt.compact_frac, self.opt.batch_rays,
+                tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+
+    def _step_graph(self, kind, step, inputs) -> StepGraph:
+        key = self._graph_key(kind, inputs)
+        held = self._graphs.get(kind)
+        if held is None or held[0] != key:
+            self._graphs.pop(kind, None)     # free the old graph's pool first
+            n_updates = self.n_updates
+            try:
+                graph = StepGraph(kind, step, inputs, self.generator,
+                                  [*self.field.parameters(), self._count_t],
+                                  self.optimizer.state)
+            finally:
+                self.n_updates = n_updates
+            self._graphs[kind] = held = (key, graph)
+        return held[1]
+
     # ------------------------------------------------ compaction auto-tune
     def measure_slab_fill(self, batch) -> float:
         """Mean share of live slots in the fast path's [N, n_keep] slab for
@@ -330,8 +449,7 @@ class Trainer:
         opt = self.opt
         n_total = max(opt.num_steps + opt.upsample_steps, 2)
         o, d = batch.rays_o, batch.rays_d
-        aabb = torch.tensor([-opt.bound] * 3 + [opt.bound] * 3,
-                            dtype=torch.float32, device=o.device)
+        aabb = scene_aabb(opt.bound, o.device)
         with torch.no_grad():
             nears, fars = near_far_from_aabb(o, d, aabb, opt.min_near)
             miss = nears >= fars
@@ -361,19 +479,36 @@ class Trainer:
 
     # ---------------------------------------------------------- train loop
     def train_one_epoch(self, loader):
+        """One epoch in dispatches of ``steps_per_dispatch`` steps, as the
+        JAX ``train_one_epoch`` (``trainer.py:574-648``) groups them."""
         if self.opt.cuda_ray and self.opt.compact_frac == -1:
             self._autotune_compaction(loader)
         self.log(f"==> Start Training Epoch {self.epoch}, "
                  f"lr={self.lr_at(self.n_updates):.6f} ...")
-        losses = []
-        for batch in loader:
-            if (self.opt.cuda_ray
-                    and self.global_step % self.opt.update_extra_interval == 0):
+        k = self.steps_per_dispatch()
+        pending = []            # (steps, aux of the dispatch on the device)
+        batches = list(loader)
+        for i in range(0, len(batches), k):
+            group = batches[i:i + k]
+            if (self.opt.cuda_ray and self.global_step
+                    % self.opt.update_extra_interval < len(group)):
                 self.update_extra_state()
-            self.global_step += 1
-            loss, _, _ = self.train_step(batch)
-            losses.append(loss)
-        avg = float(torch.stack(losses).mean()) if losses else 0.0
+            if k == 1:
+                self.global_step += 1
+                _, aux, _ = self.train_step(group[0])
+            elif self.opt.pretrained:
+                _, aux = editing_steps_many(self, group)
+            else:
+                _, aux = self.train_many(group)
+                self.global_step += len(group)
+            pending.append((len(group), aux))
+        # one host transfer a dispatch; a step's loss is the sum of its aux
+        total, n_steps = 0.0, 0
+        for n, aux in pending:
+            host = torch.stack([v.reshape(n) for v in aux.values()]).cpu().double()
+            total += float(host.sum())
+            n_steps += n
+        avg = total / max(n_steps, 1)
         self.stats["loss"].append(avg)
         self.log(f"==> Finished Epoch {self.epoch}. average_loss {avg}")
         return avg
@@ -381,7 +516,8 @@ class Trainer:
     def train(self, train_loader, max_epochs: int, valid_loader=None):
         """Epochs up to ``max_epochs``, saving a full checkpoint first and
         before and after each ``eval_interval``'s evaluation
-        (utils_init_nerf.py:492-506)."""
+        (utils_init_nerf.py:492-506); a pending write is waited for at the
+        end (JAX ``trainer.py:501-503``)."""
         t0 = time.time()
         self.save_checkpoint()
         prof = self._start_profile() if self.opt.profile else None
@@ -396,6 +532,7 @@ class Trainer:
                 if valid_loader is not None:
                     self.evaluate_one_epoch(valid_loader)
                 self.save_checkpoint()
+        self.wait_for_saves()
         self.log(f"[INFO] training takes {(time.time() - t0) / 60:.4f} minutes.")
 
     def _start_profile(self):
@@ -420,39 +557,92 @@ class Trainer:
         self.opt.profile = False
 
     # ---------------------------------------------------------- checkpoints
-    def _occ_extra(self):
-        """The occupancy grid, which checkpoint-driven renders must march
-        (a fresh grid cost 3.6 dB on bear eval frames, trainer.py:939-953);
-        None without one."""
+    def _host_state(self):
+        """(host snapshot, ready event) of the field, the optimizer and the
+        occupancy grid, taken once a state (JAX ``trainer.py:921-937``
+        takes it once a global step): the ring save before an evaluation,
+        the best ``df.pth`` and the ring save after it share it.  A state
+        is an update count, a load and an occupancy refresh, and the
+        snapshot lives in the buffers of the saver that took it.  The
+        copies are queued on the current stream, behind every step queued
+        before and ahead of the next in-place update; ``ready`` (None on
+        the CPU) marks their end."""
         occ = self.occ_state
-        if occ is None:
+        key = (self.n_updates, self._state_version,
+               None if occ is None else occ.iter_density, id(self.saver))
+        if self._host_cache is None or self._host_cache[0] != key:
+            self._host_cache = None
+            tree = {"field": self.field.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "occ": None if occ is None else {
+                        "density_grid": occ.density_grid,
+                        "density_bitfield": occ.bitfield,
+                        "mean_density": occ.mean_density}}
+            if self.saver is not None:
+                host, ready = self.saver.snapshot(tree)
+            else:
+                host, ready = ckpt_io.snapshot(tree)
+            self._host_cache = (key, host, ready)
+        return self._host_cache[1], self._host_cache[2]
+
+    def _occ_extra(self, host_occ=None, iter_density: int = 0):
+        """The occupancy grid of a snapshot (its ``occ`` entry), which
+        checkpoint-driven renders must march (a fresh grid cost 3.6 dB on
+        bear eval frames, trainer.py:939-953); None without one."""
+        if host_occ is None:
             return None
-        return {"mean_density": float(occ.mean_density), "mean_count": 0,
-                "density_grid": occ.density_grid.detach().cpu().numpy(),
-                "density_bitfield": occ.bitfield.detach().cpu().numpy(),
-                "iter_density": int(occ.iter_density)}
+        return {"mean_density": float(host_occ["mean_density"]), "mean_count": 0,
+                "density_grid": host_occ["density_grid"].detach().cpu().numpy(),
+                "density_bitfield": host_occ["density_bitfield"].detach().cpu().numpy(),
+                "iter_density": int(iter_density)}
+
+    def _write(self, path, full: bool):
+        """Write this global step's snapshot to ``path``: on the worker
+        thread under ``--ckpt_format orbax``, else here.  Returns the path."""
+        host, ready = self._host_state()
+        epoch, step, n_updates = self.epoch, self.global_step, self.n_updates
+        stats = copy.deepcopy(self.stats)
+        iter_density = getattr(self.occ_state, "iter_density", None)
+
+        def state():
+            optim = ({"state_dict": host["optimizer"], "n_updates": n_updates}
+                     if full else None)
+            return ckpt_io.checkpoint_state(
+                params_to_flax(host["field"]), epoch, step, stats,
+                optimizer_state=optim,
+                extra=self._occ_extra(host["occ"], iter_density))
+
+        if self.saver is not None:
+            return self.saver.save(path, state, ready=ready)
+        if ready is not None:
+            ready.synchronize()
+        return ckpt_io.write_checkpoint(path, state())
+
+    def wait_for_saves(self):
+        """Block until a pending checkpoint write has finished; re-raises
+        its error."""
+        if self.saver is not None:
+            self.saver.wait()
 
     def save_checkpoint(self):
         """A full checkpoint (with the Adam state) of this epoch into the
-        ring; returns its path."""
+        ring; returns its path.  A pending write finishes before the ring
+        is pruned (JAX ``trainer.py:960-963``)."""
         file_name = f"{self.name}_ep{self.epoch:04d}.pth"
         self.stats["checkpoints"].append(file_name)
+        self.wait_for_saves()
         ckpt_io.prune_ring(self.stats, self.ckpt_path, self.opt.max_keep_ckpt)
-        optim = {"state_dict": self.optimizer.state_dict(),
-                 "n_updates": self.n_updates}
-        return ckpt_io.save_checkpoint(
-            os.path.join(self.ckpt_path, file_name),
-            params_to_flax(self.field.state_dict()), self.epoch,
-            self.global_step, self.stats, optimizer_state=optim,
-            extra=self._occ_extra())
+        return self._write(os.path.join(self.ckpt_path, file_name), full=True)
 
     def _load(self, path, model_only: bool = False):
         if not path or not os.path.exists(str(path)):
             self.log(f"[WARN] checkpoint {path} not found.")
             return
+        self.wait_for_saves()          # never read a half-written file
         params, meta = ckpt_io.load_checkpoint(
             str(path), conf_channels=self.field.cfg.conf_channels)
         self.field.load_state_dict(params_from_flax(params))
+        self._state_version += 1       # captured steps and snapshots are stale
         self.log("[INFO] loaded model.")
         # the occupancy grid is model state in the reference: restored on
         # model_only loads too (--editing_from, latest_model)
@@ -468,8 +658,25 @@ class Trainer:
         if optim is not None:
             self.optimizer.load_state_dict(optim["state_dict"])
             self.n_updates = int(optim["n_updates"])
+            self._bind_optimizer()
             self.log("[INFO] loaded optimizer.")
         self.log(f"[INFO] load at epoch {self.epoch}, global step {self.global_step}")
+
+    def _bind_optimizer(self):
+        """After ``load_state_dict``: the groups take this trainer's
+        ``capturable`` (a file saved on the card says True, one saved on
+        the CPU False) and, on the card, the device lr tensors, every
+        ``step`` on the card in f32 and the loaded update count."""
+        for i, group in enumerate(self.optimizer.param_groups):
+            group["capturable"] = self._capturable
+            if self._capturable:
+                group["lr"] = self._lr_t[i]
+        if not self._capturable:
+            return
+        for st in self.optimizer.state.values():
+            if "step" in st:
+                st["step"] = st["step"].to(self.device, torch.float32)
+        self._count_t.fill_(self.n_updates)
 
     def _restore_occ_state(self, meta):
         """The occupancy state from checkpoint meta (trainer.py:1023-1050),
@@ -585,10 +792,9 @@ class Trainer:
             self.log(f"[INFO] New best result: {best} --> "
                      f"{self.stats['results'][-1]}")
             self.stats["best_result"] = self.stats["results"][-1]
-            ckpt_io.save_checkpoint(
-                os.path.join(self.ckpt_path, f"{self.name}.pth"),
-                params_to_flax(self.field.state_dict()), self.epoch,
-                self.global_step, self.stats, extra=self._occ_extra())
+            self.wait_for_saves()
+            self._write(os.path.join(self.ckpt_path, f"{self.name}.pth"),
+                        full=False)
         return psnrs
 
     # ---------------------------------------------------------------- test

@@ -146,27 +146,33 @@ class StableDiffusionGuidance:
 
     # ----------------------------------------------------------------- SDS
     @torch.no_grad()
-    def sds_grad(self, latents, text_embeddings, t: int, noise):
+    def sds_grad(self, latents, text_embeddings, t, noise):
         """dL_sds/dlatents and the loss value 0.5·Σ grad², for latents
-        [1, 4, h, w], text_embeddings [uncond; cond] and noise ε, all f32;
-        the UNet casts its inputs, and the gradient is formed in f32 from
-        its f32 ε (the JAX ``sds_loss_fn``)."""
+        [1, 4, h, w], text_embeddings [uncond; cond] and noise ε, all f32, at
+        timestep ``t`` (a [1] int64 tensor on the latents' device, or an
+        int); the UNet casts its inputs, and the gradient is formed in f32
+        from its f32 ε (the JAX ``sds_loss_fn``).  Nothing here reads t on
+        the host."""
+        t = torch.as_tensor(t, device=latents.device).reshape(1)
         noisy = self.scheduler.add_noise(latents, noise, t)
         latent_in = torch.cat([noisy, noisy])
-        tt = torch.full((latent_in.shape[0],), int(t), device=latents.device)
-        eps_uncond, eps_text = self.unet(latent_in, tt, text_embeddings,
-                                         cd_kv=self.cd_kv).chunk(2)
+        eps_uncond, eps_text = self.unet(latent_in, t.expand(latent_in.shape[0]),
+                                         text_embeddings, cd_kv=self.cd_kv).chunk(2)
         eps_hat = eps_text + self.opt.cfg * (eps_text - eps_uncond)
-        w = 1.0 - self.alphas[int(t)]
+        w = 1.0 - self.alphas.index_select(0, t)
         grad = torch.nan_to_num(w * (eps_hat.float() - noise) * self.opt.lambda_sd)
         return grad, 0.5 * (grad ** 2).sum()
 
     def sample_timestep(self, generator, global_step=None, t_ratio: float = 1.0):
-        """Reference t sampling incl. ``--stage_time`` (sd.py:120-132)."""
+        """Reference t sampling incl. ``--stage_time`` (sd.py:120-132), on
+        the generator's device: a [1] int64 tensor, ``int(t · t_ratio)``
+        computed there (no host sync)."""
         min_step, max_step = self.min_step, self.max_step
         if self.opt.stage_time and global_step is not None:
             if global_step > self.opt.iters / 2:
                 max_step = int(max_step * 0.5)
-        t = int(torch.randint(min_step, max_step + 1, (1,), generator=generator,
-                              device=generator.device))
-        return int(t * t_ratio)
+        t = torch.randint(min_step, max_step + 1, (1,), generator=generator,
+                          device=generator.device)
+        if t_ratio == 1.0:
+            return t
+        return (t.to(torch.float64) * t_ratio).to(torch.int64)

@@ -31,6 +31,29 @@ from customnerf_torch.ops.occupancy import march_rays_occupancy
 from customnerf_torch.ops.ray import near_far_from_aabb
 
 
+_CONSTS = {}
+
+
+def scene_aabb(bound: float, device) -> torch.Tensor:
+    """[−b, −b, −b, b, b, b] on ``device``, made once: a host-to-device copy
+    inside a step would sync the host and break a CUDA graph's capture."""
+    key = ("aabb", float(bound), str(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor([-bound] * 3 + [bound] * 3,
+                                    dtype=torch.float32, device=device)
+    return _CONSTS[key]
+
+
+def _ray_perm(n: int, device):
+    """``ray_permutation(n)`` as device tensors, made once per (n, device)."""
+    key = ("perm", n, str(device))
+    if key not in _CONSTS:
+        perm, inv = ray_permutation(n)
+        _CONSTS[key] = (torch.from_numpy(perm).to(device),
+                        torch.from_numpy(inv).to(device))
+    return _CONSTS[key]
+
+
 @dataclass(frozen=True)
 class RenderSettings:
     bound: float = 2.0
@@ -121,8 +144,7 @@ def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
     mark = mark or (lambda _: None)
     dev = rays_o.device
     T = s.num_steps
-    aabb = torch.tensor([-s.bound] * 3 + [s.bound] * 3, dtype=torch.float32,
-                        device=dev)
+    aabb = scene_aabb(s.bound, dev)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, s.min_near)
     nears, fars = nears[:, None], fars[:, None]
 
@@ -200,9 +222,7 @@ def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,
     Np = N + n_pad
     NB = Np // G
 
-    perm_np, inv_np = ray_permutation(Np)
-    perm = torch.from_numpy(perm_np).to(dev)
-    inv_perm = torch.from_numpy(inv_np).to(dev)
+    perm, inv_perm = _ray_perm(Np, dev)
 
     M = block_budget(G, K, frac)
     valid_p = valid[perm]
@@ -256,8 +276,7 @@ def render_rays_fast(field, rays_o, rays_d, occ_state, s: RenderSettings,
     ``rgbs``, ``edit_mask``, nested ``fg``/``bg``, and ``stats`` (slab fill
     and overflow share when compaction is on)."""
     dev = rays_o.device
-    aabb = torch.tensor([-s.bound] * 3 + [s.bound] * 3, dtype=torch.float32,
-                        device=dev)
+    aabb = scene_aabb(s.bound, dev)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, s.min_near)
     miss = nears >= fars
     nears_ = torch.where(miss, torch.zeros_like(nears), nears)

@@ -11,13 +11,37 @@ def alphas_from_sigmas(sigmas, deltas):
     return 1.0 - torch.exp(-deltas * sigmas)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of an input with no zeros.
+
+    Its backward is the one ``torch.cumprod`` takes when the input has no
+    zeros, ``flip(cumsum(flip(out · grad))) / input``, the same operations
+    in the same order; ``torch.cumprod``'s own backward first reads on the
+    host whether the input has a zero, a sync that a CUDA graph's capture
+    cannot hold."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def weights_from_alphas(alphas):
     """w_i = alpha_i · prod_{j<i}(1 − alpha_j + 1e-15): the reference's
-    shifted cumprod."""
+    shifted cumprod.  Every factor is ≥ 1e-15 (alpha ≤ 1), so the product
+    runs through :class:`_CumprodNonzero`."""
     shifted = torch.cat(
         [torch.ones_like(alphas[..., :1]), 1.0 - alphas[..., :-1] + 1e-15],
         dim=-1)
-    return alphas * torch.cumprod(shifted, dim=-1)
+    return alphas * _CumprodNonzero.apply(shifted)
 
 
 def cdf_phi_s(x, s):

@@ -58,6 +58,10 @@ _SIGNATURES = {
 _SIGNATURES["cn_fused_mlp_bf16_forward"] = _SIGNATURES["cn_fused_mlp_forward"]
 _SIGNATURES["cn_fused_mlp_bf16_packed_elems"] = _SIGNATURES["cn_fused_mlp_packed_floats"]
 _SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
+# each kernel's launches as it counts them on the card (see device_launches)
+for _k in ("fused_mlp", "plane_dtable"):
+    _SIGNATURES[f"cn_{_k}_launch_counts"] = [_vp]       # out: 2 × uint64
+    _SIGNATURES[f"cn_{_k}_reset_launch_counts"] = []
 
 
 def _sources():
@@ -133,6 +137,32 @@ def library():
         lib.cn_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def device_launches(kernel: str) -> tuple:
+    """(f32 mode, bf16 mode) launches of ``kernel`` (``"fused_mlp"`` or
+    ``"plane_dtable"``) since :func:`reset_device_launches`, as the kernel
+    counts them itself on the card: a replayed CUDA graph's launches
+    included, which no wrapper sees.  (0, 0) before the library is loaded:
+    nothing has launched then."""
+    if _lib is None:
+        return (0, 0)
+    import torch
+    torch.cuda.synchronize()
+    out = (ctypes.c_uint64 * 2)()
+    check(getattr(_lib, f"cn_{kernel}_launch_counts")(out), "device_launches")
+    return tuple(out)
+
+
+def reset_device_launches() -> None:
+    """Set every kernel's own launch count on the card to 0."""
+    if _lib is None:
+        return
+    import torch
+    torch.cuda.synchronize()
+    for kernel in ("fused_mlp", "plane_dtable"):
+        check(getattr(_lib, f"cn_{kernel}_reset_launch_counts")(),
+              "reset_device_launches")
 
 
 def check(err: int, what: str) -> None:

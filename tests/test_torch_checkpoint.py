@@ -185,8 +185,10 @@ def test_ring_latest_and_resume(tmp_path):
 
 
 def test_unported_formats_name_their_roadmap_item(tmp_path):
-    """``.orbax`` still raises; a reference-format (tcnn) file now loads
-    through the shim (``tests/test_torch_refckpt.py`` holds it to JAX)."""
+    """Reading a JAX ``.orbax`` directory still raises; a reference-format
+    (tcnn) file loads through the shim (``tests/test_torch_refckpt.py``
+    holds it to JAX); ``--ckpt_format orbax`` builds a trainer with the
+    asynchronous writer."""
     from customnerf_torch.engine.torch_shim import export_reference_checkpoint
     from customnerf_torch.models.field import FieldConfig, NeRFField
     from customnerf_torch.ops.grid import GridSpec
@@ -203,5 +205,9 @@ def test_unported_formats_name_their_roadmap_item(tmp_path):
     back = params_from_flax(params)
     assert back.keys() == field.state_dict().keys()
     assert all(torch.equal(v, field.state_dict()[k]) for k, v in back.items())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*orbax"):
-        Trainer(_opt(tmp_path, "--ckpt_format", "orbax"), device="cpu", log=quiet)
+    # --ckpt_format orbax is ported: writes off the training thread, as .pth
+    lines = []
+    tr = Trainer(_opt(tmp_path, "--ckpt_format", "orbax"), device="cpu",
+                 log=lines.append)
+    assert isinstance(tr.saver, tckpt.AsyncSaver)
+    assert sum("--ckpt_format orbax" in l and ".pth" in l for l in lines) == 1

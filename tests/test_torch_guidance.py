@@ -235,14 +235,21 @@ def test_sample_timestep_range_and_stage_time():
     g = port_guidance(_port_opt())
     assert (g.min_step, g.max_step) == (20, 980)
     gen = torch.Generator().manual_seed(0)
-    early = [g.sample_timestep(gen, global_step=10) for _ in range(2000)]
+
+    def draw(n, **kw):
+        # t stays on the generator's device: a [1] int64 tensor, no host sync
+        ts = [g.sample_timestep(gen, **kw) for _ in range(n)]
+        assert all(t.dtype == torch.int64 and t.shape == (1,) for t in ts)
+        return [int(t) for t in ts]
+
+    early = draw(2000, global_step=10)
     assert min(early) == 20 and max(early) == 980          # inclusive randint
-    late = [g.sample_timestep(gen, global_step=51) for _ in range(2000)]
+    late = draw(2000, global_step=51)
     assert min(late) == 20 and max(late) == 490             # halved past iters/2
-    at_half = [g.sample_timestep(gen, global_step=50) for _ in range(500)]
+    at_half = draw(500, global_step=50)
     assert max(at_half) > 490                               # not yet at iters/2
-    ratio = [g.sample_timestep(gen, global_step=10, t_ratio=0.5) for _ in range(500)]
-    assert all(isinstance(t, int) for t in ratio) and max(ratio) <= 490 and min(ratio) >= 10
+    ratio = draw(500, global_step=10, t_ratio=0.5)
+    assert max(ratio) <= 490 and min(ratio) >= 10
     g2 = port_guidance(_port_opt("--max_ratio", "0.5"))
     assert g2.max_step == 500
 

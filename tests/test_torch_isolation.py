@@ -116,11 +116,13 @@ def test_unported_options_name_their_roadmap_item(tmp_path):
         assert (tr.occ_state is None) == dense
         spec = tr.field.cfg.grid
         assert (spec.gridtype if isinstance(spec, GridSpec) else "triplane") == gridtype
-    for flags, item in (("-O --mesh_shape data:8", "multi-device"),
-                        ("-O --ckpt_format orbax", "orbax")):
-        opt = parse_args(f"--data_type synthetic {grid} {flags}".split())
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            Trainer(opt, device="cpu", log=quiet)
+    opt = parse_args(f"--data_type synthetic {grid} -O --mesh_shape data:8".split())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+        Trainer(opt, device="cpu", log=quiet)
+    # --ckpt_format orbax is ported: the asynchronous writer of .pth files
+    from customnerf_torch.engine.checkpoint import AsyncSaver
+    opt = parse_args(f"--data_type synthetic {grid} -O --ckpt_format orbax".split())
+    assert isinstance(Trainer(opt, device="cpu", log=quiet).saver, AsyncSaver)
     opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained --sd_version 2.1".split())
     with pytest.raises(NotImplementedError, match="ROADMAP.*SD 2.x"):
         StableDiffusionGuidance(opt, device="cpu")
@@ -361,19 +363,19 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     assert not torch.equal(edit.field.grid_table, before)
 
 
-C1_WARNINGS = {"steps_per_dispatch": (["--steps_per_dispatch", "8"], "K-step dispatch"),
-               "triplane_bwd": (["--triplane_bwd", "scatter"], "same numbers"),
+C1_WARNINGS = {"triplane_bwd": (["--triplane_bwd", "scatter"], "same numbers"),
                "compact_layout": (["--compact_layout", "wide"], "same numbers")}
 
 
-@pytest.mark.parametrize("flag", sorted(C1_WARNINGS) + ["profile", "validate_weights",
-                                                       "triplane_fwd_bf16"])
+@pytest.mark.parametrize("flag", sorted(C1_WARNINGS) + [
+    "profile", "validate_weights", "triplane_fwd_bf16", "steps_per_dispatch"])
 def test_c1_flags_warn_trace_or_run_the_drill(tmp_path, capsys, monkeypatch, flag):
-    """The flags the JAX package acts on: each warns (naming its ROADMAP item
-    or saying the JAX paths compute the same numbers), traces the first
-    epoch (``--profile``), runs the drill and exits without training
-    (``--validate_weights``) or, ported since, acts without a warning
-    (``--triplane_fwd_bf16``: the field's encoder gathers bf16 rows)."""
+    """The flags the JAX package acts on: each warns (saying the JAX paths
+    compute the same numbers), traces the first epoch (``--profile``), runs
+    the drill and exits without training (``--validate_weights``) or,
+    ported since, acts without a warning (``--triplane_fwd_bf16``: the
+    field's encoder gathers bf16 rows; ``--steps_per_dispatch``: K steps a
+    dispatch, ≤ 0 resolved as the JAX package resolves it)."""
     import json
     from customnerf_torch.config import parse_args
     if flag == "triplane_fwd_bf16":
@@ -390,6 +392,15 @@ def test_c1_flags_warn_trace_or_run_the_drill(tmp_path, capsys, monkeypatch, fla
             c = plain._encode(x)[1]
         # the same field on bf16-rounded rows: the table's values, rounded
         assert not torch.equal(a, b) and torch.allclose(a, c, rtol=0, atol=1e-7)
+    elif flag == "steps_per_dispatch":
+        from customnerf_torch.engine.trainer import Trainer
+        opt = parse_args(TINY + ["--steps_per_dispatch", "8"])
+        assert "[WARN]" not in capsys.readouterr().out
+        # resolved as the JAX package does: <= 0 is 8 on the card, 1 on the CPU
+        assert Trainer(opt, device="cpu", log=lambda *_: None).steps_per_dispatch() == 8
+        for k in (0, -1):
+            opt = parse_args(TINY + ["--steps_per_dispatch", str(k)])
+            assert Trainer(opt, device="cpu", log=lambda *_: None).steps_per_dispatch() == 1
     elif flag in C1_WARNINGS:
         extra, why = C1_WARNINGS[flag]
         parse_args(TINY + extra)

@@ -104,12 +104,16 @@ def test_fused_mlp_bf16_kernel_matches_plain(cuda, B, in_dim, with_rgb):
                        device=cuda) for s in shapes]
     x = torch.tensor(rng.randn(B, in_dim).astype(np.float32), device=cuda)
     v = torch.tensor(rng.randn(B, 27).astype(np.float32), device=cuda)
+    from customnerf_torch.ops import kernels
     n0, n32 = fm.fused_mlp_forward.launches_bf16, fm.fused_mlp_forward.launches
+    d0 = kernels.device_launches("fused_mlp")
     sk, rk = fm.fused_mlp_forward(x, v, ws, with_rgb=with_rgb, bf16=True)
     sp, rp = fm.reference_forward(x, v, ws, with_rgb=with_rgb, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert fm.fused_mlp_forward.launches_bf16 == n0 + 1
     assert fm.fused_mlp_forward.launches == n32
+    d1 = kernels.device_launches("fused_mlp")      # the kernel's own count
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (0, 1)
     outs = [(sk, sp)] + ([(rk, rp)] if with_rgb else [])
     scale = max(float(p.abs().max()) for _, p in outs)
     for k, p in outs:
@@ -234,12 +238,16 @@ def test_dtable_bf16_kernel_matches_plain(cuda, R, C):
     gfull[::5] = 0.0
     g = gfull[:, 4:C + 4]
     flat = torch.zeros(4 + R * R, 16, device=cuda)
+    from customnerf_torch.ops import kernels
     n0, n32 = tk.plane_dtable.launches_bf16, tk.plane_dtable.launches
+    d0 = kernels.device_launches("plane_dtable")
     got = tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=flat[4:4 + R * R], bf16=True)
     want = tk.plane_dtable_reference(u0, v0, fu, fv, g.contiguous(), R, C, bf16=True)
     f32 = tk.plane_dtable_reference(u0, v0, fu, fv, g.contiguous(), R, C)
     torch.cuda.synchronize()
     assert tk.plane_dtable.launches_bf16 == n0 + 1 and tk.plane_dtable.launches == n32
+    d1 = kernels.device_launches("plane_dtable")   # the kernel's own count
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (0, 1)
     scale = float(want.abs().max())
     torch.testing.assert_close(got[:, :C], want, rtol=0, atol=1e-5 * scale)
     assert float((got[:, :C] - f32).abs().max()) > 1e-5 * scale
@@ -510,3 +518,237 @@ def test_nerfstudio_fixture_run_on_card(cuda, tmp_path):
     assert bool(torch.isfinite(out["image"]).all())
     assert (tmp_path / "ws" / "validation" / "df_ep0002.png").exists()
     assert (tmp_path / "ws" / "checkpoints" / "df.pth").exists()
+
+
+# ------------------------------------------------- K steps a dispatch (graphs)
+TINY_FIELD = ("--grid_type triplane --triplane_res 8 16 --triplane_channels 4 8 "
+              "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
+              "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
+              "--data_type synthetic --h 16 --w 16 --train_size 4 --iters 8 "
+              "--update_extra_interval 2 --occ_grid_size 16 --max_ray_batch 1000 "
+              "--max_steps 32 --ckpt scratch").split()
+TINY_GRID = ("--grid_levels 4 --grid_base_resolution 4 --log2_hashmap_size 10 "
+             "--desired_resolution 64 --num_steps 8 --upsample_steps 8 "
+             "--bound 2 --train_conf 0.01 --soft_mask --data_type synthetic "
+             "--h 16 --w 16 --train_size 4 --iters 8 --max_ray_batch 1000 "
+             "--ckpt scratch").split()
+GRAPH_CASES = {"O": ["-O"] + TINY_FIELD, "O2": ["-O2"] + TINY_GRID,
+               "O_batch_rays": ["-O", "--batch_rays", "128"] + TINY_FIELD}
+
+
+def _tiny_trainer(flags, tmp, **kw):
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.engine.trainer import Trainer
+    return Trainer(parse_args(flags + ["--workspace", str(tmp)]),
+                   use_checkpoint="scratch", log=lambda *_: None, **kw)
+
+
+def _close_steps(eager, again, graphed, losses_a, losses_b, lr):
+    """The graphed run against the eager one: per-step losses within 1e-3
+    relative, every parameter within 2·n·lr_g of the eager run's and within
+    1e-2·lr_g a step in RMS (a second eager run's distance rides along in
+    the message).  The runs take the same draws; they differ by the order
+    of the card's atomic sums (dT, ``index_add_``), which Adam's ±lr first
+    steps turn into sign flips where a gradient is near zero; a step taken
+    wrong moves parameters by ~lr a step (``--iters 8``: the lr falls 10×
+    over the run)."""
+    n = len(losses_a)
+    assert torch.allclose(losses_a, losses_b, rtol=1e-3, atol=0), (losses_a, losses_b)
+    for (name, a), c, b in zip(eager.field.named_parameters(), again.field.parameters(),
+                               graphed.field.parameters()):
+        lr_g = lr * (10.0 if name == "grid_table" else 1.0)
+        d, spread = a.detach() - b.detach(), a.detach() - c.detach()
+        assert float(d.abs().max()) <= 2 * n * lr_g, name
+        rms, floor = float(d.pow(2).mean().sqrt()), float(spread.pow(2).mean().sqrt())
+        assert rms <= 1e-2 * lr_g * n, (name, rms, floor)
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_dispatch_matches_eager_steps(cuda, tmp_path, case):
+    """Two dispatches of K = 3 (one captured step, replayed) against six
+    eager ``train_step`` calls from the same seed (and a second eager run,
+    the measure of the card's run-to-run spread): the same draws, the same
+    steps."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.dispatch import StepGraph
+    flags = GRAPH_CASES[case]
+    eager, again, graphed = (_tiny_trainer(flags, tmp_path / d) for d in "abc")
+    loader = NeRFDataset(eager.opt, "train").dataloader()
+    batches = [loader.item(i % len(loader)) for i in range(6)]
+    la = torch.stack([eager.train_step(b)[0] for b in batches])
+    for b in batches:
+        again.train_step(b)
+    lb = torch.cat([graphed.train_many(batches[:3])[0], graphed.train_many(batches[3:])[0]])
+    torch.cuda.synchronize()
+    assert isinstance(graphed._graphs["recon"][1], StepGraph)
+    assert graphed.n_updates == eager.n_updates == 6
+    _close_steps(eager, again, graphed, la, lb, eager.opt.lr)
+
+
+def test_graphed_editing_matches_eager_steps(cuda, tmp_path, monkeypatch):
+    """Editing with a tiny SD stack: one dispatch of K = 3 against three
+    eager editing steps, from the same checkpoint, seed and stack."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    recon = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path / "r")
+    recon.train(NeRFDataset(recon.opt, "train").dataloader(), max_epochs=2)
+    opt = parse_args(["-O"] + TINY_FIELD + [
+        "--workspace", str(tmp_path / "e"), "--pretrained", "--editing_from",
+        str(tmp_path / "r" / "checkpoints" / "df_ep0002.pth"), "--text", "a corgi",
+        "--text_fg", "a dog", "--lambda_sd", "0.01", "--keep_bg", "100",
+        "--random_bg_c", "--detach_bg", "--stage_time", "--allow_random_guidance"])
+    guidance = _tiny_guidance(opt, cuda)
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    eager, again, graphed = (Trainer(opt, guidance=guidance, use_checkpoint="scratch",
+                                     log=lambda *_: None) for _ in range(3))
+    loader = NeRFDataset(opt, "train").dataloader()
+    batches = [loader.item(i % len(loader)) for i in range(3)]
+    la = []
+    for tr in (eager, again):
+        for b in batches:
+            tr.global_step += 1
+            loss = tr.train_step(b)[0]
+            if tr is eager:
+                la.append(loss)
+    lb, aux = editing.editing_steps_many(graphed, batches)
+    torch.cuda.synchronize()
+    assert graphed.global_step == 3 and set(aux) == {"loss_sds", "loss_bg"}
+    assert "edit" in graphed._graphs
+    _close_steps(eager, again, graphed, torch.stack(la), lb, opt.lr)
+
+
+def test_graph_replays_draw_fresh_jitter(cuda, tmp_path):
+    """At lr 0 the field stays put, so two replays on one batch differ only
+    by their draws: they must differ (the generator is registered with the
+    graph, each replay advancing it)."""
+    from customnerf_torch.data.base import NeRFDataset
+    tr = _tiny_trainer(["-O", "--lr", "0"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    losses, _ = tr.train_many([b, b, b])
+    torch.cuda.synchronize()
+    assert len(set(losses.tolist())) == 3, losses
+
+
+def test_failed_capture_raises_and_never_runs_eager(cuda, tmp_path, monkeypatch):
+    """A step that copies a host list to the card (a sync) cannot be
+    captured: ``train_many`` raises naming the port's line, and the trainer
+    is left as it was (no eager fallback)."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.dispatch import CaptureError
+    from customnerf_torch.models import renderer
+    tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    before = [p.detach().clone() for p in tr.field.parameters()]
+    gen = tr.generator.get_state()
+    monkeypatch.setattr(renderer, "scene_aabb", lambda bound, device: torch.tensor(
+        [-bound] * 3 + [bound] * 3, device=device))
+    with pytest.raises(CaptureError, match=r"renderer\.py:\d+ in render_rays_fast"):
+        tr.train_many([b, b])
+    assert tr.n_updates == 0 and tr.global_step == 0 and "recon" not in tr._graphs
+    assert torch.equal(tr.generator.get_state(), gen)
+    assert all(torch.equal(p, q) for p, q in zip(tr.field.parameters(), before))
+    assert all(float(s["step"]) == 0 for s in tr.optimizer.state.values())
+
+
+def test_launch_counters_count_replays(cuda, tmp_path):
+    """The kernels count their own launches on the card, a replay's
+    included; the wrappers count the warm-up steps' launches, not the
+    capture's (which launches nothing) and not a replay's (which runs no
+    wrapper)."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.dispatch import WARMUP_STEPS
+    from customnerf_torch.ops import fused_mlp, kernels, triplane_kernels
+
+    def wrappers():
+        return (fused_mlp.fused_mlp_forward.launches_bf16,
+                triplane_kernels.plane_dtable.launches_bf16)
+
+    def device():
+        return (kernels.device_launches("fused_mlp")[1],
+                kernels.device_launches("plane_dtable")[1])
+
+    def since(now, then):
+        return tuple(x - y for x, y in zip(now, then))
+
+    tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    w0, d0 = wrappers(), device()
+    tr.train_step(b)
+    one = since(wrappers(), w0)
+    assert all(n > 0 for n in one) and since(device(), d0) == one
+    w1, d1 = wrappers(), device()
+    tr.train_many([b])                       # warm-up (eager steps), capture, 1 replay
+    assert since(wrappers(), w1) == tuple(WARMUP_STEPS * n for n in one)
+    assert since(device(), d1) == tuple((WARMUP_STEPS + 1) * n for n in one)
+    w2, d2 = wrappers(), device()
+    tr.train_many([b] * 4)                   # replays only
+    assert since(wrappers(), w2) == (0, 0)
+    assert since(device(), d2) == tuple(4 * n for n in one)
+
+
+def test_device_lr_follows_the_schedule(cuda, tmp_path):
+    """On the card the decayed lr is computed on the device from the update
+    counter (a captured step replays it): after eager steps, after replays,
+    and after a resume (``_bind_optimizer``), each group's lr is the f32 of
+    lr_scale · lr_at(the update just taken), over a schedule short enough
+    (``--iters 8``) that a frozen or stale lr would differ."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.trainer import Trainer
+
+    def check(tr):
+        torch.cuda.synchronize()
+        base = tr.lr_at(tr.n_updates - 1)
+        for group in tr.optimizer.param_groups:      # the lr Adam reads
+            lr = group["lr"]
+            assert torch.is_tensor(lr) and lr.is_cuda
+            want = torch.tensor(group["lr_scale"] * base, dtype=torch.float32)
+            assert torch.equal(lr.cpu(), want), (tr.n_updates, float(lr), float(want))
+
+    tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path / "a")
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    lrs = []
+    for _ in range(3):
+        tr.train_step(b)
+        check(tr)
+        lrs.append(float(tr.optimizer.param_groups[1]["lr"]))
+    for k in (1, 2):
+        tr.train_many([b] * k)
+        check(tr)
+        lrs.append(float(tr.optimizer.param_groups[1]["lr"]))
+    assert tr.n_updates == 6 and len(set(lrs)) == len(lrs) == 5   # it moves
+    path = tr.save_checkpoint()
+    back = Trainer(tr.opt, use_checkpoint=path, log=lambda *_: None)
+    assert back.n_updates == 6
+    back.train_many([b] * 2)
+    check(back)
+    back.train_step(b)
+    check(back)
+    assert back.n_updates == 9
+
+
+def test_async_checkpoint_reloads_bitwise_on_card(cuda, tmp_path):
+    """``--ckpt_format orbax`` on the card: a save's file, written while
+    replays went on updating the state in place, reloads bit for bit as the
+    state at the save."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import checkpoint as ckpt_io
+    from customnerf_torch.engine.convert import params_from_flax
+    tr = _tiny_trainer(["-O", "--ckpt_format", "orbax"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    tr.train_many([b] * 3)
+    want = {k: v.detach().cpu().clone() for k, v in tr.field.state_dict().items()}
+    adam = {k: v.detach().cpu().clone()
+            for k, v in tr.optimizer.state[tr.field.grid_table].items()}
+    path = tr.save_checkpoint()
+    tr.train_many([b] * 3)
+    tr.wait_for_saves()
+    params, meta = ckpt_io.load_checkpoint(path)
+    got = params_from_flax(params)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    saved = meta[ckpt_io.TORCH_OPTIMIZER_KEY]["state_dict"]["state"]
+    gid = [id(p) for p in tr.optimizer.param_groups[0]["params"]].index(
+        id(tr.field.grid_table))
+    assert all(torch.equal(saved[gid][k].cpu(), adam[k]) for k in adam)
+    assert not torch.equal(tr.field.grid_table.detach().cpu(), want["grid_table"])

@@ -23,6 +23,9 @@ piece of the run for a study:
 * ``FIXTURE=<llff|dtu>``: that fixture instead of the bear.
 
 e.g. ``python -m tools.quality_ab "" "--seed 1" "--compact_frac 0" PLAIN``.
+The runs take the card's default of 8 steps a dispatch, whose steps report
+their losses but not the slab fill and overflow share (``nan``); add
+``--steps_per_dispatch 1`` to a variant for those.
 The fixture is written as ``chip_smoke.py`` writes it, into
 ``build/quality/`` (deleted at the end); the last strips of each run go to
 ``chiprun_out/quality_ab/``.  Needs the card.
@@ -65,6 +68,7 @@ def main(argv=None) -> int:
 
     steps, refreshes = [], []
     train_step, update = Trainer.train_step, Trainer.update_extra_state
+    train_many = Trainer.train_many
     save, build_field = Trainer.save_checkpoint, trainer_mod.build_field
 
     def step(self, *a, **kw):
@@ -74,6 +78,15 @@ def main(argv=None) -> int:
                       float(stats.get("slab_fill", -1)),
                       float(stats.get("overflow_frac", -1))))
         return out
+
+    def many(self, batches):
+        # a dispatch returns its steps' losses; the slab fill and overflow
+        # share are read from eager steps only (--steps_per_dispatch 1)
+        losses, aux = train_many(self, batches)
+        m = aux.get("loss_m", torch.zeros_like(aux["loss_c"]))
+        steps.extend((c, mm, float("nan"), float("nan"))
+                     for c, mm in zip(aux["loss_c"].tolist(), m.tolist()))
+        return losses, aux
 
     def refresh(self):
         update(self)
@@ -95,6 +108,7 @@ def main(argv=None) -> int:
     fused, mlp_fwd, dtable = (field.fused_field_mlp, fused_mlp.fused_mlp_forward,
                               triplane.plane_dtable)
     Trainer.train_step, Trainer.update_extra_state = step, refresh
+    Trainer.train_many = many
     out_dir = os.path.join("chiprun_out", "quality_ab")
     os.makedirs(out_dir, exist_ok=True)
     try:
@@ -138,6 +152,7 @@ def main(argv=None) -> int:
                         os.path.join(out_dir, f"{tag}_{last}"))
     finally:
         Trainer.train_step, Trainer.update_extra_state = train_step, update
+        Trainer.train_many = train_many
         Trainer.save_checkpoint, trainer_mod.build_field = save, build_field
         field.fused_field_mlp, fused_mlp.fused_mlp_forward = fused, mlp_fwd
         triplane.plane_dtable = dtable
