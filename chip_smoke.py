@@ -72,7 +72,7 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    ViT-B/32 matcher) is built on the card from a seeded generator, UNet and
    VAE stored in bf16, the text towers in f32 (the JAX package's rule), and
    its parameter counts must equal the JAX package's
-   (``guidance/sds.py::FULL_WIDTH_PARAMS``, pinned by a CPU test).
+   (``guidance/sds.py::FULL_WIDTH_PARAMS["1.x"]``, pinned by a CPU test).
 6. editing (the second path): 8 LGIE/SDS steps on the same 128×128 frames
    (16,384 rays a step).  Counters zeroed just before and read just after;
    K1's and dT's bf16 modes must have launched, both LGIE branches and the clip_view
@@ -98,7 +98,7 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    launch) and K1 / dT held against their plain versions on that path's
    inputs.  Then the weights drill: ``customnerf_torch.__main__.main(
    ["--validate_weights", ...])`` at full width must exit 0 with ``ok`` and
-   the parameter counts of ``FULL_WIDTH_PARAMS``.
+   the parameter counts of ``FULL_WIDTH_PARAMS["1.x"]``.
 8. parity: ``scripts/bear.sh --parity``'s field on the
    synthetic provider — ``-O2``, the reference tiled grid (16 levels × 2
    channels at 2^21 rows, desired resolution 8192: a 23,967,296 × 2
@@ -117,6 +117,20 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    ``bear.sh --parity`` phase 2: 4 editing steps on ``-O2`` from the parity
    reconstruction's checkpoint, with the SD stack of phase 5 (stage
    times, peak memory); K1 must launch.
+8c. SD 2.x (``--sd_version 2.1``), once the SD 1.5 stack is freed: the
+   full-width 2.1 stack on the card (UNet 865,910,724 and OpenCLIP ViT-H
+   text 340,387,840 parameters, ``FULL_WIDTH_PARAMS["2.x"]``; UNet and VAE
+   bf16, text tower and CLIP view matcher f32); phase 6 again under 2.1
+   from phase 4's checkpoint (8 LGIE steps with stage times, the profiled
+   step, ``sd_bounds`` at the 1024-wide context, K1 and dT on its inputs,
+   one dispatch of K = 8 against eager steps under ``dispatch_check``'s
+   rule); then 4 concept frames written as progressive JPEGs by cv2 (a
+   witness: the port does not use it) whose decode must equal
+   ``cv2.imread`` bit for bit, one DDIM class image, the decoder's seconds
+   a megapixel on baseline and progressive copies of it, 4 tuning steps
+   (adapters [C, 1024], a 1024-wide token row), 4 ``--use_cd`` editing
+   steps with K1 and dT rows, and the weights drill under 2.1.  Each line
+   stands beside SD 1.5's number of this run.
 9. quality (the third path): ``scripts/bear.sh`` phase 1's flags (3000
    steps, an evaluation each epoch, then the test path) through
    ``customnerf_torch.__main__.main`` on the repo's bear (nerfstudio, 28
@@ -145,8 +159,8 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    fill on its warm grid and prints the fraction it picks beside the
    recipe's 0.35.
 10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
-   editing, parity, quality and the graph paths' rows; all four kernel
-   modes), then the last line ``{"ok": true, "device": {...}}``.
+   editing, parity, SD 2.x, quality and the graph paths' rows; all four
+   kernel modes), then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase but the 40-step reconstruction runs the JAX package's default
 precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
@@ -194,6 +208,22 @@ EDIT_FLAGS = ["--pretrained", "--text", "a corgi in a forest", "--text_fg",
               os.path.join("chiprun_out", "smoke_edit")]
 EDIT_STEPS = 8
 TRAIN_STEPS = 40
+
+
+def _with(flags, **values):
+    """``flags`` with the values of some options replaced."""
+    out = list(flags)
+    for name, value in values.items():
+        out[out.index("--" + name) + 1] = value
+    return out
+
+
+# the SD 2.x phase: the same editing recipe under --sd_version 2.1
+SD2_VERSION = "2.1"
+SD2_WORKSPACE = os.path.join(os.path.dirname(RECON_WORKSPACE), "smoke_sd2")
+SD2_EDIT_FLAGS = _with(EDIT_FLAGS, sd_version=SD2_VERSION,
+                       workspace=os.path.join(SD2_WORKSPACE, "edit"))
+SD2_TUNE_STEPS, SD2_CLASS_IMAGES, SD2_CD_EDIT_STEPS = 4, 1, 4
 STEP_RAYS = 128 * 128
 STEP_SAMPLES = 229_376        # 256 blocks × 896 slots
 REFRESH_QUERIES = 2 * 128 ** 3
@@ -890,7 +920,7 @@ def sd_bounds(guidance):
     the peak of the stack's dtype (bf16 on the card), and the bytes of each
     part's weights (in that dtype) and f32 inputs/outputs at the HBM peak:
     the UNet's forward on [2, 4, 64, 64], and the VAE encoder's forward and
-    its backward to the image at 512²."""
+    its backward to the image at 512², with the UNet's own context width."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from customnerf_torch.guidance.layers import build, n_params
@@ -901,9 +931,10 @@ def sd_bounds(guidance):
     unet = build(UNet2DCondition, guidance.unet.cfg, device=meta).requires_grad_(False)
     vae = build(AutoencoderKL, guidance.vae.cfg, device=meta).requires_grad_(False)
     lat = torch.empty(2, 4, 64, 64, device=meta)
+    ctx = unet.cfg.cross_attention_dim          # 768 for SD 1.5, 1024 for 2.x
     with FlopCounterMode(display=False) as fc:
         unet(lat, torch.zeros(2, dtype=torch.long, device=meta),
-             torch.empty(2, 77, 768, device=meta))
+             torch.empty(2, 77, ctx, device=meta))
     unet_flops = fc.get_total_flops()
     img = torch.empty(1, 3, 512, 512, device=meta, requires_grad=True)
     with FlopCounterMode(display=False) as fc:
@@ -916,7 +947,7 @@ def sd_bounds(guidance):
     peak = PEAK_BF16_FLOPS if w == 2 else PEAK_F32_FLOPS
     enc_bytes = (w * (n_params(vae.encoder) + n_params(vae.quant_conv))
                  + 4 * (img.numel() + 2 * z.numel()))
-    unet_bytes = w * n_params(unet) + 4 * (2 * 2 * lat.numel() + 2 * 77 * 768)
+    unet_bytes = w * n_params(unet) + 4 * (2 * 2 * lat.numel() + 2 * 77 * ctx)
     out = {}
     for name, flops, nbytes in (("unet_forward", unet_flops, unet_bytes),
                                 ("vae_encoder_forward", enc_flops, enc_bytes),
@@ -1015,20 +1046,22 @@ def editing_steps(trainer, opt, n_steps):
     return steps, launches, peak, base_mem, mlp_input, list(dt_calls), max(moved), train
 
 
-def run_editing(trainer, opt):
-    """Phases 5-6: the full-width SD stack, then EDIT_STEPS editing steps
-    through ``Trainer.train_step``.  Returns its summary and the kernels'
-    inputs of the last step."""
+def run_editing(trainer, opt, label="editing"):
+    """Phases 5-6 (and the SD 2.x phase's text editing): the full-width SD
+    stack of ``--sd_version``, then EDIT_STEPS editing steps through
+    ``Trainer.train_step``.  Returns its summary and the kernels' inputs of
+    the last step."""
     import torch
     from customnerf_torch.engine import editing
     from customnerf_torch.guidance.layers import n_params
-    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS, sd_family
 
     guidance = trainer.guidance
     editing.prepare_text_embeddings(trainer)
     counts = dict(guidance.param_counts(),
                   clip_view=n_params(trainer.clip_matcher.model))
-    assert counts == FULL_WIDTH_PARAMS, (counts, FULL_WIDTH_PARAMS)
+    want = FULL_WIDTH_PARAMS[sd_family(opt.sd_version)]
+    assert counts == want, (opt.sd_version, counts, want)
     # the JAX package's rule: UNet and VAE stored (and run) in bf16 on the
     # card, the text tower and the CLIP view matcher in f32
     for models, dtype in (((guidance.unet, guidance.vae), torch.bfloat16),
@@ -1069,7 +1102,7 @@ def run_editing(trainer, opt):
         "profile": profile_editing_step(trainer, view),
     }
     summary["dispatch"], summary["dispatch_rows"] = editing_dispatch(
-        trainer, train, "editing dispatch (graph)")
+        trainer, train, f"{label} dispatch (graph)")
     return summary, mlp_input, dt_calls
 
 
@@ -1089,11 +1122,9 @@ CD_LR = 1e-5                  # scripts/tuning.sh's learning rate
 CD_RESUME_TOL = 1e-3          # relative L2 of (resumed − straight) / change
 
 
-def _cd_edit_flags(cd_dir, recon_ckpt):
-    flags = list(EDIT_FLAGS)
-    flags[flags.index("--text") + 1] = "a <new1> bear in a forest"
-    flags[flags.index("--text_fg") + 1] = "a <new1> bear"
-    flags[flags.index("--workspace") + 1] = os.path.join(CD_WORKSPACE, "edit")
+def _cd_edit_flags(cd_dir, recon_ckpt, base=EDIT_FLAGS, workspace=CD_WORKSPACE):
+    flags = _with(base, text="a <new1> bear in a forest", text_fg="a <new1> bear",
+                  workspace=os.path.join(workspace, "edit"))
     return flags + ["--use_cd", cd_dir, "--editing_from", recon_ckpt]
 
 
@@ -1106,7 +1137,6 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
     import torch
     from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance import custom_diffusion as cd
     from customnerf_torch.guidance.retrieve import retrieve
     from customnerf_torch.utils import jpeg
@@ -1200,23 +1230,9 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
     art_bytes = {f: os.path.getsize(os.path.join(straight, f))
                  for f in ("pytorch_custom_diffusion_weights.bin", "<new1>.bin")}
 
-    guidance.load_cd(straight)                   # the --use_cd path of __init__
-    eopt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + _cd_edit_flags(straight, recon_ckpt))
-    ctx = guidance.get_text_embeds(["a <new1> bear"], [""])
-    x = torch.randn(2, 4, 64, 64, generator=torch.Generator(device=guidance.device)
-                    .manual_seed(0), device=guidance.device)
-    t = torch.full((2,), 500, device=guidance.device)
-    with torch.no_grad():
-        eps_diff = float((guidance.unet(x, t, ctx, cd_kv=guidance.cd_kv)
-                          - guidance.unet(x, t, ctx)).abs().max())
-    assert eps_diff > 0, "the adapters do not change epsilon"
-    trainer = Trainer(eopt, guidance=guidance, use_checkpoint=eopt.ckpt, log=lambda *_: None)
-    trainer.clip_matcher = clip_matcher
-    steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
-        trainer, eopt, EDIT_STEPS)
-    check_launched(launches, (K1_BF16, DT_BF16), "--use_cd editing")
-    assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
-    assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
+    trainer, eopt, edit, mlp_input, dt_calls, eps_diff = cd_editing(
+        guidance, clip_matcher, _cd_edit_flags(straight, recon_ckpt), EDIT_STEPS,
+        "--use_cd editing")
     cd_dispatch, cd_dispatch_rows = editing_dispatch(
         trainer, NeRFDataset(eopt, "train", device=trainer.device).dataloader(),
         "use_cd editing dispatch (graph)")
@@ -1231,43 +1247,240 @@ def run_image_driven(guidance, clip_matcher, recon_ckpt):
         "resume_token_row_max_diff": row_diff, "adapters": len(a),
         "adapter_min_change": min(moved.values()), "artifact_bytes": art_bytes,
         "eps_max_change_with_adapters": eps_diff,
-        "dispatch": cd_dispatch, "dispatch_rows": cd_dispatch_rows,
-        "edit": {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
-                 "resident_before_steps_gb": base_mem / 1e9,
-                 "field_max_change": field_moved,
-                 "median_ms": {k: statistics.median(s[k] for s in steps) for k in (
-                     "total", "pt_and_draws", "render_to_latents", "unet",
-                     "backward_adam")}}}
+        "dispatch": cd_dispatch, "dispatch_rows": cd_dispatch_rows, "edit": edit}
     return summary, mlp_input, dt_calls
 
 
-def run_drill():
+def cd_editing(guidance, clip_matcher, flags, n_steps, path):
+    """``--use_cd``: the artifacts in ``flags``' directory loaded into
+    ``guidance`` (ε with the adapters must differ from ε without), then
+    ``n_steps`` editing steps with ``<new1>`` in the prompts; counters
+    zeroed before and read after, both kernels must launch.  Returns the
+    trainer, its options, the steps' summary, K1's and dT's inputs and ε's
+    largest change."""
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.engine.trainer import Trainer
+
+    eopt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + flags)
+    guidance.load_cd(eopt.use_cd)                # the --use_cd path of __init__
+    ctx = guidance.get_text_embeds(["a <new1> bear"], [""])
+    x = torch.randn(2, 4, 64, 64, generator=torch.Generator(device=guidance.device)
+                    .manual_seed(0), device=guidance.device)
+    t = torch.full((2,), 500, device=guidance.device)
+    with torch.no_grad():
+        eps_diff = float((guidance.unet(x, t, ctx, cd_kv=guidance.cd_kv)
+                          - guidance.unet(x, t, ctx)).abs().max())
+    assert eps_diff > 0, "the adapters do not change epsilon"
+    trainer = Trainer(eopt, guidance=guidance, use_checkpoint=eopt.ckpt, log=lambda *_: None)
+    trainer.clip_matcher = clip_matcher
+    steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
+        trainer, eopt, n_steps)
+    check_launched(launches, (K1_BF16, DT_BF16), path)
+    assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
+    assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
+    edit = {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
+            "resident_before_steps_gb": base_mem / 1e9, "field_max_change": field_moved,
+            "median_ms": {k: statistics.median(s[k] for s in steps) for k in (
+                "total", "pt_and_draws", "render_to_latents", "unet", "backward_adam")}}
+    return trainer, eopt, edit, mlp_input, dt_calls, eps_diff
+
+
+def run_drill(sd_version="1.5"):
     """``python -m customnerf_torch --validate_weights`` at full width with
     random weights, through ``__main__.main``: it must exit 0 without
-    training, its report ``ok`` with the full-width parameter counts."""
+    training, its report ``ok`` with ``sd_version``'s full-width parameter
+    counts."""
     import contextlib
     import io
     import torch
     from customnerf_torch.__main__ import main as cli
-    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS, sd_family
 
     out, code = io.StringIO(), None
     t0 = time.time()
     with contextlib.redirect_stdout(out):
         try:
-            cli(["--validate_weights", "--data_type", "synthetic", "--seed", "0"])
+            cli(["--validate_weights", "--data_type", "synthetic", "--seed", "0",
+                 "--sd_version", sd_version])
         except SystemExit as e:
             code = e.code
     wall_s = time.time() - t0
     torch.cuda.empty_cache()
     report = json.loads(out.getvalue().strip().splitlines()[-1])
     counts = {k: report[k]["params"] for k in ("unet", "vae", "text_encoder")}
-    assert code == 0 and report["ok"], (code, report)
-    assert counts == {k: FULL_WIDTH_PARAMS[k] for k in counts}, counts
-    return {"exit_code": code, "ok": report["ok"], "params": counts, "wall_s": wall_s,
+    assert code == 0 and report["ok"] and report["sd_version"] == sd_version, (code, report)
+    row = FULL_WIDTH_PARAMS[sd_family(sd_version)]
+    assert counts == {k: row[k] for k in counts}, counts
+    return {"sd_version": sd_version, "exit_code": code, "ok": report["ok"], "params": counts, "wall_s": wall_s,
             "eps_std": report["eps_prediction"]["std"],
             "vae_std": report["vae_encode"]["std"],
             "checksums": {k: report[k]["checksum"] for k in counts}}
+
+
+# ------------------------------------------------------------------- SD 2.x
+def _progressive_jpeg(path, rgb, quality=95):
+    """``rgb`` as a progressive JPEG written by cv2 (the card's machine has
+    cv2; the port does not use it): the witness the port's decode must
+    equal."""
+    import cv2
+    import numpy as np
+    ok = cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1]),
+                     [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with open(path, "rb") as f:
+        assert ok and b"\xff\xc2" in f.read(), f"{path}: not a progressive JPEG"
+    return path
+
+
+def _decode_against_cv2(path):
+    """The port's decode of ``path`` (seconds) and whether it equals
+    ``cv2.imread`` with IGNORE_ORIENTATION bit for bit."""
+    import cv2
+    import numpy as np
+    from customnerf_torch.utils import jpeg
+    t0 = time.perf_counter()
+    got = jpeg.read(path)
+    secs = time.perf_counter() - t0
+    want = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)[..., ::-1]
+    return got, secs, bool(got.shape == want.shape and np.array_equal(got, want))
+
+
+def run_sd2(recon_ckpt):
+    """The SD 2.x phase (after the SD 1.5 stack is freed): the full-width
+    2.1 stack on the card (its counts and dtypes), EDIT_STEPS text editing
+    steps with stage times, the profiled step, the bounds and one dispatch
+    of K = 8 against eager steps (``run_editing``), K1 and dT on that path's
+    inputs; then image-driven editing under 2.1 (``run_sd2_image_driven``)
+    and the weights drill under 2.1.  Returns the summary and the kernel
+    rows."""
+    import gc
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SD2_WORKSPACE, ignore_errors=True)
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + SD2_EDIT_FLAGS
+                     + ["--editing_from", recon_ckpt])
+    guidance = StableDiffusionGuidance(opt)
+    cfg = guidance.unet.cfg
+    assert (cfg.cross_attention_dim, cfg.attention_head_dim) == (1024, (5, 10, 20, 20)), cfg
+    assert guidance.text_encoder.model.text_model.cfg.hidden_act == "gelu"
+    trainer = Trainer(opt, guidance=guidance, use_checkpoint=opt.ckpt, log=lambda *_: None)
+    ed, mlp, dt = run_editing(trainer, opt, label=f"SD {SD2_VERSION} editing")
+    rows = [check_fused_mlp(*mlp[0], **mlp[1])] + dtable_rows(dt)
+    for r in rows:
+        r["launches"] = ed["launches"][r["name"]]
+        r["path"] = f"SD {SD2_VERSION} editing"
+    rows += ed.pop("dispatch_rows")
+    clip_matcher = trainer.clip_matcher
+    del trainer
+    cdp, cd_rows = run_sd2_image_driven(guidance, clip_matcher, recon_ckpt)
+    rows += cd_rows
+    del guidance, clip_matcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    drill = run_drill(SD2_VERSION)
+    return {"editing": ed, "image_driven": cdp, "validate_weights": drill}, rows
+
+
+def run_sd2_image_driven(guidance, clip_matcher, recon_ckpt):
+    """Under 2.1: CD_CONCEPTS synthetic frames written as progressive JPEGs
+    by cv2, decoded by the port equal to ``cv2.imread``; SD2_CLASS_IMAGES
+    DDIM class image (25 steps at 512²), whose copies as baseline and
+    progressive JPEGs (cv2, quality 95) time the decoder a megapixel;
+    SD2_TUNE_STEPS tuning steps at full width (batch 2 with prior; every
+    loss finite, every adapter [C, 1024] and the 1024-wide token row moved);
+    then SD2_CD_EDIT_STEPS ``--use_cd`` editing steps (counters zeroed
+    before and read after; both kernels must launch) with K1 and dT on
+    their inputs."""
+    import cv2
+    import numpy as np
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.guidance import custom_diffusion as cd
+    from customnerf_torch.guidance.retrieve import retrieve
+
+    concept_dir = os.path.join(SD2_WORKSPACE, "concept")
+    os.makedirs(concept_dir)
+    frames = NeRFDataset(parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS), "train",
+                         device=guidance.device).dataloader()
+    concept_s, concept_px = 0.0, 0
+    for i in range(CD_CONCEPTS):
+        b = frames.item(i)
+        rgb = (b.rgbs.reshape(b.H, b.W, 3).clamp(0, 1) * 255).round().byte().cpu().numpy()
+        path = _progressive_jpeg(os.path.join(concept_dir, f"view{i}.jpg"), rgb)
+        got, secs, equal = _decode_against_cv2(path)
+        assert equal, f"{path}: the port's progressive decode differs from cv2.imread"
+        concept_s += secs
+        concept_px += got.shape[0] * got.shape[1]
+
+    class_dir = os.path.join(SD2_WORKSPACE, "class")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = retrieve("bear", class_dir, SD2_CLASS_IMAGES, guidance=guidance, seed=0)
+    torch.cuda.synchronize()
+    class_s = (time.perf_counter() - t0) / n
+    assert n == SD2_CLASS_IMAGES, n
+    class_img, _, _ = _decode_against_cv2(os.path.join(class_dir, "00000.jpg"))
+    decode = {}
+    for kind, progressive in (("baseline", 0), ("progressive", 1)):
+        path = os.path.join(SD2_WORKSPACE, f"class_{kind}.jpg")
+        cv2.imwrite(path, np.ascontiguousarray(class_img[..., ::-1]),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_PROGRESSIVE, progressive])
+        got, secs, equal = _decode_against_cv2(path)
+        assert equal, f"{path}: the port's decode differs from cv2.imread"
+        decode[kind] = {"s": secs, "s_per_mpix": secs / (got.shape[0] * got.shape[1] / 1e6),
+                        "bytes": os.path.getsize(path)}
+
+    opt = parse_args(["--data_type", "synthetic", "--seed", "0", "--sd_version", SD2_VERSION])
+    base = cd.extract_cd_kv(guidance.unet)
+    stamps, losses = [], []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(loss)
+
+    out_dir = os.path.join(SD2_WORKSPACE, "cd")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.perf_counter())
+    cd.train_custom_diffusion(opt, concept_dir, "bear", out_dir, steps=SD2_TUNE_STEPS,
+                              checkpointing_steps=0, class_dir=class_dir,
+                              class_prompt="bear", lr=CD_LR, image_size=512, batch_size=2,
+                              guidance=guidance, on_step=on_step, log=lambda *_: None)
+    tune_peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    a, ta = cd.load_cd_artifacts(out_dir)
+    moved = {f"{k}.{m}": float((a[k][m] - base[k][m].cpu()).abs().max())
+             for k in a for m in a[k]}
+    assert all(math.isfinite(v) for v in losses) and len(losses) == SD2_TUNE_STEPS, losses
+    assert all(v > 0 for v in moved.values()), f"an adapter did not move: {moved}"
+    assert len(a) == 16 and all(e["to_k"].shape[1] == 1024 for e in a.values())
+    assert ta["<new1>"].shape == (1024,)
+
+    flags = _cd_edit_flags(out_dir, recon_ckpt, base=SD2_EDIT_FLAGS,
+                           workspace=os.path.join(SD2_WORKSPACE, "cd"))
+    trainer, _, edit, mlp_input, dt_calls, eps_diff = cd_editing(
+        guidance, clip_matcher, flags, SD2_CD_EDIT_STEPS, f"SD {SD2_VERSION} --use_cd editing")
+    del trainer
+    guidance.cd_kv = None
+    rows = [check_fused_mlp(*mlp_input[0], **mlp_input[1])] + dtable_rows(dt_calls)
+    for r in rows:
+        r["launches"] = edit["launches"][r["name"]]
+        r["path"] = f"SD {SD2_VERSION} use_cd editing"
+    return {
+        "concept_images": CD_CONCEPTS, "concept_decode_s": concept_s,
+        "concept_decode_s_per_mpix": concept_s / (concept_px / 1e6),
+        "class_images": n, "class_s_per_image": class_s, "class_decode": decode,
+        "tune_steps": SD2_TUNE_STEPS, "tune_losses": losses, "tune_step_ms": step_ms,
+        "tune_median_step_ms": statistics.median(step_ms), "tune_peak_gb": tune_peak / 1e9,
+        "adapters": len(a), "adapter_min_change": min(moved.values()),
+        "eps_max_change_with_adapters": eps_diff, "edit": edit}, rows
 
 
 # ------------------------------------------------------------------ parity
@@ -1838,6 +2051,47 @@ def parity_phase(card, guidance, clip_matcher):
     return {"reconstruction": pa, "reference_checkpoint": ref, "editing": ed}, rows
 
 
+def log_sd2(card, sd2, ed15, cdp15):
+    """The SD 2.x phase's lines, each beside SD 1.5's number of this run."""
+    ed, cdp, drill = sd2["editing"], sd2["image_driven"], sd2["validate_weights"]
+    med, med15 = ed["median_ms"], ed15["median_ms"]
+    log(f"[SD {SD2_VERSION}] full-width stack, UNet and VAE in {ed['sd_dtype']} (text "
+        f"towers f32), parameters {ed['param_counts']}, built on the card in "
+        f"{ed['sd_init_s']:.2f} s (SD 1.5: {ed15['sd_init_s']:.2f} s)")
+    log(f"[SD {SD2_VERSION} editing] {card} | {EDIT_STEPS} steps of {STEP_RAYS} rays | "
+        f"median {med['total']:.1f} ms/step (SD 1.5 {med15['total']:.1f}; pt cached "
+        f"{ed['median_ms_pt_cached']} vs {ed15['median_ms_pt_cached']}): render to latents "
+        f"{med['render_to_latents']:.1f}, UNet {med['unet']:.1f} (SD 1.5 "
+        f"{med15['unet']:.1f}), backward + Adam {med['backward_adam']:.1f} | peak "
+        f"{ed['peak_gb']:.2f} GB (SD 1.5 {ed15['peak_gb']:.2f}) | local steps "
+        f"{ed['local_steps']}/{EDIT_STEPS} | launches {ed['launches']}")
+    d, d15 = ed["dispatch"], ed15["dispatch"]
+    log(f"[SD {SD2_VERSION} editing dispatch] eager {d['median_eager_ms']:.2f} -> graphed "
+        f"{d['median_graph_ms']:.2f} ms/step (SD 1.5 {d15['median_eager_ms']:.2f} -> "
+        f"{d15['median_graph_ms']:.2f}); busy {d['busy_eager']:.3f} -> "
+        f"{d['busy_graph']:.3f}; peak {d['graph_peak_gb']:.2f} GB (SD 1.5 "
+        f"{d15['graph_peak_gb']:.2f})")
+    for name, b in ed["sd_bounds"].items():
+        log(f"[SD {SD2_VERSION} bound] {name}: {b['flops'] / 1e12:.3f} TFLOP, "
+            f"{b['bytes'] / 1e9:.3f} GB -> {b['bound_ms']:.2f} ms ({b['bound_by']})")
+    em = cdp["edit"]["median_ms"]
+    dec = cdp["class_decode"]
+    log(f"[SD {SD2_VERSION} image-driven] {cdp['concept_images']} progressive JPEG concept "
+        f"images equal to cv2.imread (decoded at {cdp['concept_decode_s_per_mpix']:.2f} s/MP) "
+        f"| 512x512 decode: baseline {dec['baseline']['s_per_mpix']:.2f}, progressive "
+        f"{dec['progressive']['s_per_mpix']:.2f} s/MP | DDIM class image "
+        f"{cdp['class_s_per_image']:.2f} s (SD 1.5 {cdp15['class_s_per_image']:.2f}) | "
+        f"tuning {cdp['tune_steps']} steps: median {cdp['tune_median_step_ms']:.1f} ms "
+        f"(SD 1.5 {cdp15['tune_median_step_ms']:.1f}), peak {cdp['tune_peak_gb']:.2f} GB, "
+        f"losses {[round(v, 4) for v in cdp['tune_losses']]}")
+    log(f"[SD {SD2_VERSION} use_cd editing] {SD2_CD_EDIT_STEPS} steps | median "
+        f"{em['total']:.1f} ms/step (SD 1.5 {cdp15['edit']['median_ms']['total']:.1f}), "
+        f"UNet {em['unet']:.1f} | peak {cdp['edit']['peak_gb']:.2f} GB | launches "
+        f"{cdp['edit']['launches']}")
+    log(f"[SD {SD2_VERSION} validate_weights] exit {drill['exit_code']}, ok {drill['ok']}, "
+        f"params {drill['params']}, {drill['wall_s']:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1861,7 +2115,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        shutil.rmtree(QUALITY_ROOT, ignore_errors=True)
+        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE):
+            shutil.rmtree(ws, ignore_errors=True)
 
 
 def run_all(card, procs) -> int:
@@ -1968,8 +2223,6 @@ def run_all(card, procs) -> int:
         r["launches"] = cdp["edit"]["launches"][r["name"]]
         r["path"] = "use_cd editing"
     rows += cd_rows + cdp.pop("dispatch_rows")
-    # the checkpoint (~180 MB with its Adam state) has served its purpose
-    shutil.rmtree(RECON_WORKSPACE, ignore_errors=True)
     drill = run_drill()
     log(f"[validate_weights] __main__ --validate_weights at full width: exit "
         f"{drill['exit_code']}, ok {drill['ok']}, params {drill['params']}, "
@@ -1977,6 +2230,14 @@ def run_all(card, procs) -> int:
     parity, parity_rows = parity_phase(card, guidance, clip_matcher)
     del guidance, clip_matcher
     rows += parity_rows
+    try:
+        sd2, sd2_rows = run_sd2(ck["checkpoint"])
+    finally:
+        # the checkpoint (~180 MB with its Adam state) has served its purpose
+        for ws in (SD2_WORKSPACE, RECON_WORKSPACE):
+            shutil.rmtree(ws, ignore_errors=True)
+    rows += sd2_rows
+    log_sd2(card, sd2, ed, cdp)
 
     quality, quality_rows = quality_phase(procs)
     rows += quality_rows
@@ -1996,7 +2257,7 @@ def run_all(card, procs) -> int:
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
                    "checkpoint": ck, "editing": ed, "image_driven": cdp,
-                   "validate_weights": drill, "parity": parity,
+                   "validate_weights": drill, "parity": parity, "sd2": sd2,
                    "quality": quality},
                   f, indent=1)
 

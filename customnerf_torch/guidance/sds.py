@@ -1,5 +1,5 @@
-"""Score Distillation Sampling guidance with Stable Diffusion 1.5
-(counterpart of ``customnerf_tpu/guidance/sds.py``).
+"""Score Distillation Sampling guidance with Stable Diffusion 1.5, 2.0 or
+2.1 (counterpart of ``customnerf_tpu/guidance/sds.py``).
 
 Semantics kept from the reference (``nerf/sd.py:34-154``):
   * t ∈ [0.02·T, max_ratio·T], an inclusive randint; ``--stage_time``
@@ -9,7 +9,12 @@ Semantics kept from the reference (``nerf/sd.py:34-154``):
   * grad = (1−ᾱ_t)·(ε̂ − ε)·λ_sd with NaNs zeroed; the loss value is
     0.5·Σ grad².
 
-The stack is built at full SD 1.5 width (UNet, VAE, CLIP ViT-L/14 text).
+The stack is built at full width for ``--sd_version``, as the JAX package
+builds it (``sds.py:62-71``): SD 1.x's UNet and CLIP ViT-L/14 text tower,
+or SD 2.x's UNet (a 1024-wide context, 64-wide heads at every level) and
+OpenCLIP ViT-H text tower (:func:`unet_config`, ``text.text_config``); the
+VAE is the same for both.  A caller's ``unet_cfg`` (reduced-width tests)
+must take the text tower's width as its context.
 Precision is the JAX package's rule (``sds.py:60-66,120-128``): on the card
 the UNet and VAE are stored in bf16, once their weights and the adapters
 have loaded, and compute in bf16 under flax's policy (``layers.py``); on the
@@ -34,14 +39,20 @@ from customnerf_torch.device import resolve_device
 from customnerf_torch.guidance.layers import build, n_params
 from customnerf_torch.guidance.scheduler import DDPMSchedule
 from customnerf_torch.guidance.text import TextEncoder
-from customnerf_torch.guidance.unet import UNet2DCondition, UNetConfig
+from customnerf_torch.guidance.unet import (UNet2DCondition, UNetConfig,
+                                            sd2_unet_config)
 from customnerf_torch.guidance.vae import AutoencoderKL, VAEConfig
 
-# parameter counts of the SD 1.5 stack at full width: UNet, VAE, CLIP
-# ViT-L/14 text encoder, and the CLIP ViT-B/32 of --clip_view (equal to the
-# JAX package's, tests/test_torch_guidance.py)
-FULL_WIDTH_PARAMS = {"unet": 859_520_964, "vae": 83_653_863,
-                     "text_encoder": 123_060_480, "clip_view": 151_277_313}
+# parameter counts of the full-width stack by SD family (sd_family): UNet,
+# VAE, text encoder (CLIP ViT-L/14 for 1.x, OpenCLIP ViT-H for 2.x) and the
+# CLIP ViT-B/32 of --clip_view, equal to the JAX package's
+# (tests/test_torch_guidance.py, tests/test_torch_sd2.py)
+FULL_WIDTH_PARAMS = {
+    "1.x": {"unet": 859_520_964, "vae": 83_653_863, "text_encoder": 123_060_480,
+            "clip_view": 151_277_313},
+    "2.x": {"unet": 865_910_724, "vae": 83_653_863, "text_encoder": 340_387_840,
+            "clip_view": 151_277_313},
+}
 
 RANDOM_WEIGHTS_ERROR = (
     "editing requested without --sd_weights: Stable Diffusion would run with "
@@ -55,11 +66,16 @@ def sd_dtype(device) -> str:
     return "float32" if torch.device(device).type == "cpu" else "bfloat16"
 
 
-def check_supported(opt):
-    if str(opt.sd_version).startswith("2"):
-        raise NotImplementedError(
-            f"--sd_version {opt.sd_version} is not ported yet (ROADMAP.md "
-            f"queue A, item 'SD 2.x')")
+def sd_family(sd_version) -> str:
+    """"2.x" for 2.0 and 2.1, "1.x" otherwise: the JAX package's test
+    (``sd_version.startswith("2")``)."""
+    return "2.x" if str(sd_version).startswith("2") else "1.x"
+
+
+def unet_config(sd_version) -> UNetConfig:
+    """The JAX package's UNet for ``sd_version`` (``sds.py:62-71``), in f32
+    until the guidance sets its compute dtype."""
+    return sd2_unet_config() if sd_family(sd_version) == "2.x" else UNetConfig()
 
 
 class StableDiffusionGuidance:
@@ -67,12 +83,12 @@ class StableDiffusionGuidance:
     dtype; ``None`` takes :func:`sd_dtype`'s rule.  Where the JAX package
     forces f32 on a CPU whatever it is given, an explicit ``dtype`` stands
     here, so that the bf16 stack can be held against the JAX modules on a
-    CPU."""
+    CPU.  ``unet_cfg=None`` takes ``--sd_version``'s (:func:`unet_config`);
+    ``device="meta"`` builds the modules' shapes only (no weights)."""
 
-    def __init__(self, opt, device=None, unet_cfg: UNetConfig = UNetConfig(),
+    def __init__(self, opt, device=None, unet_cfg: UNetConfig | None = None,
                  vae_cfg: VAEConfig = VAEConfig(), text_encoder=None,
                  dtype: str | None = None):
-        check_supported(opt)
         if not opt.sd_weights and (opt.pretrained and not opt.test
                                    and not opt.allow_random_guidance):
             # a 10k-iter semantic run must not silently distill noise
@@ -80,10 +96,12 @@ class StableDiffusionGuidance:
         self.opt = opt
         self.device = resolve_device(device)
         self.dtype = dtype or sd_dtype(self.device)
-        unet_cfg = dataclasses.replace(unet_cfg, dtype=self.dtype)
+        unet_cfg = dataclasses.replace(unet_cfg or unet_config(opt.sd_version),
+                                       dtype=self.dtype)
         vae_cfg = dataclasses.replace(vae_cfg, dtype=self.dtype)
         t0 = time.time()
-        gen = torch.Generator(device=self.device).manual_seed(int(opt.seed))
+        gen = (None if self.device.type == "meta" else
+               torch.Generator(device=self.device).manual_seed(int(opt.seed)))
         self.unet = build(UNet2DCondition, unet_cfg, device=self.device,
                           generator=gen).eval().requires_grad_(False)
         self.vae = build(AutoencoderKL, vae_cfg, device=self.device,
@@ -92,6 +110,11 @@ class StableDiffusionGuidance:
             opt.sd_version, weights_dir=opt.sd_weights, device=self.device,
             generator=gen)
         self.text_encoder.model.eval().requires_grad_(False)
+        width = self.text_encoder.model.text_model.cfg.hidden_size
+        if width != unet_cfg.cross_attention_dim:
+            raise ValueError(
+                f"--sd_version {opt.sd_version}: the text tower is {width} wide, "
+                f"the UNet's context {unet_cfg.cross_attention_dim}")
         if opt.sd_weights:
             from customnerf_torch.guidance.weights import load_sd_weights
             load_sd_weights(self, opt.sd_weights)

@@ -4,12 +4,18 @@
 The transformer is a PyTorch CLIP text model in place of transformers'
 ``FlaxCLIPTextModel``, named after Hugging Face's ``CLIPTextModel`` state
 dict (``text_model.encoder.layers.0.self_attn.q_proj``): pre-LayerNorm
-layers under a causal mask, ``quick_gelu`` for SD 1.x's ViT-L/14 text tower,
-and a final LayerNorm; ``last_hidden_state`` is taken after it.
+layers under a causal mask and a final LayerNorm; ``last_hidden_state`` is
+taken after it.  :func:`text_config` gives the JAX package's towers
+(``customnerf_tpu/guidance/text.py::_text_config``): for SD 1.x CLIP
+ViT-L/14's (768 wide, 12 layers, ``quick_gelu``), for SD 2.x OpenCLIP
+ViT-H's (1024 wide, 23 layers, 16 heads, exact-erf ``gelu``, which flax
+lowers as ``nn.gelu(approximate=False)``).
 
 Tokenizer: the real CLIP BPE (``guidance/bpe.py``) when a ``tokenizer/`` dir
 exists under ``--sd_weights``, else :class:`HashTokenizer`, which gives the
-JAX package's ids (md5 word buckets).  Both take added modifier tokens such
+JAX package's ids (md5 word buckets).  Both pad to 77 with EOS, as the JAX
+package's do, for either SD version (diffusers' SD 2.x tokenizer pads with
+"!", id 0: a stated deviation of the reference, ROADMAP.md).  Both take added modifier tokens such
 as Custom Diffusion's ``<new1>`` (ids from 49408 on); :func:`register_token`
 adds one and installs its embedding row, growing the token table.
 """
@@ -23,6 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from customnerf_torch.guidance.bpe import ClipBPETokenizer
@@ -80,6 +87,14 @@ class CLIPTextConfig:
     max_position_embeddings: int = MAX_LEN
     layer_norm_eps: float = 1e-5
     eos_token_id: int = EOS
+    hidden_act: str = "quick_gelu"      # "quick_gelu" | "gelu" (exact erf)
+
+
+def quick_gelu(h):
+    return h * torch.sigmoid(1.702 * h)
+
+
+_ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 class CLIPAttention(nn.Module):
@@ -107,25 +122,28 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    """fc1 → quick_gelu (x·σ(1.702x), the ViT-L/14 and ViT-B/32 towers') → fc2."""
+    """fc1 → the activation → fc2: quick_gelu (x·σ(1.702x)) for the
+    ViT-L/14 and ViT-B/32 towers, exact gelu for OpenCLIP ViT-H."""
 
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, act: str = "quick_gelu"):
         super().__init__()
+        if act not in _ACTIVATIONS:
+            raise ValueError(f"hidden_act must be one of {sorted(_ACTIVATIONS)}, got {act}")
+        self.act = _ACTIVATIONS[act]
         self.fc1 = nn.Linear(dim, inner)
         self.fc2 = nn.Linear(inner, dim)
 
     def forward(self, x):
-        h = self.fc1(x)
-        return self.fc2(h * torch.sigmoid(1.702 * h))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, dim, inner, heads, eps):
+    def __init__(self, dim, inner, heads, eps, act="quick_gelu"):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
         self.self_attn = CLIPAttention(dim, heads)
         self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
-        self.mlp = CLIPMLP(dim, inner)
+        self.mlp = CLIPMLP(dim, inner, act)
 
     def forward(self, x, bias=None):
         x = x + self.self_attn(self.layer_norm1(x), bias)
@@ -133,10 +151,10 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, dim, inner, heads, n_layers, eps):
+    def __init__(self, dim, inner, heads, n_layers, eps, act="quick_gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            [CLIPEncoderLayer(dim, inner, heads, eps) for _ in range(n_layers)])
+            [CLIPEncoderLayer(dim, inner, heads, eps, act) for _ in range(n_layers)])
 
     def forward(self, x, bias=None):
         for layer in self.layers:
@@ -169,7 +187,8 @@ class CLIPTextTransformer(nn.Module):
         self.embeddings = CLIPTextEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg.hidden_size, cfg.intermediate_size,
                                    cfg.num_attention_heads,
-                                   cfg.num_hidden_layers, cfg.layer_norm_eps)
+                                   cfg.num_hidden_layers, cfg.layer_norm_eps,
+                                   cfg.hidden_act)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, ids, row=None, row_id=None):
@@ -199,10 +218,12 @@ class CLIPTextModel(nn.Module):
 
 
 def text_config(sd_version: str) -> CLIPTextConfig:
-    if sd_version.startswith("2"):
-        raise NotImplementedError(
-            "SD 2.x (OpenCLIP ViT-H text tower) is not ported yet (ROADMAP.md "
-            "queue A, item 'SD 2.x')")
+    """The JAX package's text tower for ``sd_version``: OpenCLIP ViT-H for
+    2.x, CLIP ViT-L/14 otherwise."""
+    if str(sd_version).startswith("2"):
+        return CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                              num_hidden_layers=23, num_attention_heads=16,
+                              hidden_act="gelu")
     return CLIPTextConfig()
 
 

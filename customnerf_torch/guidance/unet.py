@@ -5,9 +5,12 @@ Module names are diffusers' state-dict keys (``down_blocks.0.resnets.1``,
 ``…attentions.0.transformer_blocks.0.attn1.to_out.0``), so a diffusers UNet
 loads with ``load_state_dict`` as is.  SD 1.x layout: 1×1-conv
 ``proj_in``/``proj_out``, exact-erf GEGLU, cross-attention without q/k/v
-biases.  Attention is computed as the JAX package computes it: matmul →
-softmax → matmul in plain PyTorch, which at 64×64 latents and batch 2
-materialises 2×8×4096×4096 f32 scores (1.07 GB) per self-attention call.
+biases; SD 2.x (:func:`sd2_unet_config`) is the same layout with a wider
+context and per-level head counts.  Attention is computed as the JAX
+package computes it: matmul → softmax → matmul in plain PyTorch, which at
+64×64 latents and batch 2 materialises 2×heads×4096×4096 f32 scores per
+self-attention call of the first level (8 heads, 1.07 GB, for 1.x; 5 for
+2.x).
 
 ``UNetConfig.dtype`` is the compute dtype (flax's policy, ``layers.py``):
 the sample and context are cast to it at entry, the timestep features are
@@ -62,6 +65,16 @@ class UNetConfig:
     def heads_at(self, level: int) -> int:
         hd = self.attention_head_dim
         return int(hd[level]) if isinstance(hd, (tuple, list)) else int(hd)
+
+
+def sd2_unet_config(dtype: str = "float32") -> UNetConfig:
+    """SD 2.0/2.1 (the JAX package's ``sd2_unet_config``): a 1024-wide
+    context and (5, 10, 20, 20) heads, 64 wide at every level.  diffusers
+    stores 2.x's ``proj_in``/``proj_out`` as linear layers
+    (``use_linear_projection``); they are the 1×1 convs here, and
+    ``weights.py`` reshapes them."""
+    return UNetConfig(cross_attention_dim=1024, attention_head_dim=(5, 10, 20, 20),
+                      dtype=dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000):

@@ -5,8 +5,14 @@ The directory holds ``unet/diffusion_pytorch_model.bin``,
 ``vae/diffusion_pytorch_model.bin``, ``text_encoder/pytorch_model.bin`` and
 ``tokenizer/`` (the files the JAX loader looks for).  The port's modules
 carry diffusers' and Hugging Face's names, so the UNet and text encoder load
-with ``load_state_dict`` as they are; the VAE's older attention names
-(``query/key/value/proj_attn``, some stored as 1×1 convs) are renamed.
+with ``load_state_dict`` as they are, with one reshape: SD 2.x stores the
+UNet's ``proj_in``/``proj_out`` as ``[C, C]`` linear weights
+(``use_linear_projection``), which load into the 1×1-conv slot as
+``[C, C, 1, 1]`` (:func:`unet_state`, the JAX package's
+``weights.py:87-93``).  The VAE's older attention names
+(``query/key/value/proj_attn``, some stored as 1×1 convs) are renamed.  The
+2.x text encoder (OpenCLIP ViT-H, 23 layers) loads through the same keys
+as 1.x's.
 ``.safetensors`` files need the ``safetensors`` package and are refused
 without it.  A sub-model without a file keeps its random weights, with a
 warning, as in the JAX package.  The files are read as f32 and each tensor
@@ -62,6 +68,20 @@ def vae_state(src: dict) -> dict:
     return out
 
 
+def unet_state(src: dict) -> dict:
+    """Reshape SD 2.x's linear ``proj_in``/``proj_out`` weights ``[C, C]``
+    to the 1×1 convs' ``[C, C, 1, 1]``; SD 1.x's conv weights pass as they
+    are."""
+    out = {}
+    for k, v in src.items():
+        parts = k.split(".")
+        if "attentions" in parts and parts[-2] in ("proj_in", "proj_out") \
+                and parts[-1] == "weight" and v.ndim == 2:
+            v = v[:, :, None, None]
+        out[k] = v
+    return out
+
+
 def _load_into(module, state: dict, what: str, path: str):
     have = module.state_dict()
     module.load_state_dict({k: v.to(have[k].device, have[k].dtype) if k in have else v
@@ -84,7 +104,8 @@ def load_sd_weights(guidance, weights_dir: str):
     names = ("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors")
     unet_path = _find(os.path.join(weights_dir, "unet"), *names)
     if unet_path:
-        _load_into(guidance.unet, load_torch_state(unet_path), "UNet", unet_path)
+        _load_into(guidance.unet, unet_state(load_torch_state(unet_path)), "UNet",
+                   unet_path)
     else:
         print(f"[WARN] no UNet weights under {weights_dir}/unet — random init.")
     vae_path = _find(os.path.join(weights_dir, "vae"), *names)

@@ -1,17 +1,23 @@
-"""Baseline JPEG decode and encode in numpy: the port's stand-in for
-``cv2.imread`` / ``cv2.imwrite`` on JPEG files, so that it depends on
-neither ``cv2`` nor PIL.
+"""JPEG decode (baseline and progressive) and baseline encode in numpy: the
+port's stand-in for ``cv2.imread`` / ``cv2.imwrite`` on JPEG files, so that
+it depends on neither ``cv2`` nor PIL.
 
 The decoder gives what the JAX package's native reader gives
 (``csrc/dataio.cpp:147-171``: libjpeg with its defaults and
 ``out_color_space = JCS_RGB``), which is what libjpeg itself computes:
 
-  * markers SOI, DQT (8- and 16-bit tables), SOF0/SOF1 at 8 bits, DHT, SOS,
-    DRI with RSTn, EOI; APPn and COM segments are skipped, so an EXIF
-    orientation is not applied (``cv2.imread`` applies it, ``dataio.cpp``
-    does not);
+  * markers SOI, DQT (8- and 16-bit tables), SOF0/SOF1/SOF2 at 8 bits, DHT
+    (also between scans), SOS, DRI with RSTn, EOI; APPn and COM segments are
+    skipped, so an EXIF orientation is not applied (``cv2.imread`` applies
+    it, ``dataio.cpp`` does not);
   * Huffman decoding of sequential scans (interleaved or one component a
     scan) with 0xFF00 unstuffing, the DC predictors reset at each restart;
+  * progressive scans (ITU-T T.81 Annex G.1.2, libjpeg's ``jdphuff.c``): DC
+    first and DC refinement (interleaved or not), AC first with end-of-band
+    runs, AC refinement with correction bits (one component a scan); a
+    restart resets the DC predictors and the end-of-band run.  Every scan
+    adds its bits to the same coefficients, which then go through the same
+    reconstruction as a sequential file's;
   * dequantisation and libjpeg's integer "islow" IDCT (``jidctint.c``:
     CONST_BITS 13, PASS1_BITS 2, rounding descales, the range-limit table
     indexed modulo 1024), over all blocks of a component at once;
@@ -23,9 +29,12 @@ The decoder gives what the JAX package's native reader gives
     three-component files that JFIF/Adobe markers or component ids mark as
     RGB are returned as they are.
 
-Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files
-raise ``ValueError`` naming the file; a progressive file's error names the
-ROADMAP row that would lift it.  Huffman decoding runs symbol by symbol in
+Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files raise
+``ValueError`` naming the file.  So do a progressive file without its EOI
+(truncated), one whose scans break the progression rules, and one whose
+scans leave a coefficient's bits unsent: libjpeg smooths such a file's
+blocks (``jdcoefct.c``, block smoothing), which this decoder does not do;
+that error names the ROADMAP row.  Huffman decoding runs symbol by symbol in
 Python (a 16-bit lookup table a code, one window read a symbol), which is
 the decoder's cost; the IDCT, upsampling and colour conversion are numpy.
 
@@ -239,14 +248,13 @@ class _Frame:
         self.size = None
         self.jfif = False
         self.adobe = None
+        self.progressive = False
+        self.coef_bits = None        # progressive: per component, per zigzag
+                                     # position, the bits still unsent (-1: none sent)
 
 
 def _sof(f: _Frame, body: bytes, marker: int, name: str):
-    if marker == 0xC2:
-        raise ValueError(
-            f"{name}: progressive JPEG is not supported by the port's decoder "
-            f"(ROADMAP.md, row '{PROGRESSIVE_ITEM}')")
-    if marker != 0xC0 and marker != 0xC1:
+    if marker not in (0xC0, 0xC1, 0xC2):
         kind = ("arithmetic-coded" if marker >= 0xC9 else
                 "lossless" if marker in (0xC3, 0xC7) else "hierarchical")
         raise ValueError(f"{name}: {kind} JPEG (SOF{marker - 0xC0}) is not supported")
@@ -263,6 +271,7 @@ def _sof(f: _Frame, body: bytes, marker: int, name: str):
         cid, hv, tq = body[6 + 3 * i: 9 + 3 * i]
         comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
     f.comps, f.size = comps, (h, w)
+    f.progressive = marker == 0xC2
 
 
 def _next_segment(data: bytes, pos: int, name: str):
@@ -316,31 +325,35 @@ def _windows(part: np.ndarray):
     return w.tolist()
 
 
-def _decode_scan(f: _Frame, scan, parts, coefs, name):
-    """Huffman-decode one sequential scan into ``coefs`` (per component: a
-    flat list of its padded block grid's coefficients, natural order)."""
+def _mcu_layout(f: _Frame, scan):
+    """(number of MCUs, MCU index → its blocks as (scan slot, block row,
+    block column)): one block an MCU over the component's own block grid
+    for a one-component scan, the frame's MCU grid otherwise."""
     hmax = max(c["h"] for c in f.comps)
     vmax = max(c["v"] for c in f.comps)
     h_img, w_img = f.size
-    zz = ZIGZAG.tolist()
     if len(scan) == 1:
-        ci, _, _ = scan[0]
-        c = f.comps[ci]
+        c = f.comps[scan[0][0]]
         bw = math.ceil(math.ceil(w_img * c["h"] / hmax) / 8)
         bh = math.ceil(math.ceil(h_img * c["v"] / vmax) / 8)
-        n_mcu = bw * bh
-        mcu_blocks = lambda m: ((0, m // bw, m % bw),)       # noqa: E731
-    else:
-        mx = math.ceil(w_img / (8 * hmax))
-        my = math.ceil(h_img / (8 * vmax))
-        n_mcu = mx * my
-        layout = [(k, by, bx) for k, (ci, _, _) in enumerate(scan)
-                  for by in range(f.comps[ci]["v"]) for bx in range(f.comps[ci]["h"])]
+        return bw * bh, lambda m: ((0, m // bw, m % bw),)
+    mx = math.ceil(w_img / (8 * hmax))
+    my = math.ceil(h_img / (8 * vmax))
+    layout = [(k, by, bx) for k, (ci, _, _) in enumerate(scan)
+              for by in range(f.comps[ci]["v"]) for bx in range(f.comps[ci]["h"])]
 
-        def mcu_blocks(m):
-            r, q = divmod(m, mx)
-            return tuple((k, r * f.comps[scan[k][0]]["v"] + by,
-                          q * f.comps[scan[k][0]]["h"] + bx) for k, by, bx in layout)
+    def mcu_blocks(m):
+        r, q = divmod(m, mx)
+        return tuple((k, r * f.comps[scan[k][0]]["v"] + by,
+                      q * f.comps[scan[k][0]]["h"] + bx) for k, by, bx in layout)
+    return mx * my, mcu_blocks
+
+
+def _decode_scan(f: _Frame, scan, parts, coefs, name):
+    """Huffman-decode one sequential scan into ``coefs`` (per component: a
+    flat list of its padded block grid's coefficients, natural order)."""
+    zz = ZIGZAG.tolist()
+    n_mcu, mcu_blocks = _mcu_layout(f, scan)
     tables = []
     for ci, td, ta in scan:
         if td not in f.dc or ta not in f.ac:
@@ -393,6 +406,154 @@ def _decode_scan(f: _Frame, scan, parts, coefs, name):
                         j += 16
                     else:
                         break
+            m += 1
+
+
+def _check_progression(f: _Frame, scan, ss, se, ah, al, name):
+    """libjpeg's ``start_pass_phuff_decoder`` checks, every one fatal here
+    (libjpeg only warns about a refinement whose Ah is not the bits left):
+    then the scan's coefficients are marked as known down to bit Al."""
+    bad = (se != 0 if ss == 0 else (ss > se or se > 63 or len(scan) != 1)) \
+        or (ah != 0 and al != ah - 1) or al > 13
+    if f.coef_bits is None:
+        f.coef_bits = [[-1] * 64 for _ in f.comps]
+    for ci, _, _ in scan:
+        bits = f.coef_bits[ci]
+        if ss > 0 and bits[0] < 0:
+            bad = True                   # an AC scan before the DC's first
+        for k in range(ss, min(se, 63) + 1):
+            if ah != max(bits[k], 0):
+                bad = True
+            bits[k] = al
+    if bad:
+        raise ValueError(f"{name}: corrupt progressive JPEG (scan Ss={ss} Se={se} "
+                         f"Ah={ah} Al={al} breaks the progression)")
+
+
+def _decode_progressive_scan(f: _Frame, scan, ss, se, ah, al, parts, coefs, name):
+    """Huffman-decode one progressive scan into ``coefs`` (libjpeg's
+    ``jdphuff.c``: ``decode_mcu_DC_first``, ``_DC_refine``, ``_AC_first``,
+    ``_AC_refine``); coefficients of later scans add their bits to what
+    earlier scans left."""
+    # natural order, with libjpeg's 16 guard entries (jpeg_natural_order)
+    zz = ZIGZAG.tolist() + [63] * 16
+    n_mcu, mcu_blocks = _mcu_layout(f, scan)
+    outs = [coefs[ci] for ci, _, _ in scan]
+    bw_pads = [f.comps[ci]["bw_pad"] for ci, _, _ in scan]
+    if ss == 0 and ah == 0:
+        if any(td not in f.dc for _, td, _ in scan):
+            raise ValueError(f"{name}: scan uses an undefined Huffman table")
+        dcs = [f.dc[td] for _, td, _ in scan]
+    elif ss > 0:
+        if scan[0][2] not in f.ac:
+            raise ValueError(f"{name}: scan uses an undefined Huffman table")
+        ac = f.ac[scan[0][2]]
+    p1, m1 = 1 << al, -1 << al
+    bad_code = f"{name}: corrupt JPEG data (bad Huffman code)"
+    per_part = f.restart if f.restart else n_mcu
+    m = 0
+    for part in parts:
+        if m >= n_mcu:
+            break
+        w = _windows(part)
+        p = 0
+        pred = [0] * len(scan)
+        eobrun = 0
+        for _ in range(min(per_part, n_mcu - m)):
+            for slot, by, bx in mcu_blocks(m):
+                out = outs[slot]
+                base = (by * bw_pads[slot] + bx) * 64
+                if ss == 0 and ah == 0:                          # DC first
+                    e = dcs[slot][(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                    if not e:
+                        raise ValueError(bad_code)
+                    p += e >> 8
+                    s = e & 0xFF
+                    diff = 0
+                    if s:
+                        diff = (w[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                        p += s
+                        if diff < (1 << (s - 1)):
+                            diff -= (1 << s) - 1
+                    pred[slot] += diff
+                    out[base] = pred[slot] << al
+                elif ss == 0:                                    # DC refinement
+                    if (w[p >> 3] >> (31 - (p & 7))) & 1:
+                        out[base] |= p1
+                    p += 1
+                elif ah == 0:                                    # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        e = ac[(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                        if not e:
+                            raise ValueError(bad_code)
+                        p += e >> 8
+                        r, s = (e >> 4) & 15, e & 15
+                        if s:
+                            k += r
+                            v = (w[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                            p += s
+                            if v < (1 << (s - 1)):
+                                v -= (1 << s) - 1
+                            out[base + zz[k]] = v << al
+                        elif r == 15:                            # ZRL
+                            k += 15
+                        else:                                    # EOBr
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += (w[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                                p += r
+                            eobrun -= 1
+                            break
+                        k += 1
+                else:                                            # AC refinement
+                    k = ss
+                    if not eobrun:
+                        while k <= se:
+                            e = ac[(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                            if not e:
+                                raise ValueError(bad_code)
+                            p += e >> 8
+                            r, s = (e >> 4) & 15, e & 15
+                            if s:                # a newly nonzero coefficient: ±1 << Al
+                                s = p1 if (w[p >> 3] >> (31 - (p & 7))) & 1 else m1
+                                p += 1
+                            elif r != 15:        # EOBr; the rest by the EOB run below
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += (w[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                                    p += r
+                                break
+                            # pass r zero coefficients, a correction bit for
+                            # each nonzero one on the way
+                            while k <= se:
+                                pos = base + zz[k]
+                                c = out[pos]
+                                if c:
+                                    if (w[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                                        out[pos] = c + p1 if c >= 0 else c + m1
+                                    p += 1
+                                elif r == 0:
+                                    break
+                                else:
+                                    r -= 1
+                                k += 1
+                            if s:
+                                out[base + zz[k]] = s
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            pos = base + zz[k]
+                            c = out[pos]
+                            if c:
+                                if (w[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                                    out[pos] = c + p1 if c >= 0 else c + m1
+                                p += 1
+                            k += 1
+                        eobrun -= 1
             m += 1
 
 
@@ -473,16 +634,30 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             if cid not in ids:
                 raise ValueError(f"{name}: scan names an unknown component")
             scan.append((ids.index(cid), t >> 4, t & 15))
-        ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
-        if ss != 0 or se != 63:
+        ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+        if f.progressive:
+            _check_progression(f, scan, ss, se, a >> 4, a & 15, name)
+        elif ss != 0 or se != 63:
             raise ValueError(f"{name}: a spectral-selection scan is not baseline")
         parts, pos = _scan_extent(buf, end)
         try:
-            _decode_scan(f, scan, parts, coefs, name)
+            if f.progressive:
+                _decode_progressive_scan(f, scan, ss, se, a >> 4, a & 15, parts,
+                                         coefs, name)
+            else:
+                _decode_scan(f, scan, parts, coefs, name)
         except IndexError:
             raise ValueError(f"{name}: corrupt JPEG data (scan ends early)") from None
+    else:
+        if f.progressive:
+            raise ValueError(f"{name}: truncated progressive JPEG (no EOI marker)")
     if coefs is None:
         raise ValueError(f"{name}: JPEG without image data")
+    if f.progressive and any(b != 0 for bits in f.coef_bits for b in bits):
+        raise ValueError(
+            f"{name}: progressive JPEG whose scans leave coefficient bits unsent; "
+            f"libjpeg would smooth its blocks, which the port's decoder does not "
+            f"(ROADMAP.md, row '{PROGRESSIVE_ITEM}')")
     return _reconstruct(f, coefs, name)
 
 

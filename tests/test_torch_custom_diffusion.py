@@ -18,6 +18,7 @@ relative.
 """
 
 import copy
+import dataclasses
 import functools
 import os
 import sys
@@ -56,38 +57,62 @@ TEXT = dict(hidden_size=CTX, intermediate_size=48, num_hidden_layers=2,
 SIZE = 64
 
 
+@dataclasses.dataclass(frozen=True)
+class Stack:
+    """A reduced-width SD stack for both packages: the UNet's config, the
+    text tower's (with its activation) and whether the diffusers files store
+    ``proj_in``/``proj_out`` as linear layers (SD 2.x)."""
+    unet: tuple = tuple(dict(UNET_TINY, attention_head_dim=4).items())
+    text: tuple = tuple(dict(TEXT, hidden_act="quick_gelu").items())
+    linear_proj: bool = False
+
+    @property
+    def unet_kw(self):
+        return dict(self.unet)
+
+    @property
+    def text_kw(self):
+        return dict(self.text)
+
+    @property
+    def ctx(self):
+        return self.unet_kw["cross_attention_dim"]
+
+
+SD15 = Stack()
+
+
 @functools.lru_cache(maxsize=None)
-def _params():
-    """The JAX modules' random leaves (numpy), made once."""
+def _params(stack=SD15):
+    """The JAX modules' random leaves (numpy), made once a stack."""
     from transformers import CLIPTextConfig as HFTextConfig, FlaxCLIPTextModel
-    ju = JUNet(JUNetConfig(**UNET_TINY, attention_head_dim=4))
+    ju = JUNet(JUNetConfig(**stack.unet_kw))
     jv = JVAE(JVAEConfig(**VAE_8X))
     up = random_params(jax.eval_shape(
         ju.init, jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)),
-        jnp.zeros((1,), jnp.int32), jnp.zeros((1, 7, CTX))), 11)
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1, 7, stack.ctx))), 11)
     vp = random_params(jax.eval_shape(
         lambda k: jv.init({"params": k}, jnp.zeros((1, SIZE, SIZE, 3)), k),
         jax.random.PRNGKey(0)), 12)
-    hf = HFTextConfig(vocab_size=ttext.VOCAB, max_position_embeddings=77,
-                      hidden_act="quick_gelu", **TEXT)
+    hf = HFTextConfig(vocab_size=ttext.VOCAB, max_position_embeddings=77, **stack.text_kw)
     tp = random_params(jax.eval_shape(lambda k: FlaxCLIPTextModel(hf, _do_init=False)
                                       .init_weights(k, (1, 77)), jax.random.PRNGKey(0)), 13)
     return up, vp, tp, hf
 
 
-def make_pair(seed=0):
+def make_pair(seed=0, stack=SD15):
     """(JAX guidance, port guidance) on the same tiny weights, each with a
     fresh text encoder (tuning registers tokens on it)."""
     from transformers import FlaxCLIPTextModel
-    up, vp, tp, hf = _params()
+    up, vp, tp, hf = _params(stack)
     jg = JGuidance.__new__(JGuidance)
     jg.opt = JConfig(data_type="synthetic", seed=seed)
-    jg.unet = JUNet(JUNetConfig(**UNET_TINY, attention_head_dim=4))
+    jg.unet = JUNet(JUNetConfig(**stack.unet_kw))
     jg.vae = JVAE(JVAEConfig(**VAE_8X))
     jg.unet_params = jax.tree_util.tree_map(jnp.asarray, up)
     jg.vae_params = jax.tree_util.tree_map(jnp.asarray, vp)
     te = jtext.TextEncoder.__new__(jtext.TextEncoder)
-    te.sd_version, te.tokenizer, te.hidden_size = "1.5", jtext.HashTokenizer(), CTX
+    te.sd_version, te.tokenizer, te.hidden_size = "1.5", jtext.HashTokenizer(), stack.ctx
     te.model = FlaxCLIPTextModel(copy.deepcopy(hf), _do_init=False)
     te.params = jax.tree_util.tree_map(jnp.asarray, tp)
     jg.text_encoder, jg.cd_kv, jg.system = te, None, None
@@ -96,20 +121,21 @@ def make_pair(seed=0):
     jg.alphas = jg.scheduler.alphas_cumprod
 
     opt = Config(data_type="synthetic", seed=seed)
-    text = ttext.TextEncoder(model=ttext.CLIPTextModel(ttext.CLIPTextConfig(**TEXT)))
+    text = ttext.TextEncoder(model=ttext.CLIPTextModel(ttext.CLIPTextConfig(
+        **stack.text_kw)))
     text.model.load_state_dict(state_from_flax(tp))
     tg = StableDiffusionGuidance(opt, device="cpu", text_encoder=text,
-                                 unet_cfg=UNetConfig(**UNET_TINY, attention_head_dim=4),
+                                 unet_cfg=UNetConfig(**stack.unet_kw),
                                  vae_cfg=VAEConfig(**VAE_8X))
     tg.unet.load_state_dict(state_from_flax(up))
     tg.vae.load_state_dict(state_from_flax(vp))
     return jg, tg
 
 
-def random_table(seed, q_out=False):
+def random_table(seed, q_out=False, stack=SD15):
     """A JAX-layout adapter table ([in, out] kernels) for the tiny UNet."""
     rs = np.random.RandomState(seed)
-    up = _params()[0]["params"]
+    up = _params(stack)[0]["params"]
     table = {}
     for ours, _ in jcd._BLOCKS:
         if ours not in up:
@@ -126,18 +152,18 @@ def random_table(seed, q_out=False):
 
 
 @functools.lru_cache(maxsize=None)
-def _japply():
-    """One jitted UNet apply for the tests of this file (one config)."""
-    unet = JUNet(JUNetConfig(**UNET_TINY, attention_head_dim=4))
+def _japply(stack=SD15):
+    """One jitted UNet apply a stack for the tests of this file."""
+    unet = JUNet(JUNetConfig(**stack.unet_kw))
     return jax.jit(lambda p, x, t, c, kv: unet.apply(p, x, t, c, cd_kv=kv))
 
 
-def _eps_pair(jg, tg, jtable, ttable, seed=3):
+def _eps_pair(jg, tg, jtable, ttable, seed=3, stack=SD15):
     rs = np.random.RandomState(seed)
     x = rs.randn(2, 8, 8, 4).astype(np.float32)
-    ctx = rs.randn(2, 7, CTX).astype(np.float32)
+    ctx = rs.randn(2, 7, stack.ctx).astype(np.float32)
     t = np.array([37, 612])
-    want = _japply()(jg.unet_params, jnp.asarray(x), jnp.asarray(t, jnp.int32),
+    want = _japply(stack)(jg.unet_params, jnp.asarray(x), jnp.asarray(t, jnp.int32),
                      jnp.asarray(ctx), jtable)
     with torch.no_grad():
         got = tg.unet(nchw(x), torch.tensor(t), torch.tensor(ctx), cd_kv=ttable)
@@ -171,9 +197,13 @@ def test_artifacts_load_both_ways(tmp_path):
     """JAX ``save_cd_artifacts`` → port ``load_cd_artifacts`` and the port's
     files → the JAX loader: the same ε, ``<new1>`` at id 49408 on both
     sides, its row in the token table."""
-    jg, tg = make_pair()
-    jtable = random_table(7, q_out=True)
-    row = np.random.RandomState(8).randn(CTX).astype(np.float32)
+    check_artifacts_both_ways(tmp_path, SD15)
+
+
+def check_artifacts_both_ways(tmp_path, stack):
+    jg, tg = make_pair(stack=stack)
+    jtable = random_table(7, q_out=True, stack=stack)
+    row = np.random.RandomState(8).randn(stack.ctx).astype(np.float32)
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
     jcd.save_cd_artifacts(jdir, {k: {n: jnp.asarray(v) for n, v in e.items()}
                                  for k, e in jtable.items()}, {"<new1>": row})
@@ -183,7 +213,7 @@ def test_artifacts_load_both_ways(tmp_path):
     table = tg.text_encoder.model.text_model.embeddings.token_embedding.weight
     assert table.shape[0] == 49409
     np.testing.assert_array_equal(table[49408].numpy(), row)
-    got, want = _eps_pair(jg, tg, jtable, ttable)
+    got, want = _eps_pair(jg, tg, jtable, ttable, stack=stack)
     close(got, want)
 
     cd.save_cd_artifacts(tdir, ttable, {"<new1>": torch.tensor(row)})
@@ -192,10 +222,11 @@ def test_artifacts_load_both_ways(tmp_path):
     kv, jtoks = jcd.load_cd_artifacts(tdir, jg.text_encoder)
     np.testing.assert_array_equal(jtoks["<new1>"], row)
     assert jg.text_encoder.tokenizer.add_token("<new1>") == 49408
-    got2, want2 = _eps_pair(jg, tg, kv, ttable)
+    got2, want2 = _eps_pair(jg, tg, kv, ttable, stack=stack)
     close(got2, want2)
+    assert ttable["mid_block.attentions.0"]["to_k"].shape[1] == stack.ctx
     # the grown token table crosses flax → port like the rest of the tower
-    grown = ttext.CLIPTextModel(ttext.CLIPTextConfig(vocab_size=49409, **TEXT))
+    grown = ttext.CLIPTextModel(ttext.CLIPTextConfig(vocab_size=49409, **stack.text_kw))
     grown.load_state_dict(state_from_flax(jax.tree_util.tree_map(
         np.asarray, jg.text_encoder.params)))
     np.testing.assert_array_equal(
@@ -290,16 +321,28 @@ TUNE_CASES = {
 def test_one_tuning_step_matches_jax(tmp_path, monkeypatch, case):
     """One optimizer step with JAX's draws handed over: the loss and the
     adapters and token row after AdamW."""
-    c = TUNE_CASES[case]
-    jg, tg = make_pair(seed=1)
+    check_tuning_step(tmp_path, monkeypatch, TUNE_CASES[case], SD15)
+
+
+def check_tuning_step(tmp_path, monkeypatch, c, stack, grad_floor=0.0):
+    """The loss, the gradient AdamW is handed (the mean of the micro-steps')
+    to 1e-4 of each tensor's largest entry (ε's rule: the backward runs
+    through the same layers), and the adapters and token row after AdamW to
+    1e-5 of their largest entry.  Entries whose JAX gradient is under
+    ``grad_floor`` of its tensor's largest are held to that only within
+    2·lr: there Adam's step g/(|g| + 1e-8) is set by the gradient's
+    rounding, not by its value (a gradient of 6e-8 next to a largest entry
+    of 0.06 moves 0.81·lr in one package and 0.80·lr in the other)."""
+    jg, tg = make_pair(seed=1, stack=stack)
     inst = _concept_images(str(tmp_path / "inst"), [(SIZE, SIZE)] * 3)
     cls = _concept_images(str(tmp_path / "cls"), [(SIZE, SIZE)] * 2, seed=5) \
         if c["prior"] else None
+    lr = 1e-3
     kw = dict(instance_prompt="ball", class_dir=cls, class_prompt="ball", steps=1,
-              lr=1e-3, image_size=SIZE, batch_size=c["batch_size"],
+              lr=lr, image_size=SIZE, batch_size=c["batch_size"],
               grad_accum=c["grad_accum"], freeze_model=c["freeze_model"],
               checkpointing_steps=0)
-    losses, real_jit = [], jax.jit
+    losses, jgrads, real_jit = [], [], jax.jit
 
     def spy_jit(fn, **k):
         f = real_jit(fn, **k)
@@ -308,6 +351,7 @@ def test_one_tuning_step_matches_jax(tmp_path, monkeypatch, case):
             out = f(*a, **kk)
             if isinstance(out, tuple) and len(out) == 2 and getattr(out[0], "ndim", 1) == 0:
                 losses.append(float(out[0]))          # value_and_grad's loss
+                jgrads.append(jax.tree_util.tree_map(np.asarray, out[1]))
             return out
         return run
 
@@ -317,6 +361,14 @@ def test_one_tuning_step_matches_jax(tmp_path, monkeypatch, case):
     jcd.train_custom_diffusion(jg.opt, instance_dir=inst,
                                output_dir=str(tmp_path / "jax"), **kw)
     monkeypatch.undo()
+    tgrads, step = [], torch.optim.AdamW.step
+
+    def spy_step(self, *a, **k):
+        tgrads.append([p.grad.detach().clone() for gr in self.param_groups
+                       for p in gr["params"]])
+        return step(self, *a, **k)
+
+    monkeypatch.setattr(torch.optim.AdamW, "step", spy_step)
     got_loss = []
     cd.train_custom_diffusion(tg.opt, instance_dir=inst, output_dir=str(tmp_path / "port"),
                               guidance=tg, draws=_jax_draws(1, c["batch_size"], c["prior"]),
@@ -324,18 +376,28 @@ def test_one_tuning_step_matches_jax(tmp_path, monkeypatch, case):
                               on_step=lambda s, v: got_loss.append(v), **kw)
     assert len(losses) == c["grad_accum"] and len(got_loss) == 1
     assert got_loss[0] == pytest.approx(losses[-1], rel=1e-5)
+    base = cd.extract_cd_kv(tg.unet, train_q_out=c["freeze_model"] == "crossattn")
+    jmean = jax.tree_util.tree_map(lambda *g: np.mean(g, axis=0), *jgrads)
+    jg_kv = cd.cd_kv_from_flax(jmean["cd_kv"])
+    want_grads = [jg_kv[k][n].numpy() for k in base for n in base[k]] + [jmean["tok_row"]]
+    assert len(tgrads) == 1 and len(tgrads[0]) == len(want_grads)
+    for want, got in zip(want_grads, tgrads[0]):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
     jkv, jtok = jcd.load_cd_artifacts(str(tmp_path / "jax"))
     tkv, ttok = cd.load_cd_artifacts(str(tmp_path / "port"))
     jt = cd.cd_kv_from_flax(jkv)
-    assert set(jt) == set(tkv)
-    base = cd.extract_cd_kv(tg.unet, train_q_out=c["freeze_model"] == "crossattn")
-    for k in jt:
+    assert set(jt) == set(tkv) == set(base)
+    for (k, n), g in zip([(k, n) for k in base for n in base[k]], want_grads):
         assert set(jt[k]) == set(tkv[k]) == set(base[k])
-        for n in jt[k]:
-            want, got = jt[k][n].numpy(), tkv[k][n].numpy()
-            scale = np.abs(want).max()
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale, err_msg=f"{k} {n}")
-            assert np.abs(got - base[k][n].numpy()).max() > 1e-4          # it moved
+        want, got = jt[k][n].numpy(), tkv[k][n].numpy()
+        scale = np.abs(want).max()
+        free = np.abs(g) < grad_floor * np.abs(g).max()
+        np.testing.assert_allclose(got[~free], want[~free], rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"{k} {n}")
+        assert (np.abs(got - want)[free] <= 2 * lr).all(), f"{k} {n}"
+        assert free.mean() < 0.01, f"{k} {n}: {free.mean()}"
+        assert np.abs(got - base[k][n].numpy()).max() > 1e-4          # it moved
     w, g = jtok["<new1>"], ttok["<new1>"]
     np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
 
@@ -435,7 +497,7 @@ def test_retrieve_existing_generated_and_refused(tmp_path, monkeypatch, capsys):
     np.testing.assert_array_equal(img, cv2.imread(os.path.join(out, "00000.jpg"))[..., ::-1])
 
 
-def _weights_dir(tmp_path):
+def _weights_dir(tmp_path, stack=SD15):
     """A diffusers directory from ``tests/torch_sd_mirror.py`` (UNet, VAE)
     and a Hugging Face CLIP text model, all at the tiny widths."""
     from transformers import CLIPTextConfig as HFTextConfig, CLIPTextModel as HFText
@@ -444,13 +506,13 @@ def _weights_dir(tmp_path):
     (wdir / "unet").mkdir(parents=True)
     (wdir / "vae").mkdir()
     torch.manual_seed(3)
-    torch.save(TorchUNet(**UNET_TINY, attention_head_dim=4).state_dict(),
-               wdir / "unet" / "diffusion_pytorch_model.bin")
+    torch.save(TorchUNet(**stack.unet_kw, use_linear_projection=stack.linear_proj)
+               .state_dict(), wdir / "unet" / "diffusion_pytorch_model.bin")
     torch.save(TorchVAE(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                         groups=8).state_dict(),
                wdir / "vae" / "diffusion_pytorch_model.bin")
     HFText(HFTextConfig(vocab_size=ttext.VOCAB, max_position_embeddings=77,
-                        hidden_act="quick_gelu", **TEXT)).save_pretrained(
+                        **stack.text_kw)).save_pretrained(
         str(wdir / "text_encoder"), safe_serialization=False)
     return str(wdir)
 
@@ -472,14 +534,20 @@ def test_sd_weights_keep_an_added_token_row(tmp_path):
 
 
 def test_validate_weights_report_matches_jax(tmp_path, capsys):
+    check_drill(tmp_path, capsys, SD15)
+
+
+def check_drill(tmp_path, capsys, stack, sd_version="1.5"):
     from customnerf_tpu.guidance.validate import validate_weights as jvalidate
     from customnerf_torch.guidance.validate import validate_weights
-    wdir = _weights_dir(tmp_path)
-    jg, tg = make_pair()
-    jopt = JConfig(data_type="synthetic", seed=0, text="a corgi", sd_weights=wdir)
+    wdir = _weights_dir(tmp_path, stack)
+    jg, tg = make_pair(stack=stack)
+    jopt = JConfig(data_type="synthetic", seed=0, text="a corgi", sd_weights=wdir,
+                   sd_version=sd_version)
     want = jvalidate(jopt, guidance=jg)
     got = validate_weights(Config(data_type="synthetic", seed=0, text="a corgi",
-                                  sd_weights=wdir), guidance=tg)
+                                  sd_weights=wdir, sd_version=sd_version), guidance=tg)
+    assert got["sd_version"] == want["sd_version"] == sd_version
     assert "[INFO] loaded UNet weights" in capsys.readouterr().out
     assert set(got) == set(want)
     for name in ("unet", "vae", "text_encoder"):

@@ -61,6 +61,8 @@ FLAGS = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
          "--stage_time --allow_random_guidance --use_ckpt scratch").split()
 UNET = dict(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
             cross_attention_dim=32, attention_head_dim=4, norm_num_groups=8)
+TEXT = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=4)
 VAE = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_groups=8)
 SIDE = 64
 G = 16
@@ -81,21 +83,25 @@ def quiet(*_):
     pass
 
 
-def tiny_guidance(opt):
-    text = TextEncoder(model=build(
-        CLIPTextModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
-                                      num_hidden_layers=2, num_attention_heads=4),
-        generator=torch.Generator().manual_seed(0)))
-    return StableDiffusionGuidance(opt, device="cpu", unet_cfg=UNetConfig(**UNET),
+def tiny_guidance(opt, unet=UNET, text=TEXT):
+    text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(**text),
+                                   generator=torch.Generator().manual_seed(0)))
+    return StableDiffusionGuidance(opt, device="cpu", unet_cfg=UNetConfig(**unet),
                                    vae_cfg=VAEConfig(**VAE), text_encoder=text)
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Everything both sides share, and the JAX step's compiled pieces."""
-    ws = str(tmp_path_factory.mktemp("edit"))
-    jopt = jconfig.parse_args(FLAGS)
-    topt = tconfig.parse_args(FLAGS + ["--workspace", ws])
+    return make_world(str(tmp_path_factory.mktemp("edit")), FLAGS)
+
+
+def make_world(ws, flags, unet=UNET, text=TEXT):
+    """The shared state of :func:`check_editing_step` for a UNet config and
+    a text tower whose width is the UNet's context."""
+    ctx = unet["cross_attention_dim"]
+    jopt = jconfig.parse_args(flags)
+    topt = tconfig.parse_args(flags + ["--workspace", ws])
     rng = np.random.RandomState(0)
     params = convert.params_to_flax(build_field(topt, device="cpu").state_dict())
     params["params"]["grid_table"] = (rng.randn(
@@ -107,11 +113,11 @@ def world(tmp_path_factory):
     o, d = batch.rays_o.numpy(), batch.rays_d.numpy()
     gt = batch.rgbs.numpy().reshape(H, W, 3)
 
-    ju, jv = JUNet(JUNetConfig(**UNET)), JVAE(JVAEConfig(**VAE))
+    ju, jv = JUNet(JUNetConfig(**unet)), JVAE(JVAEConfig(**VAE))
     key = jax.random.PRNGKey(0)
     unet_p = random_params(jax.eval_shape(ju.init, key, jnp.zeros((1, 8, 8, 4)),
                                           jnp.zeros((1,), jnp.int32),
-                                          jnp.zeros((1, 77, 32))), 1)
+                                          jnp.zeros((1, 77, ctx))), 1)
     vae_p = random_params(jax.eval_shape(
         lambda k: jv.init({"params": k}, jnp.zeros((1, 64, 64, 3)), k), key), 2)
     jg = JGuidance.__new__(JGuidance)
@@ -154,13 +160,13 @@ def world(tmp_path_factory):
         return jax.value_and_grad(loss_fn, has_aux=True)(p)
 
     sds_grad = jax.jit(jax.grad(lambda l, e, k: sds_loss(unet_p, l, e, jnp.int32(T), k)[0]))
-    tg = tiny_guidance(topt)
+    tg = tiny_guidance(topt, unet, text)
     tg.unet.load_state_dict(convert.state_from_flax(unet_p))
     tg.vae.load_state_dict(convert.state_from_flax(vae_p))
-    text = {b: np.asarray(jax.random.normal(jax.random.PRNGKey(7 + i), (2, 77, 32)))
-            for i, b in enumerate(("global", "local"))}
+    embeds = {b: np.asarray(jax.random.normal(jax.random.PRNGKey(7 + i), (2, 77, ctx)))
+              for i, b in enumerate(("global", "local"))}
     return dict(topt=topt, params=params, dens=dens, batch=batch, pt_fn=pt_fn,
-                loss_grad=loss_grad, sds_grad=sds_grad, tg=tg, text=text)
+                loss_grad=loss_grad, sds_grad=sds_grad, tg=tg, text=embeds)
 
 
 def _port_trainer(w, *flags):
@@ -175,7 +181,10 @@ def _port_trainer(w, *flags):
 @pytest.mark.parametrize("ori_bg", [False, True], ids=["keep_pt_bg", "ori_bg"])
 @pytest.mark.parametrize("branch", ["global", "local"])
 def test_editing_step_matches_jax(world, monkeypatch, branch, ori_bg):
-    w = world
+    check_editing_step(world, monkeypatch, branch, ori_bg)
+
+
+def check_editing_step(w, monkeypatch, branch, ori_bg):
     jp = jax.tree_util.tree_map(jnp.asarray, w["params"])
     bg = jnp.asarray([0.2, 0.5, 0.9], jnp.float32)
     # the pt entry from other (pretrained) weights, so keep_bg has work to do

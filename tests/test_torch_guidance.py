@@ -257,8 +257,22 @@ def test_sample_timestep_range_and_stage_time():
 def test_guards_and_unported_versions():
     with pytest.raises(RuntimeError, match="--sd_weights"):
         StableDiffusionGuidance(_port_opt("--pretrained"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*SD 2.x"):
-        StableDiffusionGuidance(_port_opt("--sd_version", "2.1"), device="cpu")
+    # SD 2.x is ported: --sd_version 2.1 builds the JAX package's 2.x shapes
+    # (on the meta device here: the full-width f32 stack is ~5 GB)
+    from customnerf_tpu.guidance.text import _text_config
+    from customnerf_tpu.guidance.unet import sd2_unet_config
+    g2 = StableDiffusionGuidance(_port_opt("--sd_version", "2.1"), device="meta")
+    want = sd2_unet_config()
+    assert (g2.unet.cfg.cross_attention_dim, g2.unet.cfg.attention_head_dim,
+            g2.unet.cfg.block_out_channels) == (want.cross_attention_dim,
+                                                 want.attention_head_dim,
+                                                 want.block_out_channels)
+    jt, tt = _text_config("2.1"), g2.text_encoder.model.text_model.cfg
+    assert (tt.hidden_size, tt.num_hidden_layers, tt.num_attention_heads,
+            tt.hidden_act) == (jt.hidden_size, jt.num_hidden_layers,
+                               jt.num_attention_heads, jt.hidden_act)
+    assert g2.param_counts() == {k: v for k, v in FULL_WIDTH_PARAMS["2.x"].items()
+                                 if k != "clip_view"}
     # --use_cd is ported: an artifact directory's adapters and token load
     # (outside --test), a missing one leaves the stack as it is, as in JAX
     import tempfile
@@ -345,7 +359,7 @@ def _jax_count(fn, *args):
 
 def test_full_width_parameter_counts_equal_the_jax_package():
     """The port built on the ``meta`` device; the JAX modules through
-    ``jax.eval_shape`` of their init; both equal ``FULL_WIDTH_PARAMS``."""
+    ``jax.eval_shape`` of their init; both equal ``FULL_WIDTH_PARAMS["1.x"]``."""
     from transformers import FlaxCLIPModel, FlaxCLIPTextModel
     from customnerf_tpu.guidance.clip_view import _vit_b32_config
     from customnerf_tpu.guidance.text import _text_config
@@ -370,4 +384,4 @@ def test_full_width_parameter_counts_equal_the_jax_package():
         "text_encoder": n_params(build(CLIPTextModel, CLIPTextConfig(), device="meta")),
         "clip_view": n_params(build(CLIPModel, device="meta")),
     }
-    assert port_counts == jax_counts == FULL_WIDTH_PARAMS
+    assert port_counts == jax_counts == FULL_WIDTH_PARAMS["1.x"]

@@ -97,8 +97,8 @@ def test_entry_points_raise_without_cpu_request(monkeypatch):
 
 def test_unported_options_name_their_roadmap_item(tmp_path):
     """``-O2``, ``--compact_frac -1``, the tiled / hash grid and ``--use_cd``
-    are ported and construct; ``--mesh_shape``, ``--ckpt_format orbax`` and
-    SD 2.x still raise, naming their ROADMAP item."""
+    are ported and construct, as are SD 2.x and ``--ckpt_format orbax``;
+    ``--mesh_shape`` still raises, naming its ROADMAP item."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
@@ -123,9 +123,16 @@ def test_unported_options_name_their_roadmap_item(tmp_path):
     from customnerf_torch.engine.checkpoint import AsyncSaver
     opt = parse_args(f"--data_type synthetic {grid} -O --ckpt_format orbax".split())
     assert isinstance(Trainer(opt, device="cpu", log=quiet).saver, AsyncSaver)
-    opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained --sd_version 2.1".split())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*SD 2.x"):
-        StableDiffusionGuidance(opt, device="cpu")
+    # SD 2.x is ported: the JAX package's 2.x UNet and OpenCLIP ViT-H text
+    # tower (shapes only, on the meta device)
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS
+    opt = parse_args(f"-O --data_type nerfstudio {grid} --pretrained --sd_version 2.1 "
+                     f"--allow_random_guidance".split())
+    g2 = StableDiffusionGuidance(opt, device="meta")
+    assert g2.unet.cfg.cross_attention_dim == 1024
+    assert g2.unet.cfg.attention_head_dim == (5, 10, 20, 20)
+    assert g2.text_encoder.model.text_model.cfg.hidden_act == "gelu"
+    assert g2.param_counts()["text_encoder"] == FULL_WIDTH_PARAMS["2.x"]["text_encoder"]
     # --use_cd builds the guidance with the artifacts' adapters and token
     from customnerf_torch.guidance.custom_diffusion import extract_cd_kv, save_cd_artifacts
     stack = tiny_stack()

@@ -3,13 +3,17 @@ libjpeg: ``cv2.imread(…, IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION)`` and,
 where its codec build loads, the JAX package's native decoder
 (``csrc/dataio.cpp``, libjpeg with its defaults), on files written by
 ``cv2.imwrite`` and PIL at qualities 50-100 with 4:4:4, 4:2:2, 4:2:0,
-4:4:0 and 4:1:1 sampling, odd sizes, grayscale and restart intervals.
+4:4:0 and 4:1:1 sampling, odd sizes, grayscale and restart intervals,
+baseline and progressive (``IMWRITE_JPEG_PROGRESSIVE``, PIL's
+``progressive=True``).
 Tolerance: 1 level, with the count of unequal pixels reported (the islow
 IDCT, fancy upsampling and the fixed-point colour tables are libjpeg's, so
 every case here is expected to be exact).  The encoder's files decode in
 cv2 to the source within the PSNR cv2's own encoder reaches, and the
 loaders read the reference layout (``.jpg`` images, ``.png`` masks) equal
-to the JAX providers."""
+to the JAX providers, progressive images too, as does ``ConceptDataset``.
+A progressive file that is truncated or whose scans leave coefficient bits
+unsent (libjpeg would smooth it) raises, naming the file."""
 
 import io
 import json
@@ -110,10 +114,10 @@ def test_exif_orientation_is_not_applied(tmp_path):
 
 
 def test_unsupported_files_raise_naming_the_file(tmp_path):
+    # a progressive file is supported: it decodes as libjpeg decodes it
     prog = str(tmp_path / "prog.jpg")
     cv2.imwrite(prog, _scene(16, 16)[..., ::-1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="prog.jpg.*ROADMAP.*progressive JPEG"):
-        jpeg.read(prog)
+    np.testing.assert_array_equal(jpeg.read(prog), _libjpeg(prog))
     cmyk = str(tmp_path / "cmyk.jpg")
     Image.fromarray(_scene(16, 16)).convert("CMYK").save(cmyk, quality=90)
     with pytest.raises(ValueError, match="cmyk.jpg.*CMYK"):
@@ -122,6 +126,101 @@ def test_unsupported_files_raise_naming_the_file(tmp_path):
     bad.write_bytes(b"\x89PNG\r\n" + b"\0" * 20)
     with pytest.raises(ValueError, match="bad.jpg: not a JPEG"):
         jpeg.read(str(bad))
+
+
+def _write_progressive(path, img, writer, quality=90, sampling="420", restart=0):
+    """A progressive JPEG of ``img`` (uint8 [H, W, 3] RGB or [H, W] gray)."""
+    if writer == "cv2":
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        if img.ndim == 3:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling][0]]
+        if restart:
+            params += [cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+        cv2.imwrite(path, img[..., ::-1] if img.ndim == 3 else img, params)
+    else:
+        Image.fromarray(img).save(path, quality=quality, progressive=True,
+                                  **({"subsampling": SAMPLING[sampling][1]}
+                                     if img.ndim == 3 else {}))
+    data = open(path, "rb").read()
+    assert b"\xff\xc2" in data and b"\xff\xc0" not in data   # SOF2, no SOF0
+    return path
+
+
+@pytest.mark.parametrize("sampling", sorted(SAMPLING))
+@pytest.mark.parametrize("quality", [50, 75, 95, 100])
+@pytest.mark.parametrize("writer", ["cv2", "pil"])
+def test_progressive_decode_equals_libjpeg(tmp_path, writer, quality, sampling):
+    """Bit for bit: every scan kind (DC first and refinement, AC first and
+    refinement with end-of-band runs) over partial MCUs."""
+    path = _write_progressive(str(tmp_path / "p.jpg"), _scene(61, 83, seed=quality),
+                              writer, quality, sampling)
+    got = jpeg.read(path)
+    np.testing.assert_array_equal(got, _libjpeg(path))
+    native = _native(path, 61, 83)
+    if native is not None:
+        np.testing.assert_array_equal(got.astype(np.float32), native)
+    assert jpeg.dims(path) == (61, 83)
+
+
+@pytest.mark.parametrize("case", ["gray_cv2", "gray_pil", "restart_420", "restart_444",
+                                  "odd_33x17", "tiny_3x5", "one_block"])
+def test_progressive_other_layouts(tmp_path, case):
+    """Gray (DC and AC scans of one component), restart intervals (the DC
+    predictors and the end-of-band run reset), odd and tiny sizes."""
+    path = str(tmp_path / f"{case}.jpg")
+    if case.startswith("gray"):
+        _write_progressive(path, _scene(45, 37, seed=3)[..., 0], case[5:])
+    elif case.startswith("restart"):
+        _write_progressive(path, _scene(45, 37, seed=4), "cv2", 85, case[-3:], restart=2)
+        assert b"\xff\xdd" in open(path, "rb").read()
+    else:
+        h, w = {"odd_33x17": (33, 17), "tiny_3x5": (3, 5), "one_block": (8, 8)}[case]
+        _write_progressive(path, _scene(h, w, seed=5), "pil", 92, "420")
+    np.testing.assert_array_equal(jpeg.read(path), _libjpeg(path))
+
+
+def _segments(data):
+    """(marker, start, end) of each segment, a scan's entropy-coded data
+    counted in its SOS segment; the EOI last."""
+    out, pos = [], 2
+    while True:
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            return out + [(marker, pos, pos + 2)]
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+                end += 1
+        out.append((marker, pos, end))
+        pos = end
+
+
+def test_progressive_truncated_or_incomplete_raises(tmp_path):
+    """A file cut short raises; so does one whose last scan was dropped
+    (its EOI kept): its coefficients' last bits are unsent, and libjpeg
+    would smooth its blocks (``jdcoefct.c``), which the port's decoder does
+    not do; and one whose last scan comes twice (a refinement of bits
+    already sent)."""
+    full = _write_progressive(str(tmp_path / "full.jpg"), _scene(40, 48), "cv2", 90)
+    data = open(full, "rb").read()
+    cut = tmp_path / "cut.jpg"
+    cut.write_bytes(data[: len(data) // 2])
+    with pytest.raises(ValueError, match="cut.jpg"):
+        jpeg.read(str(cut))
+    segs = _segments(data)
+    scans = [s for s in segs if s[0] == 0xDA]
+    assert len(scans) >= 6                       # DC, AC first and refinement scans
+    last = scans[-1]
+    short = tmp_path / "short.jpg"
+    short.write_bytes(data[:last[1]] + data[last[2]:])
+    assert cv2.imread(str(short)) is not None    # libjpeg decodes it (smoothed)
+    with pytest.raises(ValueError, match="short.jpg.*unsent.*ROADMAP.*progressive JPEG"):
+        jpeg.read(str(short))
+    # the last scan sent twice refines bits that are known already
+    twice = tmp_path / "twice.jpg"
+    twice.write_bytes(data[:last[2]] + data[last[1]:])
+    with pytest.raises(ValueError, match="twice.jpg.*breaks the progression"):
+        jpeg.read(str(twice))
 
 
 def test_write_jpeg_is_cv2_readable_at_cv2s_psnr(tmp_path):
@@ -210,3 +309,65 @@ def test_loaders_read_the_reference_layout(jpeg_scenes, data_type):
             np.testing.assert_allclose(getattr(t, name).numpy(),
                                        np.asarray(getattr(j, name)),
                                        rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def progressive_scene(tmp_path_factory):
+    """The nerfstudio fixture in the reference layout with its images as
+    progressive JPEGs written by cv2."""
+    from customnerf_torch.data import fixtures
+    root = tmp_path_factory.mktemp("progressive_scene")
+    src = fixtures.write("nerfstudio", str(root), 8, 40, 30)
+    dst = fixtures.jpeg_copy(src, src + "_jpeg")
+    for name in sorted(os.listdir(os.path.join(dst, "images"))):
+        rgb = png.read_rgb(os.path.join(src, "images", name[:-4] + ".png"))
+        _write_progressive(os.path.join(dst, "images", name), rgb, "cv2", 95)
+    return dst
+
+
+def test_loaders_read_progressive_images(progressive_scene):
+    """The port's nerfstudio provider on progressive images equals the JAX
+    provider (libjpeg): images to 1 level / 256 (the same decode; the
+    resize's rounding), masks and rays to 1e-6."""
+    from customnerf_tpu import config as jconfig
+    from customnerf_tpu.data import base as jbase
+    from customnerf_torch import config as tconfig
+    from customnerf_torch.data import base as tbase
+    d = progressive_scene
+    flags = (f"-O --data_type nerfstudio --keyword lang_bear --data_path {d} "
+             f"--train_resolution_level 2 --eval_resolution_level 3 --train_size 7").split()
+    for split in ("train", "val"):
+        j = jbase.NeRFDataset(jconfig.parse_args(flags), split).dataloader()
+        t = tbase.NeRFDataset(tconfig.parse_args(flags), split, device="cpu").dataloader()
+        assert (len(t), t.n_images, t.H, t.W, t.images_lis) == \
+            (len(j), j.n_images, j.H, j.W, j.images_lis)
+        for name, tol in (("images_flat", 1.0 / 256 + 1e-6), ("masks_flat", 1e-6),
+                          ("origins_flat", 1e-5), ("directions_flat", 1e-5)):
+            np.testing.assert_allclose(getattr(t, name).numpy(),
+                                       np.asarray(getattr(j, name)),
+                                       rtol=0, atol=tol, err_msg=name)
+
+
+def test_concept_dataset_reads_progressive_images(tmp_path):
+    """``ConceptDataset`` on progressive concept and class images (sizes
+    below and above 512) equals the JAX one (``cv2.imread``), draw for draw:
+    the rule of ``tests/test_torch_custom_diffusion.py``."""
+    from customnerf_tpu.guidance import custom_diffusion as jcd
+    from customnerf_torch.guidance import custom_diffusion as tcd
+    for sub, sizes in (("inst", [(300, 280), (600, 640)]), ("cls", [(520, 530)])):
+        os.makedirs(tmp_path / sub)
+        for i, (h, w) in enumerate(sizes):
+            img = cv2.GaussianBlur(_scene(h, w, seed=i), (0, 0), 2)
+            _write_progressive(str(tmp_path / sub / f"c{i}.jpg"), img,
+                               "cv2" if i % 2 else "pil", 90)
+    args = (str(tmp_path / "inst"), "photo of a <new1> bear", str(tmp_path / "cls"), "bear")
+    j, t = jcd.ConceptDataset(*args, size=512, seed=3), tcd.ConceptDataset(*args, size=512, seed=3)
+    assert t.instance == j.instance and t.cls == j.cls
+    for _ in range(6):
+        (jc, jm, jp), (tc, tm, tp) = j.sample_instance(), t.sample_instance()
+        assert tp == jp
+        np.testing.assert_array_equal(tm, jm)
+        np.testing.assert_allclose(tc, jc, rtol=0, atol=1.0 / 127.5 + 1e-6)
+    (jc, jm, _), (tc, tm, _) = j.sample_class(), t.sample_class()
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_allclose(tc, jc, rtol=0, atol=1.0 / 127.5 + 1e-6)

@@ -340,7 +340,20 @@ def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
     assert any(bool((p.detach() != b).any()) for p, b in zip(tr.field.parameters(), before))
 
 
-def _tiny_guidance(opt, device, seed=0, dtype=None):
+TINY_UNET = dict(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                 cross_attention_dim=32, attention_head_dim=4, norm_num_groups=8)
+TINY_TEXT = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                 num_attention_heads=4)
+# SD 2.x's shapes at reduced width: 64-wide heads at every level (20 heads
+# at 1280 channels at full width), a context wider than the 1.5 stack's and
+# an exact-GELU text tower
+SD2_UNET = dict(block_out_channels=(64, 128, 128, 128), layers_per_block=1,
+                cross_attention_dim=64, attention_head_dim=(1, 2, 2, 2), norm_num_groups=8)
+SD2_TEXT = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                num_attention_heads=4, hidden_act="gelu")
+
+
+def _tiny_guidance(opt, device, seed=0, dtype=None, unet=TINY_UNET, text=TINY_TEXT):
     from customnerf_torch.guidance.layers import build
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
     from customnerf_torch.guidance.text import (CLIPTextConfig, CLIPTextModel,
@@ -348,14 +361,10 @@ def _tiny_guidance(opt, device, seed=0, dtype=None):
     from customnerf_torch.guidance.unet import UNetConfig
     from customnerf_torch.guidance.vae import VAEConfig
     text = TextEncoder(model=build(
-        CLIPTextModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
-                                      num_hidden_layers=2, num_attention_heads=4),
+        CLIPTextModel, CLIPTextConfig(**text),
         device=device, generator=torch.Generator(device=device).manual_seed(seed)))
     return StableDiffusionGuidance(
-        opt, device=device, text_encoder=text,
-        unet_cfg=UNetConfig(block_out_channels=(32, 64, 64, 64), layers_per_block=1,
-                            cross_attention_dim=32, attention_head_dim=4,
-                            norm_num_groups=8),
+        opt, device=device, text_encoder=text, unet_cfg=UNetConfig(**unet),
         vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                           norm_num_groups=8), dtype=dtype)
 
@@ -588,6 +597,18 @@ def test_graphed_dispatch_matches_eager_steps(cuda, tmp_path, case):
 def test_graphed_editing_matches_eager_steps(cuda, tmp_path, monkeypatch):
     """Editing with a tiny SD stack: one dispatch of K = 3 against three
     eager editing steps, from the same checkpoint, seed and stack."""
+    _graphed_editing_check(cuda, tmp_path, monkeypatch)
+
+
+def test_graphed_sd2_editing_matches_eager_steps(cuda, tmp_path, monkeypatch):
+    """The same under ``--sd_version 2.1`` with SD 2.x's shapes at reduced
+    width (64-wide heads at every level, exact-GELU text), in the card's
+    bf16: the 2.x step captures and replays as the eager steps run."""
+    _graphed_editing_check(cuda, tmp_path, monkeypatch, ["--sd_version", "2.1"],
+                           unet=SD2_UNET, text=SD2_TEXT)
+
+
+def _graphed_editing_check(cuda, tmp_path, monkeypatch, flags=(), **stack):
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine import editing
@@ -598,8 +619,10 @@ def test_graphed_editing_matches_eager_steps(cuda, tmp_path, monkeypatch):
         "--workspace", str(tmp_path / "e"), "--pretrained", "--editing_from",
         str(tmp_path / "r" / "checkpoints" / "df_ep0002.pth"), "--text", "a corgi",
         "--text_fg", "a dog", "--lambda_sd", "0.01", "--keep_bg", "100",
-        "--random_bg_c", "--detach_bg", "--stage_time", "--allow_random_guidance"])
-    guidance = _tiny_guidance(opt, cuda)
+        "--random_bg_c", "--detach_bg", "--stage_time", "--allow_random_guidance",
+        *flags])
+    guidance = _tiny_guidance(opt, cuda, **stack)
+    assert guidance.dtype == "bfloat16"
     monkeypatch.setattr(editing, "RESIZE", 64)
     eager, again, graphed = (Trainer(opt, guidance=guidance, use_checkpoint="scratch",
                                      log=lambda *_: None) for _ in range(3))

@@ -108,12 +108,16 @@ def test_unsupported_files_raise(tmp_path):
     with pytest.raises(ValueError, match="p.png.*palette"):
         png.read(palette)
     # a .jpg path goes to utils/jpeg.py (tests/test_torch_jpeg.py); a
-    # progressive one raises there, naming the file and its ROADMAP row
+    # progressive one decodes there as libjpeg decodes it, through each of
+    # these entry points
     jpg = str(tmp_path / "photo.jpg")
     cv2.imwrite(jpg, _image((8, 8, 3), 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    for fn in (png.read, png.dims, lambda p: resample.load(p, 4, 4)):
-        with pytest.raises(ValueError, match="photo.jpg.*progressive JPEG"):
-            fn(jpg)
+    want = cv2.imread(jpg, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)[..., ::-1]
+    np.testing.assert_array_equal(png.read(jpg), want)
+    assert png.dims(jpg) == (8, 8)
+    np.testing.assert_allclose(resample.load(jpg, 4, 4),
+                               resample.resize_area(want, 4, 4, 1.0 / 255.0),
+                               rtol=0, atol=1e-6)
     gif = tmp_path / "x.png"
     gif.write_bytes(b"GIF89a" + b"\0" * 40)
     with pytest.raises(ValueError, match="x.png: not a PNG"):
