@@ -83,6 +83,37 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share.
+7a. multi-scene editing (N scenes × M prompts,
+   ``engine/editing.py::editing_step_scenes``), on the editing trainer of
+   phase 6 (phase 4's checkpoint, the full-width SD 1.5 stack in bf16):
+   S = 2 scenes from its state, each with its own prompt pair and its own
+   copy of the occupancy grid, 4 steps (after one that fills each scene's pt
+   entry).  Every loss finite, every scene's field moved; the counters
+   zeroed before and read after: each kernel mode launched, as the kernels
+   count on the card, exactly 2× as often a step as one eager single-scene
+   step (counted alike just before); K1-bf16 and dT against their plain
+   versions on the last step's inputs; one S = 2 step against two
+   single-scene steps from one saved state with the same draws (bg colour,
+   t, both noises, the scenes' generators and gates): ``loss_sds`` and
+   ``loss_bg`` within 5e-2 relative, the editing dispatch check's
+   tolerance (the UNet runs in bf16 at batch 4 against 2: cfg 100 scales its
+   roundings).  Prints the ms a step at S = 2 and S = 4 against S eager
+   single-scene steps, the UNet stage's ms at batch 2S against batch 2
+   (CUDA events at the stage marks), and the peak GB.
+7b'. the ``data`` axis: two processes on the one card (``gloo``: not a
+   card per rank, ``parallel/mesh.py::choose_backend``) each run this file
+   as a worker (``--data-axis-worker``): the flagship (the default policy)
+   from phase 4's checkpoint under ``--mesh_shape data:2``, 4 eager steps of
+   16,384 rays (each rank 8,192: 128 whole compaction blocks of 64) and one
+   ``render_image`` of a validation view, against this process running the
+   same from the same checkpoint without a mesh: losses within 1e-2
+   relative, every parameter within 2·lr_g a step and its RMS distance
+   within 1e-2·lr_g a step (phase 4a's rules; the ranks' atomic sums and
+   the gradient sum run in another order), the view within 2e-2 of the
+   largest pixel error and 1e-3 mean.  Rank 0's counters: K1-bf16 and
+   dT-bf16 must launch; both are held against their plain versions on rank
+   0's inputs.  The ms a step is printed; it is not a speed figure (both
+   ranks share the card, and gloo goes through the host).
 7b. image-driven editing, on the stack of phase 5 and the checkpoint of
    phase 4: 4 synthetic frames at 128×128 written as JPEG
    (``utils/jpeg.py::write_jpeg``) are the concept images; ``retrieve``
@@ -160,7 +191,8 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    recipe's 0.35.
 10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
    editing, parity, SD 2.x, quality and the graph paths' rows; all four
-   kernel modes), then the last line ``{"ok": true, "device": {...}}``.
+   kernel modes; rows of the multi-scene and ``data:2`` paths), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Every phase but the 40-step reconstruction runs the JAX package's default
 precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
@@ -861,6 +893,18 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
             "live_rows_ms": live_ms, "other_mode_ms": other_ms}
 
 
+def log_row(r):
+    log(f"[kernel] {r['path']} {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
+        f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms (the other mode "
+        f"{r['other_mode_ms']:.4f} ms) plain "
+        f"{r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
+        f"{r['call_ms']:.4f} ms) bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+        + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
+        + (f" | live rows {r['live_share']:.3f}: {r['live_rows_ms']:.4f} ms"
+           if "live_rows_ms" in r else
+           f" | f32-FMA bound {r['bound_f32_fma_ms']:.4f} ms"))
+
+
 def dtable_rows(calls):
     """dT against its plain version on the XY plane of each level of a
     step's captured calls ((level 0: XY, XZ, YZ), (level 1: ...))."""
@@ -1113,6 +1157,313 @@ def editing_dispatch(trainer, train, path):
     summary, mlp, dt = dispatch_check(trainer, batches, "editing", path)
     check_launched(summary["graph_launches"], (K1_BF16, DT_BF16), path)
     return summary, dispatch_rows(mlp, dt, summary)
+
+
+# ------------------------------------------------------------- N scenes
+SCENE_STEPS = 4
+SCENE_PROMPTS = [("a corgi in a forest", "a corgi"), ("a tiger in the snow", "a tiger"),
+                 ("a panda on the moon", "a panda"),
+                 ("a bronze statue of a bear", "a bronze bear")]
+SCENE_LOSS_RTOL = 5e-2            # the editing dispatch check's tolerance
+
+
+def _scene_state(tr, S, editing):
+    """S scenes from the trainer's field and Adam state, each with its own
+    copy of the occupancy grid."""
+    import torch
+    from customnerf_torch.ops.occupancy import OccupancyState
+    named = list(tr.field.named_parameters())
+    params_s = editing.stack_trees([{n: p.detach().clone() for n, p in named}] * S)
+    opt_s = {"step": torch.full((S,), float(tr.n_updates)),
+             **{k: {n: torch.stack([tr.optimizer.state[p][k]] * S) for n, p in named}
+                for k in ("exp_avg", "exp_avg_sq")}}
+    occ = tr.occ_state
+    occ_s = editing.stack_trees([OccupancyState(
+        occ.density_grid.clone(), occ.bitfield.clone(), occ.mean_density.clone(),
+        occ.iter_density, occ.grid_size) for _ in range(S)])
+    return params_s, opt_s, occ_s
+
+
+def _stage_marks():
+    import torch
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+    return events, mark
+
+
+def run_multi_scene(tr, opt):
+    """Phase 7a: S = 2 (and S = 4) scenes a step on the editing trainer.
+    Returns its summary and K1 / dT rows on its inputs."""
+    import torch
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing as ed
+    from customnerf_torch.engine.dispatch import SavedState
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import triplane
+
+    dev = tr.device
+    train = NeRFDataset(opt, "train", device=dev).dataloader()
+    views = [train.item(i % len(train)) for i in range(4)]
+    scenes = [ed.prepare_scene_prompts(tr, *p) for p in SCENE_PROMPTS]
+
+    # one eager single-scene step: its launches and stage times
+    tr.global_step += 1
+    tr.train_step(views[0])                      # its pt entry
+    single_ms, single_unet = [], []
+    for k in range(3):
+        events, mark = _stage_marks()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k == 2:
+            zero_counts()
+        mark("start")
+        tr.global_step += 1
+        tr.train_step(views[0], mark=mark)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+        single_unet.append(events["latents"].elapsed_time(events["unet"]))
+    single_launches = read_counts()
+
+    # (a) S = 2: a step that fills the pt entries, then SCENE_STEPS counted
+    params_s, opt_s, occ_s = _scene_state(tr, 2, ed)
+    params_s, opt_s, _, _ = ed.editing_step_scenes(tr, views[:2], params_s, opt_s,
+                                                   scenes=scenes[:2], occ_s=occ_s)
+    start = {k: v.clone() for k, v in params_s.items()}
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with captured_calls(field, "fused_field_mlp", keep=4) as mlp_calls, \
+            captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
+        zero_counts()
+        for _ in range(SCENE_STEPS):
+            events, mark = _stage_marks()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark("start")
+            params_s, opt_s, losses, aux = ed.editing_step_scenes(
+                tr, views[:2], params_s, opt_s, scenes=scenes[:2], occ_s=occ_s,
+                mark=mark)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "unet_ms": events["latents"].elapsed_time(events["unet"]),
+                          "losses": losses.tolist(),
+                          "loss_sds": aux["loss_sds"].tolist(),
+                          "loss_bg": aux["loss_bg"].tolist()})
+        launches = read_counts()
+        mlp_input, dt_input = mlp_calls[-1], list(dt_calls)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(v) for s in steps for k in ("losses", "loss_sds", "loss_bg")
+               for v in s[k]), steps
+    moved = [min(float((params_s[n][i] - start[n][i]).abs().max()) for n in start)
+             for i in range(2)]
+    assert all(m > 0 for m in moved), f"a scene's field did not move: {moved}"
+    for name, n in single_launches.items():
+        assert launches[name] == 2 * SCENE_STEPS * n, \
+            (f"{name}: {launches[name]} launches in {SCENE_STEPS} S = 2 steps, "
+             f"a single-scene step {n}")
+    check_launched(launches, (K1_BF16, DT_BF16), "multi-scene editing")
+
+    # (b) S = 4: a step that fills the pt entries, then 2 timed
+    p4, o4, occ4 = _scene_state(tr, 4, ed)
+    p4, o4, _, _ = ed.editing_step_scenes(tr, views, p4, o4, scenes=scenes, occ_s=occ4)
+    s4 = []
+    for _ in range(2):
+        events, mark = _stage_marks()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        p4, o4, losses4, _ = ed.editing_step_scenes(tr, views, p4, o4, scenes=scenes,
+                                                    occ_s=occ4, mark=mark)
+        torch.cuda.synchronize()
+        s4.append({"ms": (time.perf_counter() - t0) * 1e3,
+                   "unet_ms": events["latents"].elapsed_time(events["unet"])})
+        assert bool(torch.isfinite(losses4).all()), losses4
+    del p4, o4, occ4
+
+    # (c) one S = 2 step against two single-scene steps with the same draws
+    for i, v in enumerate(views[:2]):
+        tr.pt_dict[(i, v.img_path)] = ed._get_pt(tr, v, ed._bg_color(tr))
+    g = torch.Generator(device=dev).manual_seed(11)
+    side = ed.RESIZE // 8                          # the latents' side
+    draws = [dict(bg_color=torch.rand(3, generator=g, device=dev), t=400 + 200 * i,
+                  noise=torch.randn(1, 4, side, side, generator=g, device=dev),
+                  vae_noise=torch.randn(1, 4, side, side, generator=g, device=dev))
+             for i in range(2)]
+    saved = SavedState([*tr.field.parameters(), tr._count_t], tr.optimizer.state,
+                       tr.generator)
+    host = (tr.n_updates, tr.np_rng.get_state())
+    probe = torch.Generator(device=dev)
+    probe.set_state(tr.generator.get_state())
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=probe, device=dev).tolist()
+    pe, oe, _ = _scene_state(tr, 2, ed)
+    _, _, _, batched = ed.editing_step_scenes(tr, views[:2], pe, oe, draws)
+    single = []
+    for i in range(2):
+        saved.restore()
+        tr.n_updates = host[0]
+        tr.np_rng.set_state(host[1])
+        for _ in range(i):
+            tr.np_rng.random()                    # scene i takes the i-th gate
+        tr.generator.manual_seed(int(seeds[i]))
+        _, aux1, _ = ed.editing_step(tr, views[i], draws=draws[i])
+        single.append({k: float(v) for k, v in aux1.items()})
+    saved.restore()
+    tr.n_updates = host[0]
+    tr.np_rng.set_state(host[1])
+    rel = max(abs(float(batched[k][i]) - single[i][k]) / max(abs(single[i][k]), 1e-12)
+              for i in range(2) for k in ("loss_sds", "loss_bg"))
+    assert rel <= SCENE_LOSS_RTOL, (f"an S = 2 step's losses differ from two "
+                                    f"single-scene steps by {rel:.3g} relative: "
+                                    f"{batched} vs {single}")
+
+    rows = [check_fused_mlp(*mlp_input[0], **mlp_input[1])] + dtable_rows(dt_input)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        r["path"] = "multi-scene editing S=2"
+    med = statistics.median
+    summary = {
+        "steps": steps, "launches": launches, "single_step_launches": single_launches,
+        "peak_gb": peak / 1e9, "field_moved": moved,
+        "ms_s2": med(s["ms"] for s in steps), "ms_s4": med(s["ms"] for s in s4),
+        "ms_single": med(single_ms), "unet_ms_s2": med(s["unet_ms"] for s in steps),
+        "unet_ms_s4": med(s["unet_ms"] for s in s4), "unet_ms_single": med(single_unet),
+        "vs_single_rel": rel, "vs_single": {"batched": {k: v.tolist() for k, v in batched.items()},
+                                            "single": single},
+    }
+    return summary, rows
+
+
+# ------------------------------------------------------------- data axis
+DATA_AXIS_STEPS = 4
+DATA_AXIS_WORKSPACE = os.path.join("chiprun_out", "smoke_data_axis")
+DATA_AXIS_JOIN_S = 600
+
+
+def data_axis_run(ckpt, mesh_shape, rank=0):
+    """The flagship from ``ckpt`` (under ``mesh_shape``): DATA_AXIS_STEPS
+    eager steps and one ``render_image``, the counters zeroed before and
+    read after.  Returns the results and the last step's K1 / dT inputs."""
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import triplane
+
+    ws = os.path.join(DATA_AXIS_WORKSPACE, f"{mesh_shape or 'one'}_{rank}")
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + ["--workspace", ws,
+                                                    "--mesh_shape", mesh_shape])
+    tr = Trainer(opt, use_checkpoint=ckpt, log=lambda *_: None)
+    train = NeRFDataset(opt, "train", device=tr.device).dataloader()
+    view = NeRFDataset(opt, "val", device=tr.device).dataloader().item(0)
+    batches = [train.item(i % len(train)) for i in range(DATA_AXIS_STEPS)]
+    lrs = [g["lr_scale"] * tr.lr_at(tr.n_updates) for g in tr.optimizer.param_groups]
+    losses, ms = [], []
+    with captured_calls(field, "fused_field_mlp", keep=4) as mlp_calls, \
+            captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
+        zero_counts()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.global_step += 1
+            losses.append(float(tr.train_step(b)[0]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mlp_input, dt_input = mlp_calls[-1], list(dt_calls)     # the last step's
+        image = tr.render_image(view.rays_o, view.rays_d)["image"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+    out = {"losses": losses, "ms": ms, "launches": launches, "lr_grid_mlp": lrs,
+           "params": {n: p.detach().cpu() for n, p in tr.field.named_parameters()},
+           "image": image.cpu(), "backend": tr.mesh.backend if tr.mesh else None}
+    return out, mlp_input, dt_input
+
+
+def data_axis_worker(rank: int, port: str, ckpt: str, out: str) -> int:
+    """One rank of phase 7b' (``chip_smoke.py --data-axis-worker``)."""
+    import torch
+    from customnerf_torch.parallel.mesh import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False        # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    assert init_distributed(f"localhost:{port}", num_processes=2, process_id=rank,
+                            log=log)
+    res, mlp_input, dt_input = data_axis_run(ckpt, "data:2", rank)
+    if rank == 0:
+        rows = [check_fused_mlp(*mlp_input[0], **mlp_input[1])] + dtable_rows(dt_input)
+        for r in rows:
+            r["launches"] = res["launches"][r["name"]]
+            r["path"] = "data:2 reconstruction (rank 0)"
+        res["rows"] = rows
+        torch.save(res, out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_data_axis(ckpt):
+    """Phase 7b': two worker processes under ``data:2`` against this
+    process without a mesh.  Returns the summary and rank 0's rows."""
+    import socket
+    import subprocess
+    import torch
+
+    os.makedirs(DATA_AXIS_WORKSPACE, exist_ok=True)
+    out = os.path.join(DATA_AXIS_WORKSPACE, "rank0.pt")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--data-axis-worker", str(r), port, ckpt, out],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DATA_AXIS_JOIN_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"data:2 rank {r} failed (rc {p.returncode}):\n{text[-3000:]}"
+    mesh = torch.load(out, weights_only=False)
+    one, _, _ = data_axis_run(ckpt, "")
+    backend_line = next(line for line in logs[0].splitlines() if "backend" in line)
+    assert mesh["backend"] == "gloo", mesh["backend"]
+    check_launched(mesh["launches"], (K1_BF16, DT_BF16), "data:2 reconstruction")
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(mesh["losses"], one["losses"]))
+    assert rel <= LOSS_RTOL["reconstruction"], (mesh["losses"], one["losses"])
+    lr_g, lr_m = mesh["lr_grid_mlp"]
+    params = []
+    for n, a in mesh["params"].items():
+        b = one["params"][n]
+        lr = (lr_g if n == "grid_table" else lr_m) * DATA_AXIS_STEPS
+        d = (a - b).abs()
+        q = {"name": n, "max_over_lr_steps": float(d.max()) / lr,
+             "rms_over_lr_steps": float(d.pow(2).mean().sqrt()) / lr}
+        assert q["max_over_lr_steps"] <= 2.0 and q["rms_over_lr_steps"] <= PARAM_RMS_LR, q
+        params.append(q)
+    img_err = (mesh["image"] - one["image"]).abs()
+    assert float(img_err.max()) <= 2e-2 and float(img_err.mean()) <= 1e-3, \
+        (float(img_err.max()), float(img_err.mean()))
+    shutil.rmtree(DATA_AXIS_WORKSPACE, ignore_errors=True)
+    summary = {"backend": backend_line, "losses": mesh["losses"],
+               "losses_one_process": one["losses"], "loss_rel": rel,
+               "ms_per_step": statistics.median(mesh["ms"]),
+               "ms_per_step_one_process": statistics.median(one["ms"]),
+               "params": params, "image_max_err": float(img_err.max()),
+               "image_mean_err": float(img_err.mean()), "launches": mesh["launches"],
+               "launches_one_process": one["launches"]}
+    return summary, mesh["rows"]
 
 
 # ------------------------------------------------------------ image-driven
@@ -2094,6 +2445,9 @@ def log_sd2(card, sd2, ed15, cdp15):
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--data-axis-worker"]:
+        rank, port, ckpt, out = sys.argv[2:6]
+        return data_axis_worker(int(rank), port, ckpt, out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2115,7 +2469,7 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE):
+        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, DATA_AXIS_WORKSPACE):
             shutil.rmtree(ws, ignore_errors=True)
 
 
@@ -2194,6 +2548,32 @@ def run_all(card, procs) -> int:
         r["launches"] = ed["launches"][r["name"]]
         r["path"] = "editing"
     rows += edit_rows + ed.pop("dispatch_rows")
+    scenes, scene_rows = run_multi_scene(editor, edit_opt)
+    log(f"[multi-scene] {card} | S = 2 scenes x 2 prompt pairs, {SCENE_STEPS} steps of "
+        f"2 x {STEP_RAYS} rays, per-scene occupancy | {scenes['ms_s2']:.1f} ms/step at "
+        f"S = 2, {scenes['ms_s4']:.1f} at S = 4, against {scenes['ms_single']:.1f} a "
+        f"single-scene step (x2 {2 * scenes['ms_single']:.1f}, x4 "
+        f"{4 * scenes['ms_single']:.1f}) | UNet stage {scenes['unet_ms_s2']:.1f} ms at "
+        f"batch 4, {scenes['unet_ms_s4']:.1f} at batch 8, {scenes['unet_ms_single']:.1f} "
+        f"at batch 2 | peak {scenes['peak_gb']:.2f} GB | launches {scenes['launches']} "
+        f"(a single-scene step {scenes['single_step_launches']}) | against two "
+        f"single-scene steps: {scenes['vs_single_rel']:.3g} rel (tol {SCENE_LOSS_RTOL})")
+    rows += scene_rows
+    for r in scene_rows:            # in the log even if a later phase fails
+        log_row(r)
+    data_axis, data_rows = run_data_axis(ck["checkpoint"])
+    log(f"[data axis] {card} | --mesh_shape data:2, two processes on one card | "
+        f"{data_axis['backend'].strip()} | {DATA_AXIS_STEPS} steps of {STEP_RAYS} rays: "
+        f"{data_axis['ms_per_step']:.1f} ms/step (one process "
+        f"{data_axis['ms_per_step_one_process']:.1f}; not a speed figure: the ranks "
+        f"share the card) | losses within {data_axis['loss_rel']:.2g} rel, params max "
+        f"{max(q['max_over_lr_steps'] for q in data_axis['params']):.3g} lr-steps, RMS "
+        f"{max(q['rms_over_lr_steps'] for q in data_axis['params']):.3g} | view max err "
+        f"{data_axis['image_max_err']:.3g}, mean {data_axis['image_mean_err']:.3g} | "
+        f"rank 0 launches {data_axis['launches']}")
+    rows += data_rows
+    for r in data_rows:
+        log_row(r)
 
     guidance, clip_matcher = editor.guidance, editor.clip_matcher
     del editor
@@ -2242,21 +2622,14 @@ def run_all(card, procs) -> int:
     quality, quality_rows = quality_phase(procs)
     rows += quality_rows
     for r in rows:
-        log(f"[kernel] {r['path']} {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
-            f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms (the other mode "
-            f"{r['other_mode_ms']:.4f} ms) plain "
-            f"{r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
-            f"{r['call_ms']:.4f} ms) bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-            + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
-            + (f" | live rows {r['live_share']:.3f}: {r['live_rows_ms']:.4f} ms"
-               if "live_rows_ms" in r else
-               f" | f32-FMA bound {r['bound_f32_fma_ms']:.4f} ms"))
+        log_row(r)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
-                   "checkpoint": ck, "editing": ed, "image_driven": cdp,
+                   "checkpoint": ck, "editing": ed, "multi_scene": scenes,
+                   "data_axis": data_axis, "image_driven": cdp,
                    "validate_weights": drill, "parity": parity, "sd2": sd2,
                    "quality": quality},
                   f, indent=1)

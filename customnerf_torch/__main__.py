@@ -56,6 +56,15 @@ on the card as replays of one captured CUDA graph of a step;
 ``--ckpt_format orbax`` writes the ``.pth`` checkpoints off the training
 thread (waited for before the program exits).
 
+``--mesh_shape data:k`` shards each step's rays over k processes
+(``customnerf_torch/parallel/mesh.py``), launched by torchrun or with
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set::
+
+    torchrun --nproc_per_node 2 -m customnerf_torch <flags> --mesh_shape data:2
+
+The backend is NCCL when every rank has a card of its own and gloo
+otherwise; the log names it and why.
+
 Without ``--sd_weights`` (a local diffusers directory) or
 ``--allow_random_guidance`` the editing phase refuses to run.
 
@@ -71,11 +80,15 @@ from __future__ import annotations
 from customnerf_torch.config import parse_args
 from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine.trainer import Trainer, max_epochs_for
+from customnerf_torch.parallel.mesh import init_distributed
 
 
 def main(argv=None, log=print, device=None):
     """Returns the trainer it ran; ``device`` None is the card."""
     opt = parse_args(argv)
+    # torchrun's environment (or MASTER_ADDR & co.) before any trainer:
+    # a no-op when nothing is configured (main.py:48-49)
+    init_distributed(log=log)
     if opt.validate_weights:
         from customnerf_torch.guidance.validate import validate_weights
         report = validate_weights(opt, device=device)

@@ -30,13 +30,14 @@ _NETS = ("feature_net", "density_net", "rgb_net", "conf_net")
 
 def params_from_flax(tree) -> dict:
     """Flax param tree (numpy leaves, with or without the outer "params")
-    → a ``NeRFField`` state dict of float32 CPU tensors."""
+    → a ``NeRFField`` state dict of float32 CPU tensors.  Leaves stacked on
+    leading axes (multi-scene editing's scene axis) keep them."""
     p = tree["params"] if "params" in tree else tree
     sd = {"grid_table": torch.tensor(np.asarray(p["grid_table"], np.float32))}
     for net in _NETS:
         for layer, leaves in p.get(net, {}).items():
             k = np.asarray(leaves["kernel"], np.float32)
-            sd[f"{net}.{layer}.weight"] = torch.tensor(k.T.copy())
+            sd[f"{net}.{layer}.weight"] = torch.tensor(np.swapaxes(k, -1, -2).copy())
             if "bias" in leaves:
                 sd[f"{net}.{layer}.bias"] = torch.tensor(
                     np.asarray(leaves["bias"], np.float32))
@@ -44,7 +45,8 @@ def params_from_flax(tree) -> dict:
 
 
 def params_to_flax(state_dict) -> dict:
-    """``NeRFField`` state dict → ``{"params": …}`` tree of numpy arrays."""
+    """``NeRFField`` state dict → ``{"params": …}`` tree of numpy arrays
+    (stacked state dicts → stacked leaves)."""
     p = {"grid_table": state_dict["grid_table"].detach().cpu().numpy().copy()}
     for key, value in state_dict.items():
         if key == "grid_table":
@@ -52,8 +54,84 @@ def params_to_flax(state_dict) -> dict:
         net, layer, leaf = key.split(".")
         a = value.detach().cpu().numpy()
         p.setdefault(net, {}).setdefault(layer, {})[
-            "kernel" if leaf == "weight" else "bias"] = (a.T if leaf == "weight" else a).copy()
+            "kernel" if leaf == "weight" else "bias"] = (
+                np.swapaxes(a, -1, -2) if leaf == "weight" else a).copy()
     return {"params": p}
+
+
+def _is_array(x) -> bool:
+    return hasattr(x, "shape") and hasattr(x, "dtype")
+
+
+def _adam_states(node):
+    """The ``ScaleByAdamState``-like nodes (``count``, ``mu``, ``nu``) of an
+    optax state, in order (one a label of ``multi_transform``)."""
+    if {"mu", "nu"} <= set(getattr(node, "_fields", ())):
+        return [node]
+    if isinstance(node, dict):
+        return [a for v in node.values() for a in _adam_states(v)]
+    if isinstance(node, (tuple, list)):
+        return [a for v in node for a in _adam_states(v)]
+    return []
+
+
+def _merge_masked(trees):
+    """One tree from the per-label trees of ``multi_transform``, each
+    holding arrays where its label applies (a masked node elsewhere)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _merge_masked([t[k] for t in trees]) for k in first}
+    arrays = [t for t in trees if _is_array(t)]
+    if len(arrays) != 1:
+        raise ValueError(f"a leaf held by {len(arrays)} of the optax labels")
+    return arrays[0]
+
+
+def adam_from_optax(opt_state) -> dict:
+    """The JAX trainer's optax state (``multi_transform`` of zero_nans →
+    Adam → lr schedule, numpy leaves, optionally stacked on a scene axis)
+    → the port's ``{"step", "exp_avg", "exp_avg_sq"}`` with the field's
+    parameter names (``step`` f32 on the CPU: the update count, the
+    ``count`` of optax's Adam and schedule)."""
+    states = _adam_states(opt_state)
+    if not states:
+        raise ValueError("no Adam state in the optax state")
+    counts = [np.asarray(a.count) for a in states]
+    if any(not np.array_equal(c, counts[0]) for c in counts):
+        raise ValueError("the optax labels' Adam counts differ")
+    return {"step": torch.tensor(counts[0].astype(np.float32)),
+            "exp_avg": params_from_flax(_merge_masked([a.mu for a in states])),
+            "exp_avg_sq": params_from_flax(_merge_masked([a.nu for a in states]))}
+
+
+def adam_to_optax(adam: dict, template):
+    """:func:`adam_from_optax` inverted into the structure of ``template``
+    (an optax state of the same field): its moments, and every ``count``
+    (Adam's and the schedule's) set to ``step``; masked nodes stay."""
+    mu = params_to_flax(adam["exp_avg"])
+    nu = params_to_flax(adam["exp_avg_sq"])
+    count = adam["step"].detach().cpu().numpy().astype(np.int32)
+
+    def fill(node, full):
+        if isinstance(node, dict):
+            return {k: fill(v, full[k]) for k, v in node.items()}
+        return full if _is_array(node) else node
+
+    def walk(node):
+        fields = getattr(node, "_fields", ())
+        if "mu" in fields and "nu" in fields:
+            return node._replace(count=count, mu=fill(node.mu, mu), nu=fill(node.nu, nu))
+        if "count" in fields:
+            return node._replace(count=count)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if hasattr(node, "_fields"):
+            return type(node)(*[walk(v) for v in node])
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(template)
 
 
 # flax module names of the SD UNet / VAE (customnerf_tpu/guidance/unet.py,

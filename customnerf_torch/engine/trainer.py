@@ -58,9 +58,26 @@ writer fails); ``--clip_metrics`` scores the test renders with CLIP.
 under ``{workspace}/profile/``, where the JAX trainer writes its trace).
 On the card the optimizer is ``torch.optim.Adam(capturable=True)`` and the
 decayed lr is computed on the device from an update counter, so that a
-captured step applies the lr of the update it replays.  Multi-scene editing
-and ``--mesh_shape`` are a later slice and raise ``NotImplementedError``;
-so does reading a JAX ``.orbax`` directory.
+captured step applies the lr of the update it replays.
+
+``--mesh_shape`` (``parallel/mesh.py``, JAX ``trainer.py:146``): under a
+``data`` axis of k ranks every render — a reconstruction or editing step,
+and each chunk row of ``render_image`` (eval, ``--test``, the pt render) —
+takes this rank's rays of the batch (whole compaction blocks of the
+single-process plan), draws the batch's random numbers in the
+single-process order and keeps its rows, and gathers the per-ray outputs
+back into the batch's order.  The loss is then the same mean over the
+global batch on every rank, each rank's backward reaches the parameters
+through its own rays only, and the gradients are summed over the axis
+before NaN-zeroing and Adam (JAX ``trainer.py:443-468``).  The step holds
+no term on the parameters alone (the regularizers of ``ops/regularizers.py``
+are not in it, and the weight decay is Adam's, after the sum), so nothing
+is counted k times.  ``--batch_rays`` steps are not sharded: every rank
+takes the same whole step and nothing is summed (``trainer.py:443-447``).
+Under a mesh a K-step group runs as the CPU's plain loop (no CUDA graph:
+collectives are not captured).  Only the first rank writes checkpoints,
+strips and test frames; every rank renders.  Reading a JAX ``.orbax``
+directory raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,12 +105,9 @@ from customnerf_torch.ops.occupancy import (WARMUP_UPDATES, OccupancyState,
                                             packbits, update_grid)
 from customnerf_torch.ops.ray import near_far_from_aabb
 from customnerf_torch.ops.triplane import TriplaneSpec
+from customnerf_torch.parallel.mesh import (RayShard, all_reduce_sum, make_mesh,
+                                            replicate)
 from customnerf_torch.utils import png
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item '{item}')")
 
 
 def build_encoder_spec(opt) -> GridSpec | TriplaneSpec:
@@ -184,10 +198,16 @@ class Trainer:
     def __init__(self, opt, field: NeRFField | None = None, device=None,
                  log=print, guidance=None, use_checkpoint: str | None = None):
         self.device = resolve_device(device)
-        if opt.mesh_shape:
-            raise _not_ported("--mesh_shape", "multi-device")
         self.opt = opt
         self.log = log
+        self.mesh = make_mesh(opt.mesh_shape)
+        self._shards = {}            # (rays, block) -> RayShard
+        # the first rank writes checkpoints and images
+        self.writer = (not torch.distributed.is_initialized()
+                       or torch.distributed.get_rank() == 0)
+        if self.mesh is not None:
+            log(f"[INFO] mesh {self.mesh.shape}: this rank at {self.mesh.coords}, "
+                f"backend {self.mesh.backend}")
         self.guidance = guidance
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(opt.seed))
@@ -196,7 +216,6 @@ class Trainer:
         self.settings = render_settings(opt)
         self.ckpt_path = os.path.join(opt.workspace, "checkpoints")
 
-        groups = param_groups(self.field)
         # on the card: the lr a device tensor, written from a device update
         # counter each step, so that a captured step replays the right lr
         self._capturable = self.device.type == "cuda"
@@ -205,12 +224,7 @@ class Trainer:
             self._lr_t = [torch.tensor(s * opt.lr, device=self.device)
                           for s in (10.0, 1.0)]
             self._count_t = torch.zeros((), dtype=torch.float64, device=self.device)
-        lrs = self._lr_t or [10.0 * opt.lr, opt.lr]
-        self.optimizer = torch.optim.Adam(
-            [{"params": groups["grid"], "lr": lrs[0], "lr_scale": 10.0},
-             {"params": groups["mlp"], "lr": lrs[1], "lr_scale": 1.0}],
-            betas=(0.9, 0.99), eps=1e-15, weight_decay=opt.weight_decay,
-            capturable=self._capturable)
+        self.optimizer = self.make_optimizer(self.field, self._lr_t, self._capturable)
         self.n_updates = 0
         self._graphs = {}            # kind -> (key, StepGraph)
         self._state_version = 0      # bumped when a load replaces the state
@@ -266,6 +280,23 @@ class Trainer:
                 frozen = copy.deepcopy(self.field)
             self.field_pretrained = frozen.requires_grad_(False)
             self.log("[INFO] loaded pretrained (frozen) model.")
+        # every rank starts from the first rank's state (JAX trainer.py:44)
+        occ = self.occ_state
+        replicate(self.mesh, [self.field, self.field_pretrained, self.optimizer,
+                              None if occ is None else [occ.density_grid, occ.bitfield,
+                                                        occ.mean_density]])
+
+    def make_optimizer(self, field, lrs=None, capturable: bool = False):
+        """Adam over ``field``'s parameters, the grid table at lr×10
+        (``lr_scale``); ``lrs`` the two groups' lrs (floats or device
+        tensors), else the undecayed ones."""
+        groups = param_groups(field)
+        lrs = lrs or [10.0 * self.opt.lr, self.opt.lr]
+        return torch.optim.Adam(
+            [{"params": groups["grid"], "lr": lrs[0], "lr_scale": 10.0},
+             {"params": groups["mlp"], "lr": lrs[1], "lr_scale": 1.0}],
+            betas=(0.9, 0.99), eps=1e-15, weight_decay=self.opt.weight_decay,
+            capturable=capturable)
 
     # ------------------------------------------------------------ schedule
     def lr_at(self, count: int) -> float:
@@ -294,27 +325,59 @@ class Trainer:
 
     # -------------------------------------------------------------- render
     def render(self, rays_o, rays_d, train: bool, perturb: bool,
-               bg_color=None, field=None, mark=None):
+               bg_color=None, field=None, mark=None, occ=None):
         """``-O2``: the dense two-pass ``render_rays``.  ``-O``: the fast
         path; training marches 2× the kept samples, eval marches at the
         reference's inference budget (max_steps candidates) or
         ``--eval_march_candidates``.  ``field`` defaults to the trained
-        one; ``mark`` is ``render_rays``' stage callback."""
+        one, ``occ`` to the trainer's occupancy grid; ``mark`` is
+        ``render_rays``' stage callback.  Under a ``data`` axis this rank
+        renders its rays of the batch and the per-ray outputs come back
+        gathered (:meth:`ray_shard`); a training render only when
+        :attr:`shards_steps`."""
         opt = self.opt
         field = field if field is not None else self.field
+        shard = (self.ray_shard(rays_o.shape[0])
+                 if self.shards_steps or not train else None)
+        if shard is not None:
+            rays_o, rays_d = shard.take(rays_o), shard.take(rays_d)
         if not opt.cuda_ray:
-            return render_rays(field, rays_o, rays_d, self.settings, train=train,
-                               perturb=perturb, generator=self.generator,
-                               bg_color=bg_color, mark=mark)
-        n_total = max(opt.num_steps + opt.upsample_steps, 2)
-        n_eval = int(opt.eval_march_candidates) or max(opt.max_steps, n_total * 2)
-        n_coarse = n_total * 2 if train else max(n_eval, n_total * 2)
-        return render_rays_fast(
-            field, rays_o, rays_d, self.occ_state, self.settings,
-            n_coarse=n_coarse, n_keep=n_total, perturb=perturb,
-            generator=self.generator, bg_color=bg_color,
-            compact_frac=max(opt.compact_frac, 0.0),
-            compact_block=opt.compact_block)
+            out = render_rays(field, rays_o, rays_d, self.settings, train=train,
+                              perturb=perturb, generator=self.generator,
+                              bg_color=bg_color, mark=mark, shard=shard)
+        else:
+            n_total = max(opt.num_steps + opt.upsample_steps, 2)
+            n_eval = int(opt.eval_march_candidates) or max(opt.max_steps, n_total * 2)
+            n_coarse = n_total * 2 if train else max(n_eval, n_total * 2)
+            out = render_rays_fast(
+                field, rays_o, rays_d, occ if occ is not None else self.occ_state,
+                self.settings, n_coarse=n_coarse, n_keep=n_total, perturb=perturb,
+                generator=self.generator, bg_color=bg_color,
+                compact_frac=max(opt.compact_frac, 0.0),
+                compact_block=opt.compact_block, shard=shard)
+        return out if shard is None else shard.gather_outputs(out)
+
+    @property
+    def shards_steps(self) -> bool:
+        """A training step's rays are sharded over the ``data`` axis, and its
+        gradients summed over it: not without such an axis, nor for a
+        ``--batch_rays`` reconstruction step, which every rank takes whole
+        (JAX ``trainer.py:443-447``, ``:466``)."""
+        return (self.mesh is not None and self.mesh.size("data") > 1
+                and not (self.opt.batch_rays and not self.opt.pretrained))
+
+    def ray_shard(self, n: int) -> RayShard | None:
+        """This rank's part of a batch of ``n`` rays on the mesh's ``data``
+        axis (whole blocks of the compaction plan when ``-O`` compacts);
+        None without such an axis."""
+        if self.mesh is None or self.mesh.size("data") == 1:
+            return None
+        opt = self.opt
+        block = opt.compact_block if opt.cuda_ray and opt.compact_frac > 0 else None
+        key = (n, block)
+        if key not in self._shards:
+            self._shards[key] = RayShard(self.mesh, n, block=block, device=self.device)
+        return self._shards[key]
 
     # ---------------------------------------------------------- train step
     def loss(self, out, rgbs, mask):
@@ -329,32 +392,49 @@ class Trainer:
             aux["loss_m"] = loss_m
         return loss, aux
 
-    def apply_gradients(self, loss, mark=None):
-        """Backward, NaN-zeroing, the decayed lr, one Adam update;
-        ``mark(name)`` after the ``backward`` and the ``adam`` update."""
+    def apply_gradients(self, loss, mark=None, optimizer=None, count: int = 0):
+        """Backward, the sum over the ``data`` axis (:meth:`reduce_gradients`),
+        NaN-zeroing, the decayed lr, one Adam update; ``mark(name)`` after
+        the ``backward`` and the ``adam`` update.  ``optimizer``: another
+        field's Adam (:meth:`make_optimizer`, a scene of multi-scene
+        editing), at the lr of its own update ``count``; the trainer's
+        update count then stays."""
         mark = mark or (lambda _: None)
-        self.optimizer.zero_grad(set_to_none=True)
+        own = optimizer is None
+        optimizer = self.optimizer if own else optimizer
+        optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.reduce_gradients(optimizer)
         mark("backward")
-        if self._capturable:
+        if own and self._capturable:
             # lr_at on the device, from the update counter
             base = self.opt.lr * torch.pow(
                 0.1, torch.clamp(self._count_t / self.opt.iters, max=1.0))
             for group, lr in zip(self.optimizer.param_groups, self._lr_t):
                 lr.copy_(group["lr_scale"] * base)
         else:
-            base = self.lr_at(self.n_updates)
-            for group in self.optimizer.param_groups:
+            base = self.lr_at(self.n_updates if own else count)
+            for group in optimizer.param_groups:
                 group["lr"] = group["lr_scale"] * base
-        for group in self.optimizer.param_groups:
+        for group in optimizer.param_groups:
             for p in group["params"]:
                 if p.grad is not None:
                     p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
-        self.optimizer.step()
-        if self._capturable:
-            self._count_t += 1
+        optimizer.step()
         mark("adam")
-        self.n_updates += 1
+        if own:
+            if self._capturable:
+                self._count_t += 1
+            self.n_updates += 1
+
+    def reduce_gradients(self, optimizer):
+        """Sum ``optimizer``'s gradients over the mesh's ``data`` axis (one
+        collective) when the step was sharded (:attr:`shards_steps`)."""
+        if not self.shards_steps:
+            return
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        all_reduce_sum(grads, self.mesh, "data")
 
     def train_step(self, batch, perturb: bool = True, mark=None):
         """One eager reconstruction step (render, loss, backward,
@@ -404,10 +484,11 @@ class Trainer:
                 {k: torch.stack([o[k] for o in outs]) for k in outs[0]})
 
     def _dispatch(self, kind, step, inputs_list):
-        """``step`` on each of ``inputs_list``, in order: eager on the CPU,
-        else replays of one captured ``step`` (captured again whenever what
-        it was captured on changed).  Returns each step's outputs."""
-        if self.device.type == "cpu":
+        """``step`` on each of ``inputs_list``, in order: eager on the CPU
+        and under a mesh (collectives are not captured), else replays of
+        one captured ``step`` (captured again whenever what it was captured
+        on changed).  Returns each step's outputs."""
+        if self.device.type == "cpu" or self.mesh is not None:
             return [step(inputs) for inputs in inputs_list]
         graph = self._step_graph(kind, step, inputs_list[0])
         outs = []
@@ -598,7 +679,10 @@ class Trainer:
 
     def _write(self, path, full: bool):
         """Write this global step's snapshot to ``path``: on the worker
-        thread under ``--ckpt_format orbax``, else here.  Returns the path."""
+        thread under ``--ckpt_format orbax``, else here (the first rank
+        only).  Returns the path."""
+        if not self.writer:
+            return path
         host, ready = self._host_state()
         epoch, step, n_updates = self.epoch, self.global_step, self.n_updates
         stats = copy.deepcopy(self.stats)
@@ -631,7 +715,8 @@ class Trainer:
         file_name = f"{self.name}_ep{self.epoch:04d}.pth"
         self.stats["checkpoints"].append(file_name)
         self.wait_for_saves()
-        ckpt_io.prune_ring(self.stats, self.ckpt_path, self.opt.max_keep_ckpt)
+        if self.writer:
+            ckpt_io.prune_ring(self.stats, self.ckpt_path, self.opt.max_keep_ckpt)
         return self._write(os.path.join(self.ckpt_path, file_name), full=True)
 
     def _load(self, path, model_only: bool = False):
@@ -710,8 +795,9 @@ class Trainer:
                      bg_color=None, field=None):
         """Full-frame render of ``field`` (default: the trained one), chunked
         over ``max_ray_batch`` rays.  The tail is edge-padded to a whole
-        chunk, as in the JAX version, so every chunk marches and compacts the
-        same number of rays."""
+        chunk, as in the JAX version, so every chunk marches and compacts
+        the same number of rays.  Under a ``data`` axis each chunk row is
+        split over the ranks and gathered (JAX ``trainer.py:702-712``)."""
         chunk = int(self.opt.max_ray_batch)
         N = rays_o.shape[0]
         pad = (-N) % chunk
@@ -772,13 +858,14 @@ class Trainer:
             strip = torch.cat(ims, dim=1).cpu().numpy()
             if opt.val_all_images:
                 _write_png(os.path.join(opt.workspace, "validation_all",
-                                        f"{i + 1}.png"), strip)
+                                        f"{i + 1}.png"), strip, self.writer)
             else:
                 strips.append(strip)
         if strips:
             path = os.path.join(opt.workspace, "validation", f"{name}.png")
-            _write_png(path, np.concatenate(strips, axis=0))
-            self.log(f"++> saved validation strip to {path}")
+            _write_png(path, np.concatenate(strips, axis=0), self.writer)
+            if self.writer:
+                self.log(f"++> saved validation strip to {path}")
         mean_psnr = float(np.mean(psnrs)) if psnrs else 0.0
         self.log(f"++> eval PSNR: {mean_psnr:.2f} dB "
                  f"({[round(p, 2) for p in psnrs]})")
@@ -811,7 +898,8 @@ class Trainer:
         name = name or f"{self.name}_ep{self.epoch:04d}"
         if split:
             name = f"{name}_{split}"
-        os.makedirs(os.path.join(save_path, name), exist_ok=True)
+        if self.writer:
+            os.makedirs(os.path.join(save_path, name), exist_ok=True)
         self.log(f"==> Start Test, save results to {save_path}")
         side_by_side = opt.pretrained and self.field_pretrained is not self.field
         frames, paths, clip_after, clip_before = [], [], [], []
@@ -834,10 +922,10 @@ class Trainer:
                                   out["fg"]["image"].reshape(H, W, 3),
                                   out["bg"]["image"].reshape(H, W, 3)], dim=1)
             path = os.path.join(save_path, name, f"{i:03d}.png")
-            frames.append(_write_png(path, pred.cpu().numpy()))
+            frames.append(_write_png(path, pred.cpu().numpy(), self.writer))
             paths.append(path)
 
-        if write_video and frames:
+        if write_video and frames and self.writer:
             video_path = os.path.join(save_path, f"{name}_rgb.mp4")
             try:
                 import cv2
@@ -849,7 +937,7 @@ class Trainer:
                 vw.release()
             except Exception as e:
                 self.log(f"[WARN] mp4 write failed ({e}); PNGs saved.")
-        if opt.clip_metrics and clip_after:
+        if opt.clip_metrics and clip_after and self.writer:
             self.report_clip_metrics(np.stack(clip_after),
                                      np.stack(clip_before) if clip_before else None,
                                      save_path, name)
@@ -897,9 +985,11 @@ class Trainer:
         return metrics
 
 
-def _write_png(path: str, image: np.ndarray) -> np.ndarray:
-    """[H, W, 3] float in [0, 1] → an 8-bit RGB PNG; returns the pixels."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+def _write_png(path: str, image: np.ndarray, write: bool = True) -> np.ndarray:
+    """[H, W, 3] float in [0, 1] → an 8-bit RGB PNG (unless not ``write``);
+    returns the pixels."""
     pixels = (np.clip(image, 0, 1) * 255).astype(np.uint8)
-    png.write(path, pixels)
+    if write:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        png.write(path, pixels)
     return pixels

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from customnerf_torch.guidance.text import register_token
-from customnerf_torch.utils import png, resample
+from customnerf_torch.utils import jpeg, png, resample
 
 # the JAX package's block name ↔ the diffusers prefix (the cd_kv key here)
 _BLOCKS = (
@@ -160,8 +160,10 @@ def load_cd_artifacts(model_dir: str, text_encoder=None, device=None
 # ------------------------------------------------------------------ dataset
 def _square_uint8(path: str, size: int) -> np.ndarray:
     """The centre square of an image, resized to ``size`` with cv2's
-    INTER_AREA on uint8."""
-    img = png.read_rgb(path)
+    INTER_AREA on uint8.  A JPEG is turned by its EXIF orientation first,
+    as the JAX package's ``cv2.imread`` turns it (the scene loaders do not
+    turn theirs, as ``csrc/dataio.cpp`` does not)."""
+    img = jpeg.read_oriented(path) if jpeg.is_jpeg_path(path) else png.read_rgb(path)
     h, w = img.shape[:2]
     s = min(h, w)
     img = img[(h - s) // 2:(h + s) // 2, (w - s) // 2:(w + s) // 2]

@@ -176,15 +176,28 @@ class StableDiffusionGuidance:
         int); the UNet casts its inputs, and the gradient is formed in f32
         from its f32 ε (the JAX ``sds_loss_fn``).  Nothing here reads t on
         the host."""
-        t = torch.as_tensor(t, device=latents.device).reshape(1)
+        grad, loss = self.sds_grad_batch(latents, text_embeddings[None], t, noise)
+        return grad, loss[0]
+
+    @torch.no_grad()
+    def sds_grad_batch(self, latents, text_embeddings, t, noise):
+        """:meth:`sds_grad` of S scenes through ONE UNet call of batch 2S
+        (the JAX ``editing.py:545-552`` vmapped ε-prediction): latents and
+        noise [S, 4, h, w], text_embeddings [S, 2, 77, C] (each scene's
+        [uncond; cond]), t [S] int64 (or an int).  The UNet's batch is
+        [all S noisy; all S noisy] against [all S uncond; all S cond].
+        Returns grad [S, 4, h, w] and the loss values [S]."""
+        S = latents.shape[0]
+        t = torch.as_tensor(t, device=latents.device).reshape(-1).expand(S)
         noisy = self.scheduler.add_noise(latents, noise, t)
         latent_in = torch.cat([noisy, noisy])
-        eps_uncond, eps_text = self.unet(latent_in, t.expand(latent_in.shape[0]),
-                                         text_embeddings, cd_kv=self.cd_kv).chunk(2)
+        context = torch.cat([text_embeddings[:, 0], text_embeddings[:, 1]])
+        eps_uncond, eps_text = self.unet(latent_in, torch.cat([t, t]), context,
+                                         cd_kv=self.cd_kv).chunk(2)
         eps_hat = eps_text + self.opt.cfg * (eps_text - eps_uncond)
-        w = 1.0 - self.alphas.index_select(0, t)
+        w = (1.0 - self.alphas.index_select(0, t)).reshape(S, 1, 1, 1)
         grad = torch.nan_to_num(w * (eps_hat.float() - noise) * self.opt.lambda_sd)
-        return grad, 0.5 * (grad ** 2).sum()
+        return grad, 0.5 * (grad ** 2).reshape(S, -1).sum(dim=1)
 
     def sample_timestep(self, generator, global_step=None, t_ratio: float = 1.0):
         """Reference t sampling incl. ``--stage_time`` (sd.py:120-132), on

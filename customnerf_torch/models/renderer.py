@@ -131,7 +131,7 @@ def _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars,
 
 def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
                 perturb: bool = False, generator=None, bg_color=None,
-                draws=None, mark=None):
+                draws=None, mark=None, shard=None):
     """The dense two-pass path.  ``field`` is a ``NeRFField`` (its
     ``density`` runs the coarse pass, its call the fine one).  The depth
     jitter (``perturb``) and, when ``train``, ``sample_pdf``'s u come from
@@ -139,8 +139,19 @@ def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
     ``u`` [N, upsample_steps]).  Evaluation (``train`` False) samples the
     pdf at evenly spaced u.  ``mark(name)`` is called at the stage
     boundaries ``coarse``, ``resample``, ``fine`` and ``composite``.
+    ``shard`` (``parallel/mesh.py::RayShard``): the rays are this rank's
+    rows of a batch, whose draws are taken for the whole batch, in the
+    single-process order, and cut to those rows.
     Returns the same dict as ``render_rays_fast`` (``stats`` empty)."""
-    draws = draws or {}
+    draws = dict(draws or {})
+    if shard is not None:
+        n, rows = shard.n, shard.draw_rows
+        if perturb and "jitter" not in draws:
+            draws["jitter"] = torch.rand((n, s.num_steps), generator=generator,
+                                         device=rays_o.device)[rows]
+        if train and s.upsample_steps > 0 and "u" not in draws:
+            draws["u"] = torch.rand((n, s.upsample_steps), generator=generator,
+                                    device=rays_o.device)[rows]
     mark = mark or (lambda _: None)
     dev = rays_o.device
     T = s.num_steps
@@ -197,7 +208,7 @@ def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
 
 
 def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,
-                          block_rays: int, aabb):
+                          block_rays: int, aabb, permuted: bool = False):
     """Evaluate the field on the cross-ray-compacted slab.
 
     Rays are edge-replicate padded to a multiple of G, permuted with the
@@ -208,11 +219,15 @@ def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,
 
     Returns (sigmas [N, K], radiance [N, K, R], dt_mult [N], stats) where
     dt_mult is the per-ray even-stride quadrature scale (1 unless the ray's
-    block overflowed) and stats holds the slab fill and overflow share."""
+    block overflowed) and stats holds the slab fill and overflow share.
+    ``permuted``: the rays are whole blocks already in the permuted order
+    (a rank's shard, ``parallel/mesh.py::RayShard``), taken as they are."""
     N, K = z.shape
     G = block_rays
     dev = z.device
     n_pad = (-N) % G
+    if permuted and n_pad:
+        raise ValueError(f"a shard of {N} rays is not whole blocks of {G}")
     if n_pad:
         # edge-replicate: zero-padded rays poison grads via NaN activations
         rays_o = torch.cat([rays_o, rays_o[-1:].expand(n_pad, 3)])
@@ -222,7 +237,10 @@ def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,
     Np = N + n_pad
     NB = Np // G
 
-    perm, inv_perm = _ray_perm(Np, dev)
+    if permuted:
+        perm = inv_perm = torch.arange(Np, device=dev)
+    else:
+        perm, inv_perm = _ray_perm(Np, dev)
 
     M = block_budget(G, K, frac)
     valid_p = valid[perm]
@@ -267,8 +285,13 @@ def _eval_field_compacted(apply_fn, rays_o, rays_d, z, valid, frac: float,
 def render_rays_fast(field, rays_o, rays_d, occ_state, s: RenderSettings,
                      n_coarse: int = 256, n_keep: int = 64,
                      perturb: bool = False, generator=None, bg_color=None,
-                     compact_frac: float = 0.0, compact_block: int = 16):
-    """Occupancy-grid fast path (the reference's ``-O`` mode).
+                     compact_frac: float = 0.0, compact_block: int = 16,
+                     shard=None):
+    """Occupancy-grid fast path (the reference's ``-O`` mode).  ``shard``
+    (``parallel/mesh.py::RayShard``): the rays are this rank's rows of a
+    batch, whole compaction blocks of its permuted order when ``shard.block``
+    is set; the march jitter is drawn for the whole batch and cut to them,
+    and padded rays march nothing.
 
     ``field`` is a callable (x [..., 3], d [..., 3]) → (sigma, radiance).
     Returns the reference's output dict: ``image``, ``depth``,
@@ -282,18 +305,29 @@ def render_rays_fast(field, rays_o, rays_d, occ_state, s: RenderSettings,
     nears_ = torch.where(miss, torch.zeros_like(nears), nears)
     fars_ = torch.where(miss, torch.ones_like(fars), fars)
 
+    jitter = None
+    if shard is not None and perturb:
+        jitter = torch.rand((shard.n, n_coarse), generator=generator,
+                            device=dev)[shard.draw_rows]
     z, valid, dt_scale = march_rays_occupancy(
         occ_state, rays_o, rays_d, nears_, fars_, s.bound, n_coarse=n_coarse,
-        n_keep=n_keep, perturb=perturb, generator=generator)
+        n_keep=n_keep, perturb=perturb, generator=generator, jitter=jitter)
     valid = valid & ~miss[:, None]
+    if shard is not None:
+        valid = valid & ~shard.pad_mask[:, None]
     # invalid tail slots hold depths of unoccupied candidates that can be
     # SMALLER than the last valid one → negative deltas → NaN: pin to far
     z = torch.where(valid, z, fars_[:, None].expand_as(z))
 
     stats = {}
     if compact_frac and compact_frac > 0.0:
+        permuted = shard is not None and shard.block is not None
+        if permuted and shard.block != compact_block:
+            raise ValueError(f"a shard of blocks of {shard.block} rays under "
+                             f"compaction blocks of {compact_block}")
         sigmas, radiance, dt_mult, stats = _eval_field_compacted(
-            field, rays_o, rays_d, z, valid, compact_frac, compact_block, aabb)
+            field, rays_o, rays_d, z, valid, compact_frac, compact_block, aabb,
+            permuted=permuted)
         dt_scale = dt_scale * dt_mult[:, None]
     else:
         xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]

@@ -143,8 +143,9 @@ def occupancy_lookup(state: OccupancyState, xyz: torch.Tensor,
 
 def march_rays_occupancy(state: OccupancyState, rays_o, rays_d, nears, fars,
                          bound: float, n_coarse: int = 256, n_keep: int = 64,
-                         perturb: bool = False, generator=None):
-    """Static-shape empty-space-skipping march.
+                         perturb: bool = False, generator=None, jitter=None):
+    """Static-shape empty-space-skipping march.  ``jitter`` [N, n_coarse]
+    in [0, 1) replaces the generator's draw under ``perturb``.
 
     Returns (z [N, n_keep], valid [N, n_keep] bool, dt_scale [N, 1] f32): up
     to n_keep occupied stratified candidates per ray in depth order.  A ray
@@ -157,7 +158,9 @@ def march_rays_occupancy(state: OccupancyState, rays_o, rays_d, nears, fars,
     z = nears[:, None] + (fars - nears)[:, None] * u[None, :]      # [N, T]
     if perturb:
         dz = (fars - nears)[:, None] / n_coarse
-        z = z + (torch.rand(z.shape, generator=generator, device=dev) - 0.5) * dz
+        if jitter is None:
+            jitter = torch.rand(z.shape, generator=generator, device=dev)
+        z = z + (jitter - 0.5) * dz
 
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
     occ = occupancy_lookup(state, xyz, bound)                        # [N, T]

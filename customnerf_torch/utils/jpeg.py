@@ -9,7 +9,9 @@ The decoder gives what the JAX package's native reader gives
   * markers SOI, DQT (8- and 16-bit tables), SOF0/SOF1/SOF2 at 8 bits, DHT
     (also between scans), SOS, DRI with RSTn, EOI; APPn and COM segments are
     skipped, so an EXIF orientation is not applied (``cv2.imread`` applies
-    it, ``dataio.cpp`` does not);
+    it, ``dataio.cpp`` does not); :func:`exif_orientation` reads the tag
+    and :func:`orient` applies it as ``cv2.imread`` does, for the callers
+    that read as cv2 does (Custom Diffusion's concept images);
   * Huffman decoding of sequential scans (interleaved or one component a
     scan) with 0xFF00 unstuffing, the DC predictors reset at each restart;
   * progressive scans (ITU-T T.81 Annex G.1.2, libjpeg's ``jdphuff.c``): DC
@@ -690,6 +692,62 @@ def read(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
         data = fh.read()
     return decode(data, str(path))
+
+
+def exif_orientation(data: bytes) -> int:
+    """The EXIF orientation tag (0x0112, 1-8) of the first APP1 "Exif"
+    segment before the first scan, 1 when there is none or it is out of
+    range (as libjpeg-based readers take it)."""
+    pos = 2
+    while pos < len(data):
+        try:
+            marker, body, pos = _next_segment(data, pos, "<exif>")
+        except (ValueError, struct.error):
+            return 1
+        if marker in (0xDA, 0xD9):
+            return 1
+        if marker != 0xE1 or body[:6] != b"Exif\0\0":
+            continue
+        tiff = body[6:]
+        order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
+        if order is None or len(tiff) < 8:
+            return 1
+        ifd = struct.unpack(order + "I", tiff[4:8])[0]
+        if ifd + 2 > len(tiff):
+            return 1
+        n = struct.unpack(order + "H", tiff[ifd:ifd + 2])[0]
+        for i in range(n):
+            e = ifd + 2 + 12 * i
+            if e + 12 > len(tiff):
+                return 1
+            tag, kind = struct.unpack(order + "HH", tiff[e:e + 4])
+            if tag == 0x0112 and kind == 3:                 # SHORT
+                value = struct.unpack(order + "H", tiff[e + 8:e + 10])[0]
+                return value if 1 <= value <= 8 else 1
+        return 1
+    return 1
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """[H, W, C] as displayed under an EXIF ``orientation``: OpenCV's
+    ``ExifTransform`` (a transpose for 5-8, then a flip)."""
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    flip = {2: (slice(None), slice(None, None, -1)),
+            3: (slice(None, None, -1), slice(None, None, -1)),
+            4: (slice(None, None, -1),),
+            6: (slice(None), slice(None, None, -1)),
+            7: (slice(None, None, -1), slice(None, None, -1)),
+            8: (slice(None, None, -1),)}.get(orientation)
+    return np.ascontiguousarray(img[flip] if flip else img)
+
+
+def read_oriented(path: str) -> np.ndarray:
+    """:func:`read` with the file's EXIF orientation applied, as
+    ``cv2.imread`` reads it."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return orient(decode(data, str(path)), exif_orientation(data))
 
 
 def dims(path: str):

@@ -266,6 +266,35 @@ def test_load_image_square_matches_jax(tmp_path, src):
     np.testing.assert_allclose(got, want, rtol=0, atol=1.0 / 127.5 + 1e-6)
 
 
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_concept_read_applies_exif_orientation_as_jax(tmp_path, orientation):
+    """A concept JPEG carrying an EXIF orientation reads as the JAX
+    package's ``cv2.imread`` reads it (turned, then squared); the scene
+    loaders' rule is ``tests/test_torch_jpeg.py``'s
+    ``test_exif_orientation_is_not_applied``."""
+    from PIL import Image
+    from customnerf_torch.utils import jpeg
+
+    rs = np.random.RandomState(orientation)
+    yy, xx = np.mgrid[0:48, 0:80]
+    img = np.stack([xx * 3 % 256, yy * 5 % 256, (xx + 2 * yy) % 256], -1)
+    img = np.clip(img + rs.randn(48, 80, 3) * 4, 0, 255).astype(np.uint8)
+    img[:12, :20] = (255, 0, 0)                       # a corner that shows the turn
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    path = str(tmp_path / f"o{orientation}.jpg")
+    Image.fromarray(img).save(path, quality=95, exif=exif.tobytes())
+    with open(path, "rb") as fh:
+        assert jpeg.exif_orientation(fh.read()) == orientation
+    shown = cv2.imread(path)[..., ::-1]
+    np.testing.assert_array_equal(jpeg.read_oriented(path), shown)
+    for size in (32, 512):
+        want = jcd._load_image_square(path, size)
+        got = cd._load_image_square(path, size)
+        assert got.shape == want.shape == (size, size, 3)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1.0 / 127.5 + 1e-6)
+
+
 def test_concept_dataset_matches_jax(tmp_path):
     """20 draws of one seed: canvas (1 level of the uint8 resize, then the
     float resize), mask and prompt, instance and class, sources smaller and

@@ -43,7 +43,8 @@ assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.engine.torch_shim", "customnerf_torch.utils.jpeg",
         "customnerf_torch.guidance.custom_diffusion", "customnerf_torch.guidance.sampler",
         "customnerf_torch.guidance.retrieve", "customnerf_torch.guidance.validate",
-        "customnerf_torch.tune_custom_diffusion"} <= set(mods)
+        "customnerf_torch.tune_custom_diffusion", "customnerf_torch.parallel",
+        "customnerf_torch.parallel.mesh"} <= set(mods)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -98,7 +99,7 @@ def test_entry_points_raise_without_cpu_request(monkeypatch):
 def test_unported_options_name_their_roadmap_item(tmp_path):
     """``-O2``, ``--compact_frac -1``, the tiled / hash grid and ``--use_cd``
     are ported and construct, as are SD 2.x and ``--ckpt_format orbax``;
-    ``--mesh_shape`` still raises, naming its ROADMAP item."""
+    a ``--mesh_shape`` larger than the world raises ``ValueError``."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
@@ -116,8 +117,10 @@ def test_unported_options_name_their_roadmap_item(tmp_path):
         assert (tr.occ_state is None) == dense
         spec = tr.field.cfg.grid
         assert (spec.gridtype if isinstance(spec, GridSpec) else "triplane") == gridtype
+    # --mesh_shape is ported: a mesh that needs more ranks than the world
+    # (one process here) has raises, as the JAX make_mesh does
     opt = parse_args(f"--data_type synthetic {grid} -O --mesh_shape data:8".split())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+    with pytest.raises(ValueError, match="needs 8 ranks, have 1"):
         Trainer(opt, device="cpu", log=quiet)
     # --ckpt_format orbax is ported: the asynchronous writer of .pth files
     from customnerf_torch.engine.checkpoint import AsyncSaver
