@@ -189,10 +189,30 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    flagship bear run, ``--compact_frac -1``'s auto-tune measures the slab
    fill on its warm grid and prints the fraction it picks beside the
    recipe's 0.35.
-10. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
-   editing, parity, SD 2.x, quality and the graph paths' rows; all four
-   kernel modes; rows of the multi-scene and ``data:2`` paths), then the
-   last line ``{"ok": true, "device": {...}}``.
+10. host inputs (the card's host; the host library ``csrc/host/*.cpp`` is
+   built by the host compiler beside the kernels): (a) every JPEG file
+   the phases above decoded (their bytes kept as they were read: the
+   concept images, the SD 2.x progressive concept images, the bear's 28
+   JPEG views) and 12 progressive files written here by cv2 with scans
+   dropped (4:2:0, 4:4:4, gray and a restart interval; the last
+   refinement, the luma's AC-first scan and what follows it, every AC scan
+   of one component) at 240×320: the host library's coefficients equal
+   the plain Python loops', each file's decode equals ``cv2.imdecode`` bit
+   for bit (the smoothed files under whichever smoothing row rule cv2's
+   libjpeg-turbo has; the 4:4:4 and gray ones under both), and the
+   seconds a megapixel of both paths, whole-file and entropy stage alone,
+   are printed; (b) the committed JAX-written ``.orbax`` fixture
+   (``tests/data/jax_orbax``) copied into a workspace's ``checkpoints/``:
+   its read (ms, MB/s of decompressed data), a trainer on its flags (the
+   default policy) resumed by ``--ckpt latest`` equal bit for bit to the
+   ``.npz`` (parameters, occupancy), then 8 steps as one graphed dispatch
+   with the counters zeroed before and read after (K1 and dT rows on the
+   graph's inputs); (c) the fixture as ``--editing_from``: the pt image
+   equals the one from a ``.pth`` of the same arrays bit for bit.
+11. the ``{"kernels": [...]}`` line (reconstruction, editing, ``--use_cd``
+   editing, parity, SD 2.x, quality, ``.orbax`` resume and the graph
+   paths' rows; all four kernel modes; rows of the multi-scene and
+   ``data:2`` paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase but the 40-step reconstruction runs the JAX package's default
 precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
@@ -2443,6 +2463,317 @@ def log_sd2(card, sd2, ed15, cdp15):
         f"params {drill['params']}, {drill['wall_s']:.1f} s")
 
 
+# -------------------------------------------------------------- host inputs
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jax_orbax")
+ORBAX_NAME = "df_ep0002"
+# tools/write_orbax_fixture.py's flags (the fixture's field), K left to the card
+ORBAX_FLAGS = ("-O --grid_type triplane --triplane_res 16 32 --triplane_channels 8 4 "
+               "--num_steps 16 --upsample_steps 0 --compact_frac 0.5 "
+               "--compact_block 8 --bound 2 --train_conf 0.01 --soft_mask "
+               "--data_type synthetic --occ_grid_size 16 --iters 100 --lr 0.01 "
+               "--h 16 --w 16 --train_size 4 --update_extra_interval 2 "
+               "--max_ray_batch 1000").split()
+ORBAX_WORKSPACE = os.path.join("chiprun_out", "smoke_orbax")
+ORBAX_READS = 5
+DROPPED_HW = (240, 320)
+
+
+def record_jpeg_decodes():
+    """Keep the bytes of every JPEG the phases decode (``utils/jpeg.py::
+    decode_coefficients``, by file name, the first read of each) for the
+    host phase.  Returns the dict and the undo function."""
+    from customnerf_torch.utils import jpeg
+    base, seen = jpeg.decode_coefficients, {}
+
+    def keep(data, name="<bytes>", plain=False):
+        if not plain and name not in seen:
+            seen[name] = bytes(data)
+        return base(data, name, plain=plain)
+
+    jpeg.decode_coefficients = keep
+    return seen, lambda: setattr(jpeg, "decode_coefficients", base)
+
+
+def _timed(fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def jpeg_file_check(name, data, smoothed=False):
+    """One file: the host library's coefficients against the plain loops',
+    the decode against ``cv2.imdecode`` (IGNORE_ORIENTATION) bit for bit,
+    and the seconds of each path, whole-file and entropy stage alone (the
+    stages after it run the same code on the same coefficients, timed on
+    each path's own)."""
+    import cv2
+    import numpy as np
+    from customnerf_torch.utils import jpeg
+    (f, native), native_entropy_s = _timed(jpeg.decode_coefficients, data, name)
+    (fp, plain), plain_entropy_s = _timed(jpeg.decode_coefficients, data, name, plain=True)
+    assert len(native) == len(plain) and all(
+        np.array_equal(a, b) for a, b in zip(native, plain)), f"{name}: coefficients differ"
+    got, native_rest_s = _timed(jpeg.reconstruct, f, native, name)
+    plain_img, plain_rest_s = _timed(jpeg.reconstruct, fp, plain, name)
+    assert np.array_equal(got, plain_img), f"{name}: the two paths' images differ"
+    want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)[..., ::-1]
+    r = {"name": os.path.basename(name), "hw": list(got.shape[:2]),
+         "megapixels": got.shape[0] * got.shape[1] / 1e6,
+         "progressive": bool(f.progressive),
+         "smoothed": jpeg.smoothing_latch(f) is not None,
+         "native_s": native_entropy_s + native_rest_s,
+         "plain_s": plain_entropy_s + plain_rest_s,
+         "native_entropy_s": native_entropy_s, "plain_entropy_s": plain_entropy_s,
+         "cv2_equal": bool(np.array_equal(got, want))}
+    if smoothed:
+        rows = jpeg._smoothing_rows
+        jpeg._smoothing_rows = jpeg._clamped_smoothing_rows
+        try:
+            clamped = jpeg.reconstruct(f, native, name)
+        finally:
+            jpeg._smoothing_rows = rows
+        r["cv2_equal_clamped_rows"] = bool(np.array_equal(clamped, want))
+        r["cv2_unequal_pixels"] = int((got != want).any(-1).sum())
+        assert r["smoothed"], f"{name}: expected a smoothed file"
+        assert r["cv2_equal"] or r["cv2_equal_clamped_rows"], \
+            f"{name}: equal to cv2 under neither smoothing row rule ({r})"
+    else:
+        assert r["cv2_equal"], f"{name}: the decode differs from cv2.imdecode"
+    return r
+
+
+def dropped_scan_files():
+    """Progressive files written by cv2 at DROPPED_HW with scans dropped:
+    (name, bytes, one block row an iMCU row)."""
+    import cv2
+    import numpy as np
+    from customnerf_torch.utils import jpeg
+    h, w = DROPPED_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    rs = np.random.RandomState(0)
+    img = np.stack([(xx * 3 + yy) % 256, (yy * 5) % 256, ((xx - yy) * 2) % 256], -1)
+    img = np.clip(img + rs.randn(h, w, 3) * 20.0, 0, 255).astype(np.uint8)
+    out = []
+    for layout in ("420", "444", "gray", "restart"):
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        if layout != "gray":
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444 if layout == "444"
+                       else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+        if layout == "restart":
+            params += [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]
+        ok, enc = cv2.imencode(".jpg", img[..., 0] if layout == "gray"
+                               else np.ascontiguousarray(img[..., ::-1]), params)
+        assert ok
+        data = enc.tobytes()
+        scans = []            # (start, end, ids, Ss, Se, Ah, Al) of each SOS
+        pos = 2
+        while data[pos + 1] != 0xD9:
+            end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+            if data[pos + 1] == 0xDA:
+                body = data[pos + 4:]
+                ns = body[0]
+                info = ([body[1 + 2 * i] for i in range(ns)], body[1 + 2 * ns],
+                        body[2 + 2 * ns], body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15)
+                while not (data[end] == 0xFF and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+                    end += 1
+                scans.append((pos, end) + tuple(info))
+            pos = end
+        luma, last = scans[0][2][0], scans[-1]
+        rules = {"last_refinement": lambda s: s == last,
+                 "luma_ac_first": lambda s: s[2] == [luma] and s[3] > 0
+                 and (s[3] > 1 or s[5] > 0),
+                 "one_component_ac": lambda s: s[2] == [last[2][0]] and s[3] > 0}
+        for drop, rule in rules.items():
+            cut = data
+            for sc in sorted((sc for sc in scans if rule(sc)), key=lambda sc: -sc[0]):
+                cut = cut[:sc[0]] + cut[sc[1]:]
+            out.append((f"dropped_{layout}_{drop}.jpg", cut, layout in ("444", "gray")))
+    assert all(jpeg.smoothing_latch(jpeg.decode_coefficients(d, n)[0]) is not None
+               for n, d, _ in out)
+    return out
+
+
+def run_host_jpeg(recorded):
+    """Phase 10a."""
+    files = [jpeg_file_check(n, d) for n, d in sorted(recorded.items())]
+    dropped = []
+    for name, data, one_row in dropped_scan_files():
+        r = jpeg_file_check(name, data, smoothed=True)
+        if one_row:
+            assert r["cv2_equal"] and r["cv2_equal_clamped_rows"], r
+        dropped.append(r)
+
+    def per_mp(rs, key):
+        mp = sum(r["megapixels"] for r in rs)
+        return sum(r[key] for r in rs) / mp if mp else float("nan")
+
+    summary = {"files": files, "dropped": dropped}
+    for label, rs in (("baseline", [r for r in files if not r["progressive"]]),
+                      ("progressive", [r for r in files if r["progressive"]]),
+                      ("smoothed", dropped)):
+        summary[label] = {k: per_mp(rs, k) for k in
+                          ("native_s", "plain_s", "native_entropy_s", "plain_entropy_s")}
+        summary[label]["files"] = len(rs)
+        summary[label]["megapixels"] = sum(r["megapixels"] for r in rs)
+        if rs:
+            q = summary[label]
+            q["whole_speedup"] = q["plain_s"] / q["native_s"]
+            q["entropy_speedup"] = q["plain_entropy_s"] / q["native_entropy_s"]
+    summary["cv2_row_rule"] = ("clamped (libjpeg-turbo 3.x)"
+                               if all(r["cv2_equal_clamped_rows"] for r in dropped)
+                               else "libjpeg-turbo 2.1's")
+    for label in ("baseline", "progressive"):
+        q = summary[label]
+        assert q["files"] > 0, f"no {label} JPEG was decoded by the phases"
+        assert q["whole_speedup"] >= 4.0 or q["entropy_speedup"] >= 10.0, (label, q)
+    return summary
+
+
+def _npz_tree(npz):
+    """The fixture's expected arrays: (model tree flattened, meta)."""
+    model = {k[len("model."):]: npz[k] for k in npz.files if k.startswith("model.")}
+    meta = {k[len("meta."):]: npz[k] for k in npz.files if k.startswith("meta.")}
+    return model, meta
+
+
+def run_host_orbax():
+    """Phases 10b and 10c.  Returns (summary, K1 and dT rows)."""
+    import numpy as np
+    import torch
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import checkpoint as ckpt_io
+    from customnerf_torch.engine import editing as ed
+    from customnerf_torch.engine.convert import params_to_flax
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.ocdbt import OcdbtStore
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.models import field
+    from customnerf_torch.ops import triplane
+
+    shutil.rmtree(ORBAX_WORKSPACE, ignore_errors=True)
+    ckpts = os.path.join(ORBAX_WORKSPACE, "resume", "checkpoints")
+    os.makedirs(ckpts)
+    path = os.path.join(ckpts, ORBAX_NAME + ".orbax")
+    shutil.copytree(os.path.join(ORBAX_FIXTURE, ORBAX_NAME + ".orbax"), path)
+    model, meta_want = _npz_tree(np.load(os.path.join(ORBAX_FIXTURE, ORBAX_NAME + ".npz")))
+    read_ms, open_ms = [], []
+    for _ in range(ORBAX_READS):
+        store, secs = _timed(OcdbtStore, path)      # manifest and B+tree alone
+        store.close()
+        open_ms.append(secs * 1e3)
+        (params, meta), secs = _timed(ckpt_io.load_checkpoint, path)
+        read_ms.append(secs * 1e3)
+    flat = ckpt_io.flatten(params)
+    nbytes = sum(a.nbytes for a in flat.values()) + sum(
+        np.asarray(v).nbytes for k, v in meta.items() if k in meta_want)
+    assert sorted(flat) == sorted(model)
+    for k, v in model.items():
+        assert flat[k].dtype == v.dtype and flat[k].tobytes() == v.tobytes(), k
+
+    opt = parse_args(ORBAX_FLAGS + ["--workspace", os.path.dirname(ckpts)])
+    lines = []
+    tr = Trainer(opt, use_checkpoint="latest", log=lines.append)
+    assert any(ORBAX_NAME + ".orbax" in l for l in lines), lines
+    assert any(ckpt_io.ORBAX_ADAM_ROW in l for l in lines), lines
+    assert (tr.epoch, tr.global_step) == (int(meta_want["epoch"]), int(meta_want["global_step"]))
+    got = ckpt_io.flatten(params_to_flax(
+        {k: v.detach().cpu() for k, v in tr.field.state_dict().items()}))
+    for k, v in model.items():
+        assert got[k].tobytes() == v.tobytes(), f"{k}: the resumed trainer differs from the .npz"
+    for k, t in (("density_grid", tr.occ_state.density_grid),
+                 ("density_bitfield", tr.occ_state.bitfield)):
+        assert t.cpu().numpy().tobytes() == meta_want[k].tobytes(), k
+    assert tr.steps_per_dispatch() == GRAPH_K
+    train = NeRFDataset(opt, "train", device=tr.device).dataloader()
+    batches = [train.item(i % len(train)) for i in range(GRAPH_K)]
+    before = [p.detach().clone() for p in tr.field.parameters()]
+    zero_counts()
+    with captured_calls(field, "fused_field_mlp", keep=1,
+                        when=lambda a, k: torch.is_grad_enabled()) as mlp, \
+            captured_calls(triplane, "plane_dtable", keep=6) as dt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = tr.train_many(batches)[0]
+        torch.cuda.synchronize()
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(graphed=True)
+    tr.global_step += len(batches)
+    check_launched(launches, (K1_BF16, DT_BF16), ".orbax resume (graph)")
+    losses = losses.tolist()
+    assert all(math.isfinite(v) for v in losses), losses
+    assert all(not torch.equal(a, b) for a, b in zip(before, tr.field.parameters()))
+    summary = {"read_ms": read_ms, "read_ms_median": statistics.median(read_ms),
+               "store_open_ms_median": statistics.median(open_ms),
+               "decompressed_bytes": nbytes,
+               "read_mb_per_s": nbytes / 1e6 / (statistics.median(read_ms) / 1e3),
+               "epoch": tr.epoch, "losses": losses, "dispatch_ms": dispatch_ms,
+               "graph_launches": launches, "path": ".orbax resume (graph)"}
+    rows = dispatch_rows(mlp[-1], list(dt), summary)
+
+    # --editing_from: the .orbax directory against a .pth of the same arrays
+    pth = os.path.join(ORBAX_WORKSPACE, ORBAX_NAME + ".pth")
+    extra = {k: meta_want[k] for k in ("density_grid", "density_bitfield")}
+    extra.update({k: meta_want[k].item() for k in ("mean_density", "iter_density",
+                                                   "mean_count")})
+    ckpt_io.write_checkpoint(pth, ckpt_io.checkpoint_state(
+        ckpt_io.unflatten(model), int(meta_want["epoch"]),
+        int(meta_want["global_step"]), {}, extra=extra))
+    pts = []
+    for source in (path, pth):
+        eopt = parse_args(ORBAX_FLAGS + ["--workspace", os.path.join(
+            ORBAX_WORKSPACE, "edit_" + os.path.basename(source)), "--pretrained",
+            "--editing_from", source])
+        etr = Trainer(eopt, use_checkpoint="scratch", log=lambda *_: None)
+        zero_counts()
+        pt = ed._get_pt(etr, NeRFDataset(eopt, "train", device=etr.device)
+                        .dataloader().item(0), torch.ones(3, device=etr.device))
+        counts = read_counts()
+        check_launched(counts, (K1_BF16,), "--editing_from pt render")
+        pts.append(pt)
+    for k in ("pt_rgb_bg", "pt_rgb_fg", "pt_mask", "pt_depth_fg"):
+        a, b = pts[0][k], pts[1][k]
+        assert torch.isfinite(a).all() and torch.equal(a, b), \
+            f"{k}: the pt image from the .orbax differs from the .pth's"
+    summary["pt_image_hw"] = list(pts[0]["pt_rgb_fg"].shape[:2])
+    summary["pt_render_launches"] = counts
+    return summary, rows
+
+
+def run_host_inputs(card, recorded):
+    """Phase 10.  Returns (summary, rows)."""
+    t0 = time.time()
+    try:
+        jp = run_host_jpeg(recorded)
+        ob, rows = run_host_orbax()
+    finally:
+        shutil.rmtree(ORBAX_WORKSPACE, ignore_errors=True)
+    wall_s = time.time() - t0
+    for label in ("baseline", "progressive", "smoothed"):
+        q = jp[label]
+        log(f"[host jpeg] {card} | {label}: {q['files']} files, {q['megapixels']:.3f} MP | "
+            f"whole file {q['native_s']:.4f} s/MP (host library) vs {q['plain_s']:.4f} "
+            f"(plain loops): x{q['whole_speedup']:.1f} | entropy stage "
+            f"{q['native_entropy_s']:.4f} vs {q['plain_entropy_s']:.4f} s/MP: "
+            f"x{q['entropy_speedup']:.1f}")
+    log(f"[host jpeg] every file's coefficients equal the plain loops', every "
+        f"decode equals cv2.imdecode (smoothed files: cv2's rows {jp['cv2_row_rule']}; "
+        f"unequal pixels under the JAX reader's rule "
+        f"{[r['cv2_unequal_pixels'] for r in jp['dropped']]})")
+    log(f"[host orbax] {card} | fixture read {ob['read_ms_median']:.2f} ms median of "
+        f"{ORBAX_READS}, of which the manifest and B+tree "
+        f"{ob['store_open_ms_median']:.2f} ms ({ob['decompressed_bytes']} bytes decompressed, "
+        f"{ob['read_mb_per_s']:.1f} MB/s) | --ckpt latest: equal to the .npz bit for bit "
+        f"| one dispatch of {GRAPH_K} graphed steps {ob['dispatch_ms']:.1f} ms, losses "
+        f"{[round(v, 5) for v in ob['losses']]} | launches {ob['graph_launches']} | "
+        f"--editing_from pt image {ob['pt_image_hw']} equal to the .pth's")
+    log(f"[host] phase 10 took {wall_s:.1f} s")
+    return {"jpeg": jp, "orbax": ob, "wall_s": wall_s}, rows
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--data-axis-worker"]:
@@ -2469,7 +2800,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, DATA_AXIS_WORKSPACE):
+        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, DATA_AXIS_WORKSPACE,
+                   ORBAX_WORKSPACE):
             shutil.rmtree(ws, ignore_errors=True)
 
 
@@ -2477,11 +2809,31 @@ def run_all(card, procs) -> int:
     import torch
     from customnerf_torch.ops import kernels
 
+    import threading
+    from customnerf_torch.utils import hostlib
+    host_build = {}
+
+    def build_host():
+        try:
+            t = time.time()
+            host_build["so"] = hostlib.build()
+            host_build["s"] = time.time() - t
+        except BaseException as e:          # re-raised below
+            host_build["error"] = e
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.time()
     so = kernels.build()
     kernels.library()
     build_s = time.time() - t0
     log(f"kernels built in {build_s:.1f} s -> {os.path.relpath(so)}")
+    host_thread.join()
+    if "error" in host_build:
+        raise host_build["error"]
+    log(f"host library built in {host_build['s']:.1f} s -> "
+        f"{os.path.relpath(host_build['so'])}")
+    recorded, stop_recording = record_jpeg_decodes()
 
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.trainer import Trainer
@@ -2621,6 +2973,9 @@ def run_all(card, procs) -> int:
 
     quality, quality_rows = quality_phase(procs)
     rows += quality_rows
+    stop_recording()
+    host, host_rows = run_host_inputs(card, recorded)
+    rows += host_rows
     for r in rows:
         log_row(r)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2631,7 +2986,8 @@ def run_all(card, procs) -> int:
                    "checkpoint": ck, "editing": ed, "multi_scene": scenes,
                    "data_axis": data_axis, "image_driven": cdp,
                    "validate_weights": drill, "parity": parity, "sd2": sd2,
-                   "quality": quality},
+                   "quality": quality, "host_inputs": host,
+                   "host_build_s": host_build["s"]},
                   f, indent=1)
 
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches",

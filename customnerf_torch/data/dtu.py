@@ -75,18 +75,16 @@ class DTUProvider(Provider):
             R = np.load(self.R_path).astype(np.float32)
             self.pose_all = R @ self.pose_all
 
-        images, H, W = [], [], []
+        H, W = [], []
         for p in self.images_lis:
             h0, w0 = png.dims(p)
-            dh, dw = int(h0 / self.resolution_level), int(w0 / self.resolution_level)
-            images.append(resample.load(p, dh, dw, scale=1.0 / 256.0))
-            H.append(dh)
-            W.append(dw)
-        masks = []
-        for p in self.masks_lis:
-            m = resample.load(p, H[0], W[0], gray=True, scale=1.0 / 256.0)
+            H.append(int(h0 / self.resolution_level))
+            W.append(int(w0 / self.resolution_level))
+        images = resample.load_many(zip(self.images_lis, H, W), scale=1.0 / 256.0)
+        masks = resample.load_many([(p, H[0], W[0]) for p in self.masks_lis],
+                                   gray=True, scale=1.0 / 256.0)
+        for m in masks:
             m[m > 0] = 1.0
-            masks.append(m)
         if not masks:
             masks = [np.zeros((H[0], W[0]), np.float32) for _ in images]
         self.images, self.masks, self.H, self.W = images, masks, H, W

@@ -185,11 +185,13 @@ class LLFFProvider(Provider):
         self.origins, self.directions = origins, dirs
 
         n_imgs = 1 if self.split == "test" else len(self.image_paths)
-        images = [resample.load(p, H, W, interp="linear")
-                  for p in self.image_paths[:n_imgs]]
-        masks = [resample.load(p, H, W, gray=True, interp="linear")
-                 if os.path.isfile(p) else np.zeros((H, W), np.float32)
-                 for p in self.mask_paths[:n_imgs]]
+        images = resample.load_many([(p, H, W) for p in self.image_paths[:n_imgs]],
+                                    interp="linear")
+        present = [os.path.isfile(p) for p in self.mask_paths[:n_imgs]]
+        loaded = iter(resample.load_many(
+            [(p, H, W) for p, ok in zip(self.mask_paths, present) if ok],
+            gray=True, interp="linear"))
+        masks = [next(loaded) if ok else np.zeros((H, W), np.float32) for ok in present]
         self.images, self.masks = images, masks
         self.images_lis = self.image_paths[:n_imgs]
         self.H = [H] * len(self.origins)

@@ -101,21 +101,24 @@ class NerfstudioProvider(Provider):
             self.pose_optimizer = np.tile(np.eye(4, dtype=np.float32),
                                           (self.n_images, 1, 1))
 
-        images, H, W = [], [], []
+        H, W = [], []
         for p in self.images_lis:
             h0, w0 = png.dims(p)
-            dh, dw = int(h0 / self.resolution_level), int(w0 / self.resolution_level)
-            images.append(resample.load(p, dh, dw, scale=1.0 / 256.0))
-            H.append(dh)
-            W.append(dw)
+            H.append(int(h0 / self.resolution_level))
+            W.append(int(w0 / self.resolution_level))
+        images = resample.load_many(zip(self.images_lis, H, W), scale=1.0 / 256.0)
 
+        present = [os.path.isfile(p) for p in self.masks_lis]
+        loaded = iter(resample.load_many(
+            [(p, H[0], W[0]) for p, ok in zip(self.masks_lis, present) if ok],
+            gray=True, scale=1.0 / 256.0))
         masks = []
-        for p in self.masks_lis:
-            if not os.path.isfile(p):
+        for p, ok in zip(self.masks_lis, present):
+            if not ok:
                 print(f"[warning] missing mask {p}")
                 mask = np.zeros((H[0], W[0]), np.float32)
             else:
-                mask = resample.load(p, H[0], W[0], gray=True, scale=1.0 / 256.0)
+                mask = next(loaded)
             mask[mask > 0] = 1.0
             masks.append(mask)
         self.images, self.masks, self.H, self.W = images, masks, H, W

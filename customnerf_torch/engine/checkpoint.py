@@ -24,30 +24,43 @@ reconstruction made by the original CustomNeRF.
 ``checkpoint.py:183-227``) writes off the training thread: the port has no
 orbax, so :class:`AsyncSaver` writes the same ``.pth`` files with
 ``torch.save`` on one worker thread, from a host snapshot taken on the
-calling thread (:func:`snapshot`).  Reading a JAX ``.orbax`` directory is
-not ported.
+calling thread (:func:`snapshot`).
+
+A JAX-written ``.orbax`` directory (orbax's ``PyTreeCheckpointHandler``:
+``_METADATA`` naming the tree's leaves, an OCDBT store of zarr v2 arrays,
+zstd-compressed) is read without orbax, tensorstore or zstandard
+(:func:`read_orbax_tree`: ``engine/ocdbt.py``, ``utils/zstd.py``) into what
+the JAX ``load_checkpoint_orbax`` (:229-255) returns: the ``model`` tree
+and meta (epoch, global step, the unpickled stats, the occupancy entries).
+Its Adam state is not read: the leaves' treedef is a pickled JAX object;
+meta says it was there (``ORBAX_OPTIMIZER_KEY``) and a resume starts a
+fresh Adam (ROADMAP.md §C, row ".orbax Adam state").
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import glob
+import json
+import math
 import os
+import pickle
+import shutil
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from customnerf_torch.engine.ocdbt import OcdbtStore
 from customnerf_torch.engine.torch_shim import import_reference_checkpoint
+from customnerf_torch.utils import zstd
 
 OCC_ARRAY_KEYS = ("density_grid", "density_bitfield")
 OCC_SCALAR_KEYS = ("mean_count", "mean_density", "iter_density")
 TORCH_OPTIMIZER_KEY = "torch_optimizer"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item '{item}')")
+ORBAX_OPTIMIZER_KEY = "orbax_optimizer_not_read"
+ORBAX_ADAM_ROW = ".orbax Adam state"
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -206,7 +219,7 @@ def load_checkpoint(path: str, conf_channels: int = 1) -> Tuple[dict, dict]:
     reference-format import (tcnn pads the conf head's outputs)."""
     path = str(path)
     if path.endswith(".orbax"):
-        raise _not_ported("reading a JAX .orbax checkpoint", ".orbax")
+        return load_checkpoint_orbax(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if "model" not in ckpt:
         return unflatten({k: _to_numpy(v) for k, v in ckpt.items()}), {}
@@ -235,9 +248,143 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def prune_ring(stats: dict, ckpt_dir: str, max_keep: int = 5):
-    """Ring-buffer pruning sparing *0.pth (utils_init_nerf.py:806-815)."""
+    """Ring-buffer pruning sparing *0.pth and *0.orbax
+    (utils_init_nerf.py:806-815): a pruned ``.orbax`` entry is a directory,
+    removed with its tree, as the JAX package's ``prune_ring`` does."""
     while len(stats.get("checkpoints", [])) > max_keep:
         old = os.path.join(ckpt_dir, stats["checkpoints"].pop(0))
         stem = old[:-len(".orbax")] if old.endswith(".orbax") else old[:-len(".pth")]
-        if not stem.endswith("0") and os.path.isfile(old):
+        if stem.endswith("0"):
+            continue
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        elif os.path.exists(old):
             os.remove(old)
+
+
+# ------------------------------------------------------------------ .orbax
+_ARRAY_TYPES = ("np.ndarray", "jax.Array", "scalar")
+_POOL_BYTES = 8 << 20         # stored bytes above which leaves are read in threads
+
+
+def _fill(dtype, fill_value):
+    if fill_value is None:
+        return dtype.type(0)
+    if isinstance(fill_value, str):
+        fill_value = {"NaN": np.nan, "Infinity": np.inf, "-Infinity": -np.inf}[fill_value]
+    return dtype.type(fill_value)
+
+
+def read_zarr_array(store: OcdbtStore, name: str, what: str = "") -> np.ndarray:
+    """The zarr v2 array ``name`` of an OCDBT store: ``.zarray``'s dtype
+    (a numpy type string), shape, chunks and order, zstd chunks, a missing
+    chunk read as the fill value (null: zeros)."""
+    where = f"{what}:{name}"
+    try:
+        meta = json.loads(store.read(f"{name}/.zarray"))
+    except KeyError:
+        raise ValueError(f"{where}: no zarr array (.zarray)") from None
+    if meta.get("zarr_format") != 2:
+        raise ValueError(f"{where}: zarr format {meta.get('zarr_format')} is not supported")
+    if meta.get("filters"):
+        raise ValueError(f"{where}: zarr filters are not supported")
+    if (meta.get("compressor") or {}).get("id") != "zstd":
+        raise ValueError(f"{where}: zarr compressor {meta.get('compressor')} is not "
+                         f"supported (orbax writes zstd)")
+    try:
+        stored = np.dtype(meta["dtype"])
+    except TypeError:
+        raise ValueError(f"{where}: zarr dtype {meta['dtype']!r} is not supported") from None
+    shape = tuple(meta["shape"])
+    chunks = tuple(meta["chunks"])
+    order = meta.get("order", "C")
+    sep = meta.get("dimension_separator", ".")
+    out = np.empty(shape, stored)
+    grid = [math.ceil(s / c) if c else 0 for s, c in zip(shape, chunks)]
+    for idx in np.ndindex(*grid) if shape else [()]:
+        key = f"{name}/" + (sep.join(str(i) for i in idx) if idx else "0")
+        region = tuple(slice(i * c, min((i + 1) * c, s))
+                       for i, c, s in zip(idx, chunks, shape))
+        if key not in store:
+            out[region] = _fill(stored, meta.get("fill_value"))
+            continue
+        data = zstd.decompress(store.read(key), f"{what}:{key}")
+        want = int(np.prod(chunks, dtype=np.int64)) * stored.itemsize
+        if data.nbytes != want:
+            raise ValueError(f"{what}:{key}: chunk holds {data.nbytes} bytes, "
+                             f"{want} expected")
+        chunk = data.view(stored).reshape(chunks, order=order)
+        out[region] = chunk[tuple(slice(0, r.stop - r.start) for r in region)]
+    return out
+
+
+def read_orbax_tree(path: str, skip=("optimizer",)):
+    """A ``PyTreeCheckpointHandler`` directory's tree → (nested dicts of
+    numpy arrays, scalars as 0-d arrays; the names of the top-level subtrees
+    in ``skip`` that the directory holds, which are not read).  Above
+    ``_POOL_BYTES`` of stored data the leaves are read on a thread pool
+    (``ctypes`` drops the GIL while zstd decodes)."""
+    path = os.path.abspath(str(path))
+    try:
+        with open(os.path.join(path, "_METADATA")) as fh:
+            tree_meta = json.load(fh)
+    except FileNotFoundError:
+        raise ValueError(f"{path}: no _METADATA (not an orbax PyTree checkpoint)") from None
+    if not tree_meta.get("use_ocdbt", False):
+        raise ValueError(f"{path}: an orbax checkpoint without OCDBT is not supported")
+    if tree_meta.get("use_zarr3", False):
+        raise ValueError(f"{path}: an orbax checkpoint in zarr v3 is not supported")
+    leaves = []
+    for entry in tree_meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        value = entry["value_metadata"]
+        if not keys or keys[0] in skip or value.get("skip_deserialize"):
+            continue
+        if value.get("value_type") not in _ARRAY_TYPES:
+            continue
+        leaves.append(keys)
+    with OcdbtStore(path) as store:
+        # a pool pays for its threads above a few MB
+        stored = sum(store.value_size(k) for k in store.keys()
+                     if k.split(b".", 1)[0].decode(errors="replace") not in skip)
+        workers = min(len(leaves), os.cpu_count() or 1, 16) if stored > _POOL_BYTES else 1
+
+        def read(keys):
+            return read_zarr_array(store, ".".join(keys), path)
+
+        if workers <= 1:
+            arrays = [read(keys) for keys in leaves]
+        else:
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                arrays = list(pool.map(read, leaves))
+    tree: Dict[str, Any] = {}
+    for keys, arr in zip(leaves, arrays):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    skipped = {str(e["key_metadata"][0]["key"]) for e in tree_meta["tree_metadata"].values()
+               if e["key_metadata"] and str(e["key_metadata"][0]["key"]) in skip}
+    return tree, skipped
+
+
+def load_checkpoint_orbax(path: str) -> Tuple[dict, dict]:
+    """A JAX ``.orbax`` directory → (the ``model`` tree of numpy arrays,
+    meta), as the JAX ``load_checkpoint_orbax`` returns them: epoch and
+    global step as ints, ``stats`` unpickled from ``meta.stats_pickle``,
+    the occupancy entries of ``meta``.  The optimizer subtree is not read;
+    ``meta[ORBAX_OPTIMIZER_KEY]`` is True when the directory holds one."""
+    tree, skipped = read_orbax_tree(path)
+    raw = tree.get("meta", {})
+    meta = {"epoch": int(raw.get("epoch", 0)),
+            "global_step": int(raw.get("global_step", 0)),
+            "stats": (pickle.loads(np.asarray(raw["stats_pickle"], np.uint8).tobytes())
+                      if "stats_pickle" in raw else {})}
+    for k in OCC_ARRAY_KEYS + OCC_SCALAR_KEYS:
+        if k in raw:
+            meta[k] = raw[k]
+    if "optimizer" in skipped:
+        meta[ORBAX_OPTIMIZER_KEY] = True
+    if "model" not in tree:
+        raise ValueError(f"{path}: the orbax checkpoint has no 'model' subtree")
+    return tree["model"], meta

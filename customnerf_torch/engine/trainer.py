@@ -76,8 +76,11 @@ is counted k times.  ``--batch_rays`` steps are not sharded: every rank
 takes the same whole step and nothing is summed (``trainer.py:443-447``).
 Under a mesh a K-step group runs as the CPU's plain loop (no CUDA graph:
 collectives are not captured).  Only the first rank writes checkpoints,
-strips and test frames; every rank renders.  Reading a JAX ``.orbax``
-directory raises ``NotImplementedError``.
+strips and test frames; every rank renders.  ``--ckpt`` (a path,
+``latest``, ``latest_model``) and ``--editing_from`` also read a JAX
+``.orbax`` directory (``engine/checkpoint.py::load_checkpoint_orbax``):
+parameters, epoch, step, stats and the occupancy grid; its Adam state is
+not read, so a resume from one starts a fresh Adam and says so in the log.
 """
 
 from __future__ import annotations
@@ -739,6 +742,10 @@ class Trainer:
         self.global_step = meta.get("global_step", 0)
         if meta.get("stats"):
             self.stats = meta["stats"]
+        if meta.get(ckpt_io.ORBAX_OPTIMIZER_KEY):
+            self.log(f"[WARN] {path}: the JAX Adam state of a .orbax checkpoint is "
+                     f"not read (a pickled JAX treedef); the optimizer starts fresh "
+                     f"(ROADMAP.md §C, row '{ckpt_io.ORBAX_ADAM_ROW}')")
         optim = meta.get(ckpt_io.TORCH_OPTIMIZER_KEY)
         if optim is not None:
             self.optimizer.load_state_dict(optim["state_dict"])

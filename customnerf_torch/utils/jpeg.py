@@ -33,12 +33,22 @@ The decoder gives what the JAX package's native reader gives
 
 Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files raise
 ``ValueError`` naming the file.  So do a progressive file without its EOI
-(truncated), one whose scans break the progression rules, and one whose
-scans leave a coefficient's bits unsent: libjpeg smooths such a file's
-blocks (``jdcoefct.c``, block smoothing), which this decoder does not do;
-that error names the ROADMAP row.  Huffman decoding runs symbol by symbol in
-Python (a 16-bit lookup table a code, one window read a symbol), which is
-the decoder's cost; the IDCT, upsampling and colour conversion are numpy.
+(truncated) and one whose scans break the progression rules.  A
+progressive file whose scans leave coefficient bits unsent decodes as
+libjpeg-turbo 2.1 decodes it (``jdcoefct.c``): when ``smoothing_ok`` holds
+(every component's DC partly known, the first ten coefficients' quantisers
+nonzero, and one of coefficients 1-9 with bits unsent) its blocks are
+smoothed (:func:`smooth`: the unsent low AC coefficients, and the DC when
+no AC data came at all, predicted from a 5×5 neighbourhood of DC values);
+otherwise the unsent bits are zeros.
+
+The Huffman stage runs in the host library (``csrc/host/jpeg_entropy.cpp``,
+built at first use: see ``utils/hostlib.py``), which writes each scan into
+the components' int32 coefficient arrays in place.  The Python loops
+:func:`_decode_scan` and :func:`_decode_progressive_scan` are its plain
+version, which the tests hold it against (``decode_coefficients(...,
+plain=True)``); the read path never calls them.  The IDCT, upsampling and
+colour conversion are numpy.
 
 :func:`write_jpeg` is a baseline encoder with ``cv2.imwrite``'s defaults:
 4:2:0 sampling, the Annex K quantisation tables scaled as libjpeg's
@@ -47,13 +57,14 @@ the decoder's cost; the IDCT, upsampling and colour conversion are numpy.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import struct
 
 import numpy as np
 
-PROGRESSIVE_ITEM = "progressive JPEG"
+from customnerf_torch.utils import hostlib
 
 
 def _zigzag() -> np.ndarray:
@@ -222,9 +233,9 @@ def ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 # --------------------------------------------------------------- parsing
 def _huffman_lut(bits, vals, name):
-    """A 16-bit lookahead table: entry = (code length << 8) | symbol, or 0
-    where no code of ≤ 16 bits starts."""
-    lut = np.zeros(1 << 16, np.int64)
+    """A 16-bit lookahead table (int32): entry = (code length << 8) |
+    symbol, or 0 where no code of ≤ 16 bits starts."""
+    lut = np.zeros(1 << 16, np.int32)
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(bits[length - 1]):
@@ -238,7 +249,7 @@ def _huffman_lut(bits, vals, name):
             code += 1
             k += 1
         code <<= 1
-    return lut.tolist()
+    return lut
 
 
 class _Frame:
@@ -271,6 +282,8 @@ def _sof(f: _Frame, body: bytes, marker: int, name: str):
     comps = []
     for i in range(n):
         cid, hv, tq = body[6 + 3 * i: 9 + 3 * i]
+        if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
+            raise ValueError(f"{name}: bad JPEG sampling factors {hv >> 4}x{hv & 15}")
         comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
     f.comps, f.size = comps, (h, w)
     f.progressive = marker == 0xC2
@@ -353,7 +366,8 @@ def _mcu_layout(f: _Frame, scan):
 
 def _decode_scan(f: _Frame, scan, parts, coefs, name):
     """Huffman-decode one sequential scan into ``coefs`` (per component: a
-    flat list of its padded block grid's coefficients, natural order)."""
+    flat list of its padded block grid's coefficients, natural order): the
+    plain version of the host library's ``cn_jpeg_decode_scan``."""
     zz = ZIGZAG.tolist()
     n_mcu, mcu_blocks = _mcu_layout(f, scan)
     tables = []
@@ -361,7 +375,7 @@ def _decode_scan(f: _Frame, scan, parts, coefs, name):
         if td not in f.dc or ta not in f.ac:
             raise ValueError(f"{name}: scan uses an undefined Huffman table")
         c = f.comps[ci]
-        tables.append((f.dc[td], f.ac[ta], coefs[ci], c["bw_pad"]))
+        tables.append((f.dc[td].tolist(), f.ac[ta].tolist(), coefs[ci], c["bw_pad"]))
     per_part = f.restart if f.restart else n_mcu
     m = 0
     for part in parts:
@@ -436,7 +450,7 @@ def _decode_progressive_scan(f: _Frame, scan, ss, se, ah, al, parts, coefs, name
     """Huffman-decode one progressive scan into ``coefs`` (libjpeg's
     ``jdphuff.c``: ``decode_mcu_DC_first``, ``_DC_refine``, ``_AC_first``,
     ``_AC_refine``); coefficients of later scans add their bits to what
-    earlier scans left."""
+    earlier scans left.  The plain version of ``cn_jpeg_decode_scan``."""
     # natural order, with libjpeg's 16 guard entries (jpeg_natural_order)
     zz = ZIGZAG.tolist() + [63] * 16
     n_mcu, mcu_blocks = _mcu_layout(f, scan)
@@ -445,11 +459,11 @@ def _decode_progressive_scan(f: _Frame, scan, ss, se, ah, al, parts, coefs, name
     if ss == 0 and ah == 0:
         if any(td not in f.dc for _, td, _ in scan):
             raise ValueError(f"{name}: scan uses an undefined Huffman table")
-        dcs = [f.dc[td] for _, td, _ in scan]
+        dcs = [f.dc[td].tolist() for _, td, _ in scan]
     elif ss > 0:
         if scan[0][2] not in f.ac:
             raise ValueError(f"{name}: scan uses an undefined Huffman table")
-        ac = f.ac[scan[0][2]]
+        ac = f.ac[scan[0][2]].tolist()
     p1, m1 = 1 << al, -1 << al
     bad_code = f"{name}: corrupt JPEG data (bad Huffman code)"
     per_part = f.restart if f.restart else n_mcu
@@ -602,8 +616,90 @@ def _is_rgb(f: _Frame) -> bool:
     return ids == [ord("R"), ord("G"), ord("B")]
 
 
-def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes → uint8 [H, W, 3] RGB."""
+_ZERO_LUT = np.zeros(1 << 16, np.int32)
+_SCAN_ERRORS = {1: "corrupt JPEG data (bad Huffman code)",
+                2: "corrupt JPEG data (scan ends early)",
+                3: "corrupt JPEG scan header"}
+# libjpeg's MAX_COMPS_IN_SCAN and D_MAX_BLOCKS_IN_MCU
+MAX_COMPS_IN_SCAN, MAX_BLOCKS_IN_MCU = 4, 10
+
+
+def _scan_tables(f: _Frame, scan, ss, ah, progressive: bool, name: str):
+    """The DC and AC lookup tables of each slot of a scan (a zero table
+    where the scan kind reads none)."""
+    dcs, acs = [], []
+    for ci, td, ta in scan:
+        need_dc = not progressive or (ss == 0 and ah == 0)
+        need_ac = not progressive or ss > 0
+        if (need_dc and td not in f.dc) or (need_ac and ta not in f.ac):
+            raise ValueError(f"{name}: scan uses an undefined Huffman table")
+        dcs.append(f.dc[td] if need_dc else _ZERO_LUT)
+        acs.append(f.ac[ta] if need_ac else _ZERO_LUT)
+    return dcs, acs
+
+
+def _sos(f: _Frame, body: bytes, name: str):
+    """The scan header's components as (component index, DC table, AC
+    table), with libjpeg's ``get_sos`` and ``per_scan_setup`` checks: a
+    length of 6 + 2 Ns, Ns in 1..4, each component of the frame and named
+    once, at most 10 blocks in an interleaved scan's MCU."""
+    ns = body[0] if body else 0
+    if len(body) != 4 + 2 * ns or not 1 <= ns <= MAX_COMPS_IN_SCAN:
+        raise ValueError(f"{name}: corrupt JPEG scan header (Ns={ns}, "
+                         f"{len(body) + 2} bytes)")
+    ids = [c["id"] for c in f.comps]
+    scan = []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i], body[2 + 2 * i]
+        if cid not in ids:
+            raise ValueError(f"{name}: scan names an unknown component")
+        if any(ids[ci] == cid for ci, _, _ in scan):
+            raise ValueError(f"{name}: scan names component {cid} twice")
+        scan.append((ids.index(cid), t >> 4, t & 15))
+    if ns > 1 and sum(f.comps[ci]["h"] * f.comps[ci]["v"]
+                      for ci, _, _ in scan) > MAX_BLOCKS_IN_MCU:
+        raise ValueError(f"{name}: scan's MCU holds more than "
+                         f"{MAX_BLOCKS_IN_MCU} blocks")
+    return scan
+
+
+def _native_scan(f: _Frame, scan, ss, se, ah, al, parts, coefs, name):
+    """One scan through the host library into ``coefs`` (int32 arrays)."""
+    lib = hostlib.library()
+    pad = np.zeros(8, np.uint8)
+    data = np.concatenate([x for part in parts for x in (part, pad)] or [pad])
+    offs = np.zeros(len(parts) + 1, np.int64)
+    offs[1:] = np.cumsum([len(part) + 8 for part in parts])
+    dcs, acs = _scan_tables(f, scan, ss, ah, f.progressive, name)
+    n = len(scan)
+    comps = [f.comps[ci] for ci, _, _ in scan]
+    slot_coefs = (ctypes.c_void_p * n)(*[hostlib.ptr(coefs[ci]) for ci, _, _ in scan])
+    bw_pad = np.array([c["bw_pad"] for c in comps], np.int32)
+    hs = np.array([c["h"] for c in comps], np.int32)
+    vs = np.array([c["v"] for c in comps], np.int32)
+    hmax = max(c["h"] for c in f.comps)
+    vmax = max(c["v"] for c in f.comps)
+    h_img, w_img = f.size
+    c0 = comps[0]
+    bw1 = math.ceil(math.ceil(w_img * c0["h"] / hmax) / 8)
+    bh1 = math.ceil(math.ceil(h_img * c0["v"] / vmax) / 8)
+    mx, my = math.ceil(w_img / (8 * hmax)), math.ceil(h_img / (8 * vmax))
+    dc_p = (ctypes.c_void_p * n)(*[hostlib.ptr(t) for t in dcs])
+    ac_p = (ctypes.c_void_p * n)(*[hostlib.ptr(t) for t in acs])
+    rc = lib.cn_jpeg_decode_scan(
+        hostlib.ptr(data), hostlib.ptr(offs), len(parts), n, slot_coefs,
+        hostlib.ptr(bw_pad), hostlib.ptr(hs), hostlib.ptr(vs), bw1, bh1, mx, my,
+        dc_p, ac_p, f.restart, int(f.progressive), ss, se, ah, al)
+    if rc:
+        raise ValueError(f"{name}: {_SCAN_ERRORS[rc]}")
+
+
+def decode_coefficients(data: bytes, name: str = "<bytes>", plain: bool = False):
+    """JPEG bytes → (frame, coefficients): per component an int32 array of
+    its padded block grid's quantised coefficients (natural order, block
+    (by, bx) at ``(by * bw_pad + bx) * 64``), as the scans left them, before
+    any smoothing.  ``plain``: the Python Huffman loops instead of the host
+    library (the tests' reference)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file")
     buf = np.frombuffer(data, np.uint8)
@@ -627,21 +723,20 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             my = math.ceil(f.size[0] / (8 * vmax))
             for c in f.comps:
                 c["bw_pad"], c["bh_pad"] = mx * c["h"], my * c["v"]
-            coefs = [[0] * (c["bh_pad"] * c["bw_pad"] * 64) for c in f.comps]
-        ns = body[0]
-        ids = [c["id"] for c in f.comps]
-        scan = []
-        for i in range(ns):
-            cid, t = body[1 + 2 * i], body[2 + 2 * i]
-            if cid not in ids:
-                raise ValueError(f"{name}: scan names an unknown component")
-            scan.append((ids.index(cid), t >> 4, t & 15))
+            sizes = [c["bh_pad"] * c["bw_pad"] * 64 for c in f.comps]
+            coefs = ([[0] * n for n in sizes] if plain
+                     else [np.zeros(n, np.int32) for n in sizes])
+        scan = _sos(f, body, name)
+        ns = len(scan)
         ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
         if f.progressive:
             _check_progression(f, scan, ss, se, a >> 4, a & 15, name)
         elif ss != 0 or se != 63:
             raise ValueError(f"{name}: a spectral-selection scan is not baseline")
         parts, pos = _scan_extent(buf, end)
+        if not plain:
+            _native_scan(f, scan, ss, se, a >> 4, a & 15, parts, coefs, name)
+            continue
         try:
             if f.progressive:
                 _decode_progressive_scan(f, scan, ss, se, a >> 4, a & 15, parts,
@@ -655,12 +750,185 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             raise ValueError(f"{name}: truncated progressive JPEG (no EOI marker)")
     if coefs is None:
         raise ValueError(f"{name}: JPEG without image data")
-    if f.progressive and any(b != 0 for bits in f.coef_bits for b in bits):
-        raise ValueError(
-            f"{name}: progressive JPEG whose scans leave coefficient bits unsent; "
-            f"libjpeg would smooth its blocks, which the port's decoder does not "
-            f"(ROADMAP.md, row '{PROGRESSIVE_ITEM}')")
+    if plain:
+        coefs = [np.asarray(c, np.int64).astype(np.int32) for c in coefs]
+    return f, coefs
+
+
+def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes → uint8 [H, W, 3] RGB."""
+    return reconstruct(*decode_coefficients(data, name), name)
+
+
+def reconstruct(f: _Frame, coefs, name: str = "<bytes>") -> np.ndarray:
+    """:func:`decode_coefficients`' output → uint8 [H, W, 3] RGB: block
+    smoothing where libjpeg smooths, the IDCT, upsampling and colour."""
+    latch = smoothing_latch(f)
+    if latch is not None:
+        coefs = smooth(f, coefs, latch)
     return _reconstruct(f, coefs, name)
+
+
+# ------------------------------------------------------- block smoothing
+# natural positions of zigzag coefficients 1-9 (jdcoefct.c: Q01_POS …)
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+SAVED_COEFS = 10
+
+
+def smoothing_latch(f: _Frame):
+    """libjpeg-turbo 2.1's ``jdcoefct.c::smoothing_ok`` after the last scan:
+    the latched bits still unsent of zigzag coefficients 0-9, per component
+    ([n_comps, 10], -1 where none were sent), when smoothing applies; None
+    when it does not (a sequential file, a component whose DC was never
+    sent, a zero quantiser among the first ten, or coefficients 1-9 all
+    complete)."""
+    if not f.progressive or f.coef_bits is None:
+        return None
+    useful = False
+    latch = []
+    for c, bits in zip(f.comps, f.coef_bits):
+        q = f.qt.get(c["tq"])
+        if q is None:
+            return None
+        qf = q.reshape(-1)
+        if qf[0] == 0 or any(qf[k] == 0 for k in _SMOOTH_POS):
+            return None
+        if bits[0] < 0:
+            return None
+        latch.append(bits[:SAVED_COEFS])
+        useful = useful or any(b != 0 for b in bits[1:SAVED_COEFS])
+    return np.array(latch, np.int64) if useful else None
+
+
+def _smoothing_rows(n_rows: int, v: int, total_imcu: int) -> np.ndarray:
+    """[n_rows, 5] block rows (two above … two below) that
+    ``decompress_smooth_data`` reads for each block row of a component with
+    vertical factor ``v``: its prev/next pointers, which stop at the image's
+    edges and, at the first and the second-to-last iMCU rows, repeat the
+    nearer row."""
+    last = total_imcu - 1
+    out = np.empty((n_rows, 5), np.int64)
+    for r in range(n_rows):
+        i, b = divmod(r, v)
+        block_rows = v if i < last else (n_rows % v or v)
+        prev = r - 1 if (b > 0 or i > 0) else r
+        prev2 = r - 2 if (b > 1 or i > 1) else prev
+        nxt = r + 1 if (b < block_rows - 1 or i < last) else r
+        nxt2 = r + 2 if (b < block_rows - 2 or i + 1 < last) else nxt
+        out[r] = (prev2, prev, r, nxt, nxt2)
+    return out
+
+
+def _clamped_smoothing_rows(n_rows: int, v: int, total_imcu: int) -> np.ndarray:
+    """libjpeg-turbo 3.x's rows, in place of :func:`_smoothing_rows`: two
+    above and two below, clamped to the image (``cv2.imread`` links 3.x;
+    the tests and ``chip_smoke.py`` swap it in to hold the port to cv2)."""
+    r = np.arange(n_rows)[:, None] + np.arange(-2, 3)[None, :]
+    return np.clip(r, 0, n_rows - 1)
+
+
+def _smoothing_cols(n_cols: int) -> np.ndarray:
+    """[n_cols, 5] block columns (two left … two right) as
+    ``decompress_smooth_data``'s sliding registers DC01…DC05 hold them."""
+    last = n_cols - 1
+    reg = [0] * 5
+    out = np.empty((n_cols, 5), np.int64)
+    for c in range(n_cols):
+        if c == 0 and c < last:
+            reg[3] = 1
+        if c + 1 < last:
+            reg[4] = c + 2
+        out[c] = reg
+        reg = reg[1:] + [reg[4]]
+    return out
+
+
+def _predict(num, q, al):
+    """``pred`` of jdcoefct.c from ``num``, quantiser ``q`` and the unsent
+    bits ``al``: rounded division by q·256, clamped below 1 << al when al >
+    0, the sign of num."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def smooth(f: _Frame, coefs, latch) -> list:
+    """libjpeg-turbo 2.1's block smoothing (``jdcoefct.c::
+    decompress_smooth_data``) over all blocks at once: per component a copy
+    of its coefficients in which each of the zigzag coefficients 1-9 that is
+    still zero and has bits unsent (latch ≠ 0) is predicted from the 5×5
+    neighbourhood of quantised DC values; when no AC bits came at all (latch
+    -1 for 1-9) a Gaussian-like kernel also predicts 3,0 … 0,3 and
+    replaces the DC.  Predictions are clamped below 1 << (bits unsent)."""
+    h_img, w_img = f.size
+    hmax = max(c["h"] for c in f.comps)
+    vmax = max(c["v"] for c in f.comps)
+    total_imcu = math.ceil(h_img / (8 * vmax))
+    out = []
+    for ci, (c, flat) in enumerate(zip(f.comps, coefs)):
+        bits = [int(b) for b in latch[ci]]
+        hb = math.ceil(math.ceil(h_img * c["v"] / vmax) / 8)
+        wb = math.ceil(math.ceil(w_img * c["h"] / hmax) / 8)
+        blocks = np.array(flat, np.int32).reshape(c["bh_pad"], c["bw_pad"], 64)
+        dc = blocks[:hb, :wb, 0].astype(np.int64)
+        rows, cols = _smoothing_rows(hb, c["v"], total_imcu), _smoothing_cols(wb)
+        # D[k] = DC01 … DC25: row slot (k // 5) × column slot (k % 5)
+        nb = dc[rows[:, :, None, None], cols[None, None, :, :]]   # [hb, 5, wb, 5]
+        D = [None] + [nb[:, k // 5, :, k % 5] for k in range(25)]
+        q = f.qt[c["tq"]].reshape(-1).astype(np.int64)
+        change_dc = all(b == -1 for b in bits[1:SAVED_COEFS])
+        if change_dc:
+            est = [
+                -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9]
+                + 3 * D[10] - 3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15]
+                - 3 * D[16] + 13 * D[17] - 13 * D[19] + 3 * D[20] - D[21] - D[22]
+                + D[24] + D[25],
+                -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7]
+                + 38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18]
+                - 13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24]
+                + D[25],
+                D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13]
+                - 5 * D[14] + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23],
+                -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21]
+                - D[25],
+                2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13]
+                + 7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19],
+                D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19],
+                D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19],
+                D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19],
+                D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19],
+            ]
+        else:
+            est = [
+                -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15],
+                -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23],
+                -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23],
+                D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22]
+                - D[24] + D[4] - D[6] + 10 * D[7] - 10 * D[9],
+                -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15],
+            ]
+        work = blocks[:hb, :wb].copy()
+        for k, (pos, e) in enumerate(zip(_SMOOTH_POS, est)):
+            al = bits[k + 1]
+            if al == 0:
+                continue
+            pred = _predict(q[0] * e, int(q[pos]), al)
+            keep = work[..., pos] != 0
+            work[..., pos] = np.where(keep, work[..., pos],
+                                      pred.astype(np.int16).astype(np.int32))
+        if change_dc:
+            num = q[0] * (
+                -2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6]
+                + 6 * D[7] + 42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11]
+                + 42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] - 6 * D[16]
+                + 6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21]
+                - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25])
+            work[..., 0] = _predict(num, int(q[0]), 0).astype(np.int16)
+        blocks = blocks.copy()
+        blocks[:hb, :wb] = work
+        out.append(blocks.reshape(-1))
+    return out
 
 
 def _reconstruct(f: _Frame, coefs, name: str) -> np.ndarray:

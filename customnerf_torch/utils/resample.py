@@ -7,7 +7,8 @@ row-weight matrix and one column-weight matrix, in float64 as there.
 :func:`load` is the loaders' decode-and-resize: a PNG through
 ``utils/png.py`` or a JPEG through ``utils/jpeg.py``, RGB or the BT.601
 luma that ``dataio.cpp:251`` takes for grayscale reads, resized and scaled
-to float32.
+to float32; :func:`load_many` decodes a scene's images on a thread pool, as
+the JAX package's ``decode_resize_batch`` threads its decodes.
 
 :func:`resize_cv_area` is ``cv2.resize(…, INTER_AREA)`` itself, for the
 Custom Diffusion images (``guidance/custom_diffusion.py``), whose JAX
@@ -17,6 +18,9 @@ uint8 results rounded.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import os
 
 import numpy as np
 
@@ -87,6 +91,19 @@ def load(path: str, dh: int, dw: int, gray: bool = False,
     src = luma(rgb) if gray else rgb
     fn = resize_bilinear if interp == "linear" else resize_area
     return fn(src, dh, dw, scale)
+
+
+def load_many(jobs, **kw) -> list:
+    """:func:`load` of every ``(path, dh, dw)`` in ``jobs`` on a pool of
+    ``os.cpu_count()`` threads (the JPEG entropy stage and zlib release the
+    GIL): the images in ``jobs``' order, equal to loading them one by one.
+    ``kw`` goes to every :func:`load`."""
+    jobs = list(jobs)
+    if len(jobs) <= 1:
+        return [load(*job, **kw) for job in jobs]
+    workers = min(len(jobs), os.cpu_count() or 1)
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(lambda job: load(*job, **kw), jobs))
 
 
 def _cv_area_taps(src: int, dst: int) -> np.ndarray:

@@ -185,15 +185,20 @@ def test_ring_latest_and_resume(tmp_path):
 
 
 def test_unported_formats_name_their_roadmap_item(tmp_path):
-    """Reading a JAX ``.orbax`` directory still raises; a reference-format
-    (tcnn) file loads through the shim (``tests/test_torch_refckpt.py``
-    holds it to JAX); ``--ckpt_format orbax`` builds a trainer with the
-    asynchronous writer."""
+    """Every checkpoint format the JAX package reads loads in the port: a
+    JAX ``.orbax`` directory is read (``tests/test_torch_orbax.py`` holds it
+    to JAX) and a path that is not one raises ``ValueError`` naming it; a
+    reference-format (tcnn) file loads through the shim
+    (``tests/test_torch_refckpt.py`` holds it to JAX); ``--ckpt_format
+    orbax`` builds a trainer with the asynchronous writer."""
     from customnerf_torch.engine.torch_shim import export_reference_checkpoint
     from customnerf_torch.models.field import FieldConfig, NeRFField
     from customnerf_torch.ops.grid import GridSpec
-    with pytest.raises(NotImplementedError, match="ROADMAP.*orbax"):
+    with pytest.raises(ValueError, match="df_ep0001.orbax.*_METADATA"):
         tckpt.load_checkpoint(str(tmp_path / "df_ep0001.orbax"))
+    fixture = os.path.join(os.path.dirname(__file__), "data", "jax_orbax", "df_ep0002.orbax")
+    params, meta = tckpt.load_checkpoint(fixture)
+    assert meta["epoch"] == 2 and "params" in params
     tcnn = str(tmp_path / "ref.pth")
     field = NeRFField(FieldConfig(grid=GridSpec(num_levels=16, base_resolution=4,
                                                 log2_hashmap_size=10,

@@ -1,9 +1,11 @@
 """The port stands alone: ``customnerf_torch``, ``chip_smoke.py`` and the
 study tools in ``tools/`` import nothing of JAX, nothing of the JAX package,
-and none of ``transformers``, ``safetensors``, ``cv2`` or PIL (the card's
-machine may lack them; the image, data and guidance paths decode and resize
-on their own), and the entry points run on the card unless the caller asks
-for the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not
+and none of ``transformers``, ``safetensors``, ``cv2``, PIL, ``orbax``,
+``tensorstore`` or ``zstandard`` (the card's machine may lack them; the
+image, data, checkpoint and guidance paths decode and resize on their own),
+the host library has no Python fallback (without a compiler a JPEG read
+raises, naming it), and the entry points run on the card unless the caller
+asks for the CPU.  Plus tiny end-to-end runs on the CPU (control flow, not
 speed): the trainer loop, the CLI on a nerfstudio fixture then ``--test``,
 and phase 1 → checkpoint → phase 2 (editing), on the ``-O`` tri-plane path
 and on ``bear.sh --parity``'s ``-O2`` grid path."""
@@ -23,7 +25,7 @@ from test_torch_guidance import one_thread  # noqa: E402,F401
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors",
-             "cv2", "PIL"):
+             "cv2", "PIL", "orbax", "tensorstore", "zstandard"):
     sys.modules[name] = None          # any import of them now fails
 import customnerf_torch
 mods = [m.name for m in pkgutil.walk_packages(customnerf_torch.__path__,
@@ -34,7 +36,8 @@ import chip_smoke
 import tools.device_probe, tools.kernel_study
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("customnerf_tpu", "jax", "jaxlib", "flax", "optax", "transformers",
-              "safetensors", "cv2", "PIL") and sys.modules[m] is not None)
+              "safetensors", "cv2", "PIL", "orbax", "tensorstore", "zstandard")
+             and sys.modules[m] is not None)
 assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.data.nerfstudio", "customnerf_torch.data.llff",
         "customnerf_torch.data.dtu", "customnerf_torch.data.fixtures",
@@ -44,7 +47,9 @@ assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.guidance.custom_diffusion", "customnerf_torch.guidance.sampler",
         "customnerf_torch.guidance.retrieve", "customnerf_torch.guidance.validate",
         "customnerf_torch.tune_custom_diffusion", "customnerf_torch.parallel",
-        "customnerf_torch.parallel.mesh"} <= set(mods)
+        "customnerf_torch.parallel.mesh", "customnerf_torch.engine.ocdbt",
+        "customnerf_torch.utils.zstd", "customnerf_torch.utils.hostlib",
+        "customnerf_torch.utils.image"} <= set(mods)
 assert not bad, bad
 print("imported", len(mods))
 """
@@ -73,6 +78,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and '"ok": true' not in r.stdout
+
+
+def test_host_library_without_a_compiler_raises_naming_it(tmp_path):
+    """No Python fallback on the read path: with ``$CXX`` naming no compiler,
+    the first JPEG read raises ``RuntimeError`` naming it; so does a zstd
+    decode."""
+    from customnerf_torch.utils import jpeg
+    path = jpeg.write_jpeg(str(tmp_path / "x.jpg"),
+                           (torch.rand(16, 16, 3) * 255).to(torch.uint8).numpy())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", CXX="no-such-cxx",
+               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    for code in (f"from customnerf_torch.utils import jpeg; jpeg.read({path!r})",
+                 "from customnerf_torch.utils import zstd; zstd.decompress(b'x')"):
+        r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert "RuntimeError" in r.stderr and "no-such-cxx" in r.stderr, r.stderr
 
 
 def test_cli_entry_point_needs_the_card():
