@@ -463,6 +463,185 @@ def run_flagship_dispatch(ckpt_path):
     return summary, rows
 
 
+ORBAX_SAVE_WORKSPACE = os.path.join("chiprun_out", "smoke_orbax_save")
+ORBAX_SAVE_ROUNDS = 5         # .orbax and .pth saves, alternating, of one state
+ORBAX_SAVE_EPOCH = 10         # a ring name the prune spares (*0): no deletes timed
+
+
+def _disk_bytes(path):
+    """A file's bytes, or every file's under a directory."""
+    if not os.path.isdir(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def run_flagship_orbax(ckpt_path):
+    """Phase 4e: ``--ckpt_format orbax`` at the flagship's width, from the
+    main path's checkpoint (its grid warm).  (a) One graphed dispatch of
+    GRAPH_K steps, then ORBAX_SAVE_ROUNDS rounds of ``save_checkpoint``
+    under ``--ckpt_format orbax`` and under ``pth`` (both through the
+    saver, asynchronous), each taking its own snapshot of that state, after
+    one save that allocates the saver's pinned buffers: the ms a save
+    blocks the training thread, the write's wall (to the end of
+    ``wait()``), bytes and MB/s; the median ``.orbax`` block within twice
+    the ``.pth`` one.  (b) The directory read back by the port equals the
+    state at the save bit for bit: parameters, occupancy, Adam moments and
+    count.  (c) A fresh trainer resumed by ``--ckpt latest`` holds the
+    saver's Adam state bit for bit; with the saver's generator state (no
+    checkpoint holds it) both take the next dispatch of GRAPH_K steps,
+    within :func:`dispatch_check`'s bounds of each other (losses, max and
+    RMS distance in lr_g a step); the resumed trainer's launches are
+    counted on that dispatch and K1-bf16 and dT-bf16 held against their
+    plain versions on its inputs.  (d) ``--editing_from`` the directory
+    renders the pt image of the ``.pth`` of the same state bit for bit.
+    Returns (summary, rows)."""
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import checkpoint as ckpt_io
+    from customnerf_torch.engine import editing as ed
+    from customnerf_torch.engine.convert import params_from_flax
+    from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.models import field
+    from customnerf_torch.models.field import param_names
+    from customnerf_torch.ops import triplane
+
+    shutil.rmtree(ORBAX_SAVE_WORKSPACE, ignore_errors=True)
+    os.makedirs(os.path.join(ORBAX_SAVE_WORKSPACE, "pth"))
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + [
+        "--workspace", os.path.join(ORBAX_SAVE_WORKSPACE, "ring"), "--ckpt_format", "orbax"])
+    a = Trainer(opt, use_checkpoint=ckpt_path, log=lambda *_: None)
+    assert a.steps_per_dispatch() == GRAPH_K and a.n_updates > 0
+    train = NeRFDataset(opt, "train", device=a.device).dataloader()
+    batches = [train.item(i % len(train)) for i in range(2 * GRAPH_K)]
+    a.train_many(batches[:GRAPH_K])
+    a.global_step += GRAPH_K
+    torch.cuda.synchronize()
+    # (a) the state at the save, and the saves' times
+    want = {k: v.detach().cpu().clone() for k, v in a.field.state_dict().items()}
+    order = [p for g in a.optimizer.param_groups for p in g["params"]]
+    adam = {n: {k: v.detach().cpu().clone() for k, v in a.optimizer.state[p].items()}
+            for n, p in zip(param_names(a.field), order)}
+    occ = a.occ_state
+    occ_want = {"density_grid": occ.density_grid.cpu().clone(),
+                "density_bitfield": occ.bitfield.cpu().clone(),
+                "mean_density": float(occ.mean_density), "iter_density": occ.iter_density}
+    pth_dir = os.path.join(ORBAX_SAVE_WORKSPACE, "pth")
+
+    def timed(save):
+        a._host_cache = None            # each save takes its own snapshot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save()
+        block = (time.perf_counter() - t0) * 1e3
+        a.wait_for_saves()
+        wall = (time.perf_counter() - t0) * 1e3
+        nbytes = _disk_bytes(path)
+        return path, {"block_ms": block, "wall_ms": wall, "bytes": nbytes,
+                      "mb_per_s": nbytes / 1e6 / (wall / 1e3)}
+
+    a.epoch = ORBAX_SAVE_EPOCH
+    _, warm = timed(a.save_checkpoint)
+    saves = {"orbax": [], "pth": []}
+    for _ in range(ORBAX_SAVE_ROUNDS):
+        for fmt in saves:
+            a.opt.ckpt_format = fmt
+            saves[fmt].append(timed(a.save_checkpoint)[1])
+    a.opt.ckpt_format = "orbax"
+    stem = os.path.join(a.ckpt_path, f"df_ep{ORBAX_SAVE_EPOCH:04d}")
+    assert sorted(os.listdir(a.ckpt_path)) == [os.path.basename(stem) + ".orbax",
+                                               os.path.basename(stem) + ".pth"]
+    path, pth = stem + ".orbax", os.path.join(pth_dir, os.path.basename(stem) + ".pth")
+    os.replace(stem + ".pth", pth)          # out of the ring: --ckpt latest takes the .orbax
+    med = {f: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for f, rs in saves.items()}
+    assert med["orbax"]["block_ms"] <= 2.0 * med["pth"]["block_ms"], med
+    # (b) the port's read of the directory
+    params, meta = ckpt_io.load_checkpoint(path, layout=a.optax_layout())
+    got = params_from_flax(params)
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    for k in ("density_grid", "density_bitfield"):
+        assert torch.equal(torch.from_numpy(meta[k]), occ_want[k]), k
+    assert (float(meta["mean_density"]), int(meta["iter_density"])) == (
+        occ_want["mean_density"], occ_want["iter_density"])
+    optim = meta[ckpt_io.TORCH_OPTIMIZER_KEY]
+    assert optim["n_updates"] == a.n_updates
+    for n, st in adam.items():
+        assert float(st["step"]) == float(optim["adam"]["step"]) == a.n_updates, n
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(optim["adam"][k][n], st[k]), (n, k)
+    # (c) a fresh trainer resumed by --ckpt latest, and the next dispatch on both
+    lines = []
+    b = Trainer(opt, use_checkpoint="latest", log=lines.append)
+    assert any(path in l for l in lines) and "[INFO] loaded optimizer." in lines, lines
+    assert (b.n_updates, b.global_step, b.epoch) == (a.n_updates, a.global_step, a.epoch)
+    for pa, pb in zip(order, [p for g in b.optimizer.param_groups for p in g["params"]]):
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        assert all(torch.equal(sa[k], sb[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    b.generator.set_state(a.generator.get_state())
+    zero_counts()
+    with captured_calls(field, "fused_field_mlp", keep=1,
+                        when=lambda a_, k: torch.is_grad_enabled()) as mlp, \
+            captured_calls(triplane, "plane_dtable", keep=6) as dt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lb = b.train_many(batches[GRAPH_K:])[0]
+        torch.cuda.synchronize()
+        resumed_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(graphed=True)
+    check_launched(launches, (K1_BF16, DT_BF16), "flagship .orbax resume")
+    la = a.train_many(batches[GRAPH_K:])[0]
+    loss_rel = float(((la - lb).abs() / la.abs()).max())
+    dist = []
+    for (pname, p), q in zip(a.field.named_parameters(), b.field.parameters()):
+        lr_steps = opt.lr * (10.0 if pname == "grid_table" else 1.0) * GRAPH_K
+        d = (p.detach() - q.detach()).float()
+        dist.append({"name": pname, "max_over_lr_steps": float(d.abs().max()) / lr_steps,
+                     "rms_over_lr_steps": float(d.pow(2).mean().sqrt()) / lr_steps})
+    assert loss_rel <= LOSS_RTOL["reconstruction"], (loss_rel, la, lb)
+    assert all(q["max_over_lr_steps"] <= 2.0 and q["rms_over_lr_steps"] <= PARAM_RMS_LR
+               for q in dist), dist
+    summary = {"saves": saves, "median": med, "warm_pth": warm,
+               "n_updates": a.n_updates, "loss_rel": loss_rel, "params": dist,
+               "resumed_dispatch_ms": resumed_ms, "graph_launches": launches,
+               "path": "flagship .orbax resume (graph)"}
+    rows = dispatch_rows(mlp[-1], list(dt), summary)
+    # (d) --editing_from the directory against the .pth of the same state
+    pts = []
+    for source in (path, pth):
+        eopt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + [
+            "--workspace", os.path.join(ORBAX_SAVE_WORKSPACE, "edit_" + os.path.basename(source)),
+            "--pretrained", "--editing_from", source])
+        etr = Trainer(eopt, use_checkpoint="scratch", log=lambda *_: None)
+        pts.append(ed._get_pt(etr, NeRFDataset(eopt, "train", device=etr.device)
+                              .dataloader().item(0), torch.ones(3, device=etr.device)))
+        del etr
+    for k in ("pt_rgb_bg", "pt_rgb_fg", "pt_mask", "pt_depth_fg"):
+        assert torch.isfinite(pts[0][k]).all() and torch.equal(pts[0][k], pts[1][k]), k
+    summary["pt_image_hw"] = list(pts[0]["pt_rgb_fg"].shape[:2])
+    return summary, rows
+
+
+def log_orbax(card, ob):
+    """Phase 4e's lines."""
+    for fmt, label in (("orbax", ".orbax directory"), ("pth", ".pth file")):
+        rs, m = ob["saves"][fmt], ob["median"][fmt]
+        log(f"[orbax save] {card} | flagship, async {label}: {m['bytes'] / 1e6:.1f} MB | "
+            f"blocks the training thread {[round(r['block_ms'], 2) for r in rs]} ms "
+            f"(median {m['block_ms']:.2f}) | write wall {[round(r['wall_ms'], 1) for r in rs]} "
+            f"ms (median {m['wall_ms']:.1f}, {m['mb_per_s']:.0f} MB/s)")
+    worst = max(ob["params"], key=lambda q: q["rms_over_lr_steps"])
+    log(f"[orbax save] read back bit for bit (parameters, occupancy, Adam moments, count "
+        f"{ob['n_updates']}) | --ckpt latest: Adam bit for bit; the next {GRAPH_K}-step "
+        f"dispatch {ob['resumed_dispatch_ms']:.1f} ms with its capture, against the saver's: "
+        f"losses within {ob['loss_rel']:.2g} rel, params max "
+        f"{max(q['max_over_lr_steps'] for q in ob['params']):.3g} lr_g-steps, RMS "
+        f"{worst['rms_over_lr_steps']:.3g} ({worst['name']}) | launches "
+        f"{ob['graph_launches']} | --editing_from pt image {ob['pt_image_hw']} equal to "
+        f"the .pth's")
+
+
 def run_f32_dtable_steps(trainer):
     """DT_F32_STEPS more steps of the main path's trainer with its tri-plane
     spec's ``mm_bf16`` off (the JAX package's f32 table gradient, the
@@ -2176,7 +2355,7 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
 
     def counted_file(path, state):
         out = write_file(path, state)
-        saves["bytes"] += os.path.getsize(path)
+        saves["bytes"] += _disk_bytes(path)
         saves["files"] += 1
         return out
 
@@ -2647,11 +2826,12 @@ def run_host_orbax():
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine import checkpoint as ckpt_io
     from customnerf_torch.engine import editing as ed
-    from customnerf_torch.engine.convert import params_to_flax
+    from customnerf_torch.engine.convert import adam_from_torch, params_to_flax
     from customnerf_torch.engine.measure import captured_calls
     from customnerf_torch.engine.ocdbt import OcdbtStore
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.models import field
+    from customnerf_torch.models.field import param_names
     from customnerf_torch.ops import triplane
 
     shutil.rmtree(ORBAX_WORKSPACE, ignore_errors=True)
@@ -2678,7 +2858,27 @@ def run_host_orbax():
     lines = []
     tr = Trainer(opt, use_checkpoint="latest", log=lines.append)
     assert any(ORBAX_NAME + ".orbax" in l for l in lines), lines
-    assert any(ckpt_io.ORBAX_ADAM_ROW in l for l in lines), lines
+    assert "[INFO] loaded optimizer." in lines and not any("WARN" in l for l in lines), lines
+    # (e) its Adam state: the fixture's optimizer leaves as the JAX package
+    # restores them (df_ep0002_opt.npz), by their roles in the optax state
+    leaves = np.load(os.path.join(ORBAX_FIXTURE, ORBAX_NAME + "_opt.npz"))
+    adam = adam_from_torch(tr.optimizer.state_dict(), param_names(tr.field),
+                           tr.field.state_dict())
+    moments = {what: ckpt_io.flatten(params_to_flax(
+        {n: v.detach().cpu() for n, v in adam[name].items()}))
+        for what, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    roles = tr.optax_layout().roles
+    assert len(roles) == len(leaves.files) - 1
+    for i, (what, _, fpath) in enumerate(roles):
+        leaf = leaves[f"optimizer.leaves.{i}"]
+        if what in moments:
+            assert moments[what][fpath].tobytes() == leaf.tobytes(), (i, what, fpath)
+        elif what == "found_nan":
+            assert tr._found_nan[fpath] == bool(leaf), (i, fpath)
+        else:
+            assert tr.n_updates == int(leaf), (i, what)
+    assert all(float(st["step"]) == tr.n_updates for st in tr.optimizer.state.values())
+    resumed_updates = tr.n_updates
     assert (tr.epoch, tr.global_step) == (int(meta_want["epoch"]), int(meta_want["global_step"]))
     got = ckpt_io.flatten(params_to_flax(
         {k: v.detach().cpu() for k, v in tr.field.state_dict().items()}))
@@ -2710,7 +2910,8 @@ def run_host_orbax():
                "store_open_ms_median": statistics.median(open_ms),
                "decompressed_bytes": nbytes,
                "read_mb_per_s": nbytes / 1e6 / (statistics.median(read_ms) / 1e3),
-               "epoch": tr.epoch, "losses": losses, "dispatch_ms": dispatch_ms,
+               "epoch": tr.epoch, "n_updates": resumed_updates, "losses": losses,
+               "dispatch_ms": dispatch_ms,
                "graph_launches": launches, "path": ".orbax resume (graph)"}
     rows = dispatch_rows(mlp[-1], list(dt), summary)
 
@@ -2766,7 +2967,8 @@ def run_host_inputs(card, recorded):
     log(f"[host orbax] {card} | fixture read {ob['read_ms_median']:.2f} ms median of "
         f"{ORBAX_READS}, of which the manifest and B+tree "
         f"{ob['store_open_ms_median']:.2f} ms ({ob['decompressed_bytes']} bytes decompressed, "
-        f"{ob['read_mb_per_s']:.1f} MB/s) | --ckpt latest: equal to the .npz bit for bit "
+        f"{ob['read_mb_per_s']:.1f} MB/s) | --ckpt latest: equal to the .npz bit for bit, "
+        f"Adam (count {ob['n_updates']}) to the _opt.npz "
         f"| one dispatch of {GRAPH_K} graphed steps {ob['dispatch_ms']:.1f} ms, losses "
         f"{[round(v, 5) for v in ob['losses']]} | launches {ob['graph_launches']} | "
         f"--editing_from pt image {ob['pt_image_hw']} equal to the .pth's")
@@ -2801,7 +3003,7 @@ def main() -> int:
                 proc.kill()
             proc.wait()
         for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, DATA_AXIS_WORKSPACE,
-                   ORBAX_WORKSPACE):
+                   ORBAX_WORKSPACE, ORBAX_SAVE_WORKSPACE):
             shutil.rmtree(ws, ignore_errors=True)
 
 
@@ -2872,6 +3074,12 @@ def run_all(card, procs) -> int:
         f"bit; occupancy grid restored")
     tr["dispatch"], flagship_rows = run_flagship_dispatch(ck["checkpoint"])
     rows += flagship_rows
+    try:
+        tr["orbax"], orbax_rows = run_flagship_orbax(ck["checkpoint"])
+    finally:
+        shutil.rmtree(ORBAX_SAVE_WORKSPACE, ignore_errors=True)
+    rows += orbax_rows
+    log_orbax(card, tr["orbax"])
     del recon
     ed, edit_mlp, edit_dt = run_editing(editor, edit_opt)
     med = ed["median_ms"]

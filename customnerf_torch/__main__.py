@@ -53,8 +53,9 @@ written by the original CustomNeRF (torch-ngp / tcnn ``.pth``:
 it measures once the occupancy grid has warmed up.  ``--steps_per_dispatch``
 K (≤ 0, the default: 8 on the card, 1 on the CPU) takes K steps a dispatch,
 on the card as replays of one captured CUDA graph of a step;
-``--ckpt_format orbax`` writes the ``.pth`` checkpoints off the training
-thread (waited for before the program exits).
+``--ckpt_format orbax`` writes the ring's checkpoints as the JAX package's
+``.orbax`` directories (its Adam state included; the best ``df.pth`` stays a
+``.pth``) off the training thread, waited for before the program exits.
 
 ``--mesh_shape data:k`` shards each step's rays over k processes
 (``customnerf_torch/parallel/mesh.py``), launched by torchrun or with

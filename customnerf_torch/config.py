@@ -20,9 +20,9 @@ The precision flags act as in the JAX package:
 
 ``steps_per_dispatch`` K (≤ 0: 8 on the card, 1 on the CPU) runs K steps a
 dispatch: on the card one captured CUDA graph of a step, replayed once a
-batch (``engine/dispatch.py``).  ``ckpt_format orbax`` writes checkpoints
-off the training thread; the files keep the ``.pth`` contract (the port has
-no orbax).
+batch (``engine/dispatch.py``).  ``ckpt_format orbax`` writes the ring's
+checkpoints as ``.orbax`` directories the JAX package restores, off the
+training thread (``engine/checkpoint.py``).
 
 Deviations, all documented here:
   * ``triplane_bwd`` and ``compact_layout`` choose, in the JAX package,

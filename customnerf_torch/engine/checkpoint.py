@@ -1,5 +1,5 @@
-"""Checkpoint I/O with the JAX package's ``.pth`` contract (counterpart of
-``customnerf_tpu/engine/checkpoint.py``).
+"""Checkpoint I/O with the JAX package's ``.pth`` and ``.orbax`` contracts
+(counterpart of ``customnerf_tpu/engine/checkpoint.py``).
 
 A ``.pth`` is one ``torch.save`` dict: ``epoch``, ``global_step``,
 ``stats`` and ``model``, a flat ``{dotted.flax.path: tensor}`` dict of the
@@ -8,33 +8,33 @@ flax param tree (``params.feature_net.hidden_0.kernel``, Dense kernels
 go under ``model`` (the reference keeps them as model buffers) and
 ``mean_density`` / ``iter_density`` at the top level.  Files are
 ``df_ep{epoch:04d}.pth`` under ``{workspace}/checkpoints`` with a 5-deep
-ring that spares ``*0.pth``.
-
-The JAX package's Adam state (``optimizer``: numpy leaves and a pickled JAX
-treedef) is neither written nor read here; the port keeps its own Adam state
-under ``torch_optimizer``, which the JAX loader ignores.  JAX files hold
-numpy arrays, so loading needs ``torch.load(..., weights_only=False)``.
+ring that spares ``*0.pth``.  The port keeps its Adam state under
+``torch_optimizer``, which the JAX loader ignores (the JAX package's own
+``optimizer`` entry of a ``.pth`` is neither written nor read here).  JAX
+files hold numpy arrays, so loading needs ``torch.load(...,
+weights_only=False)``.
 
 A reference-format (torch-ngp / tcnn) file — any ``*.params`` or
 ``pos_en.embeddings`` key under ``model`` — goes through
 ``engine/torch_shim.py``, so ``--ckpt`` and ``--editing_from`` load a
 reconstruction made by the original CustomNeRF.
 
-``--ckpt_format orbax`` (the JAX package's ``OrbaxSaver``,
-``checkpoint.py:183-227``) writes off the training thread: the port has no
-orbax, so :class:`AsyncSaver` writes the same ``.pth`` files with
-``torch.save`` on one worker thread, from a host snapshot taken on the
-calling thread (:func:`snapshot`).
+A ``.orbax`` directory is what the JAX ``OrbaxSaver`` (:183-227) writes
+through orbax's ``PyTreeCheckpointHandler``: ``_METADATA`` naming the
+tree's leaves and an OCDBT store of zarr v2 arrays holding ``meta``
+(epoch, global step, the pickled stats, the occupancy entries), ``model``
+(the flax tree) and ``optimizer`` (the optax state's leaves, numbered in
+flatten order, and its pickled treedef).  It is read and written without
+orbax, tensorstore or zstandard (``engine/ocdbt.py``, ``utils/zstd.py``,
+``engine/pytreedef.py``).  :func:`load_checkpoint_orbax` returns what the
+JAX loader (:229-256) returns, the Adam state as the port's; under
+``--ckpt_format orbax`` :func:`write_orbax_tree` writes the directories the
+JAX loader and orbax read (:func:`orbax_state`), committed by a rename as
+orbax commits them.
 
-A JAX-written ``.orbax`` directory (orbax's ``PyTreeCheckpointHandler``:
-``_METADATA`` naming the tree's leaves, an OCDBT store of zarr v2 arrays,
-zstd-compressed) is read without orbax, tensorstore or zstandard
-(:func:`read_orbax_tree`: ``engine/ocdbt.py``, ``utils/zstd.py``) into what
-the JAX ``load_checkpoint_orbax`` (:229-255) returns: the ``model`` tree
-and meta (epoch, global step, the unpickled stats, the occupancy entries).
-Its Adam state is not read: the leaves' treedef is a pickled JAX object;
-meta says it was there (``ORBAX_OPTIMIZER_KEY``) and a resume starts a
-fresh Adam (ROADMAP.md §C, row ".orbax Adam state").
+Checkpoints under ``--ckpt_format orbax`` are written off the training
+thread (:class:`AsyncSaver`), from a host snapshot taken on the calling
+thread (:func:`snapshot`); the best ``{name}.pth`` stays a ``.pth`` there.
 """
 
 from __future__ import annotations
@@ -47,20 +47,21 @@ import os
 import pickle
 import shutil
 import threading
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from customnerf_torch.engine.ocdbt import OcdbtStore
+from customnerf_torch.engine import pytreedef
+from customnerf_torch.engine.convert import params_from_flax
+from customnerf_torch.engine.ocdbt import OcdbtStore, write_store
 from customnerf_torch.engine.torch_shim import import_reference_checkpoint
 from customnerf_torch.utils import zstd
 
 OCC_ARRAY_KEYS = ("density_grid", "density_bitfield")
 OCC_SCALAR_KEYS = ("mean_count", "mean_density", "iter_density")
 TORCH_OPTIMIZER_KEY = "torch_optimizer"
-ORBAX_OPTIMIZER_KEY = "orbax_optimizer_not_read"
-ORBAX_ADAM_ROW = ".orbax Adam state"
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -113,8 +114,13 @@ def checkpoint_state(params, epoch: int, global_step: int, stats: dict,
 
 
 def write_checkpoint(path: str, state: Dict[str, Any]) -> str:
+    """``state`` to ``path``: a ``.orbax`` directory (:func:`orbax_state`'s
+    tree) or a ``.pth`` file (:func:`checkpoint_state`'s dict)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(state, path)
+    if str(path).endswith(".orbax"):
+        write_orbax_tree(path, state)
+    else:
+        torch.save(state, path)
     return path
 
 
@@ -163,9 +169,10 @@ def snapshot(tree, buffers: Optional[dict] = None):
 class AsyncSaver:
     """Checkpoint writes off the training thread (the JAX ``OrbaxSaver``).
 
-    :meth:`save` takes the state's host snapshot on the calling thread, into
-    pinned buffers this saver keeps and reuses, then writes the file with
-    ``torch.save`` on one worker thread; one write is in flight at a time.
+    :meth:`snapshot` takes the state's host snapshot on the calling thread,
+    into pinned buffers this saver keeps and reuses; :meth:`save` then
+    writes it (:func:`write_checkpoint`: a ``.orbax`` directory or a
+    ``.pth``) on one worker thread; one write is in flight at a time.
     :meth:`wait` joins the worker and re-raises its error: a failed write
     never passes silently."""
 
@@ -212,14 +219,18 @@ class AsyncSaver:
             raise err
 
 
-def load_checkpoint(path: str, conf_channels: int = 1) -> Tuple[dict, dict]:
+def load_checkpoint(path: str, conf_channels: int = 1,
+                    layout: Optional[pytreedef.OptaxLayout] = None,
+                    log=print) -> Tuple[dict, dict]:
     """→ (params tree of numpy arrays, meta).  meta holds epoch,
     global_step, stats, the occupancy entries found, and the port's Adam
-    state when the file has one.  ``conf_channels`` is read only by the
-    reference-format import (tcnn pads the conf head's outputs)."""
+    state when the file has one (for a ``.orbax`` directory, when
+    ``layout`` is given: :func:`load_checkpoint_orbax`).  ``conf_channels``
+    is read only by the reference-format import (tcnn pads the conf head's
+    outputs)."""
     path = str(path)
     if path.endswith(".orbax"):
-        return load_checkpoint_orbax(path)
+        return load_checkpoint_orbax(path, layout, log)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if "model" not in ckpt:
         return unflatten({k: _to_numpy(v) for k, v in ckpt.items()}), {}
@@ -277,8 +288,8 @@ def _fill(dtype, fill_value):
 
 def read_zarr_array(store: OcdbtStore, name: str, what: str = "") -> np.ndarray:
     """The zarr v2 array ``name`` of an OCDBT store: ``.zarray``'s dtype
-    (a numpy type string), shape, chunks and order, zstd chunks, a missing
-    chunk read as the fill value (null: zeros)."""
+    (a numpy type string), shape, chunks and order, zstd or uncompressed
+    chunks, a missing chunk read as the fill value (null: zeros)."""
     where = f"{what}:{name}"
     try:
         meta = json.loads(store.read(f"{name}/.zarray"))
@@ -288,9 +299,10 @@ def read_zarr_array(store: OcdbtStore, name: str, what: str = "") -> np.ndarray:
         raise ValueError(f"{where}: zarr format {meta.get('zarr_format')} is not supported")
     if meta.get("filters"):
         raise ValueError(f"{where}: zarr filters are not supported")
-    if (meta.get("compressor") or {}).get("id") != "zstd":
+    compressor = (meta.get("compressor") or {}).get("id")
+    if compressor not in (None, "zstd"):
         raise ValueError(f"{where}: zarr compressor {meta.get('compressor')} is not "
-                         f"supported (orbax writes zstd)")
+                         f"supported (orbax writes zstd, the port none)")
     try:
         stored = np.dtype(meta["dtype"])
     except TypeError:
@@ -308,7 +320,9 @@ def read_zarr_array(store: OcdbtStore, name: str, what: str = "") -> np.ndarray:
         if key not in store:
             out[region] = _fill(stored, meta.get("fill_value"))
             continue
-        data = zstd.decompress(store.read(key), f"{what}:{key}")
+        raw = store.read(key)
+        data = (zstd.decompress(raw, f"{what}:{key}") if compressor
+                else np.frombuffer(raw, np.uint8))
         want = int(np.prod(chunks, dtype=np.int64)) * stored.itemsize
         if data.nbytes != want:
             raise ValueError(f"{what}:{key}: chunk holds {data.nbytes} bytes, "
@@ -318,12 +332,12 @@ def read_zarr_array(store: OcdbtStore, name: str, what: str = "") -> np.ndarray:
     return out
 
 
-def read_orbax_tree(path: str, skip=("optimizer",)):
-    """A ``PyTreeCheckpointHandler`` directory's tree → (nested dicts of
-    numpy arrays, scalars as 0-d arrays; the names of the top-level subtrees
-    in ``skip`` that the directory holds, which are not read).  Above
-    ``_POOL_BYTES`` of stored data the leaves are read on a thread pool
-    (``ctypes`` drops the GIL while zstd decodes)."""
+def read_orbax_tree(path: str, skip=()) -> dict:
+    """A ``PyTreeCheckpointHandler`` directory's tree, but for the
+    top-level subtrees named in ``skip`` → nested dicts of numpy arrays
+    (scalars as 0-d arrays).  Above ``_POOL_BYTES`` of stored data the
+    leaves are read on a thread pool (``ctypes`` drops the GIL while zstd
+    decodes)."""
     path = os.path.abspath(str(path))
     try:
         with open(os.path.join(path, "_METADATA")) as fh:
@@ -363,18 +377,23 @@ def read_orbax_tree(path: str, skip=("optimizer",)):
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = arr
-    skipped = {str(e["key_metadata"][0]["key"]) for e in tree_meta["tree_metadata"].values()
-               if e["key_metadata"] and str(e["key_metadata"][0]["key"]) in skip}
-    return tree, skipped
+    return tree
 
 
-def load_checkpoint_orbax(path: str) -> Tuple[dict, dict]:
-    """A JAX ``.orbax`` directory → (the ``model`` tree of numpy arrays,
-    meta), as the JAX ``load_checkpoint_orbax`` returns them: epoch and
-    global step as ints, ``stats`` unpickled from ``meta.stats_pickle``,
-    the occupancy entries of ``meta``.  The optimizer subtree is not read;
-    ``meta[ORBAX_OPTIMIZER_KEY]`` is True when the directory holds one."""
-    tree, skipped = read_orbax_tree(path)
+def load_checkpoint_orbax(path: str, layout: Optional[pytreedef.OptaxLayout] = None,
+                          log=print) -> Tuple[dict, dict]:
+    """A ``.orbax`` directory → (the ``model`` tree of numpy arrays, meta),
+    as the JAX ``load_checkpoint_orbax`` returns them: epoch and global
+    step as ints, ``stats`` unpickled from ``meta.stats_pickle``, the
+    occupancy entries of ``meta``.  With ``layout`` (the JAX trainer's optax
+    state for this field, ``pytreedef.optax_layout``) the ``optimizer``
+    subtree is read too and restored as the JAX loader restores it:
+    ``meta[TORCH_OPTIMIZER_KEY]`` then holds ``adam`` (``step``,
+    ``exp_avg`` and ``exp_avg_sq`` by parameter name), ``n_updates`` (the
+    optax count) and ``found_nan`` (flax path → bool).  A treedef or
+    leaves that are not ``layout``'s leave it out, after the JAX loader's
+    ``[WARN] failed to restore orbax optimizer state`` line."""
+    tree = read_orbax_tree(path, skip=() if layout is not None else ("optimizer",))
     raw = tree.get("meta", {})
     meta = {"epoch": int(raw.get("epoch", 0)),
             "global_step": int(raw.get("global_step", 0)),
@@ -383,8 +402,120 @@ def load_checkpoint_orbax(path: str) -> Tuple[dict, dict]:
     for k in OCC_ARRAY_KEYS + OCC_SCALAR_KEYS:
         if k in raw:
             meta[k] = raw[k]
-    if "optimizer" in skipped:
-        meta[ORBAX_OPTIMIZER_KEY] = True
     if "model" not in tree:
         raise ValueError(f"{path}: the orbax checkpoint has no 'model' subtree")
+    if "optimizer" in tree:
+        try:
+            opt = tree["optimizer"]
+            nodes = pytreedef.loads_treedef(np.asarray(opt["treedef"], np.uint8).tobytes())
+            leaves = [opt["leaves"][str(i)] for i in range(len(opt["leaves"]))]
+            adam = pytreedef.leaves_to_adam(layout, nodes, leaves)
+        except (ValueError, KeyError, TypeError) as e:   # the JAX loader's failed restore
+            log(f"[WARN] failed to restore orbax optimizer state: {path}: {e}")
+        else:
+            meta[TORCH_OPTIMIZER_KEY] = {
+                "adam": {"step": torch.tensor(float(adam["count"])),
+                         "exp_avg": params_from_flax(adam["mu"]),
+                         "exp_avg_sq": params_from_flax(adam["nu"])},
+                "n_updates": adam["count"], "found_nan": adam["found_nan"]}
     return tree["model"], meta
+
+
+def orbax_state(params, epoch: int, global_step: int, stats: dict,
+                optimizer: Optional[Tuple[bytes, list]] = None,
+                extra: Optional[dict] = None) -> Dict[str, Any]:
+    """The tree the JAX ``OrbaxSaver.save`` (:198-220) saves: ``meta``
+    (epoch, global step, the pickled stats, the occupancy ``extra``),
+    ``model`` (the flax tree) and, given ``optimizer`` = (pickled treedef,
+    leaves in flatten order), ``optimizer``."""
+    state: Dict[str, Any] = {
+        "meta": {"epoch": int(epoch), "global_step": int(global_step),
+                 "stats_pickle": np.frombuffer(pickle.dumps(stats), np.uint8)},
+        "model": params}
+    if optimizer is not None:
+        treedef, leaves = optimizer
+        state["optimizer"] = {"leaves": {str(i): v for i, v in enumerate(leaves)},
+                              "treedef": np.frombuffer(treedef, np.uint8)}
+    if extra:
+        state["meta"].update(extra)
+    return state
+
+
+_HANDLER = "orbax.checkpoint._src.handlers.pytree_checkpoint_handler.PyTreeCheckpointHandler"
+
+
+def _zarr_leaf(name: str, value, entries: dict) -> str:
+    """Put ``value`` (a numpy array, or an int / float stored as orbax
+    stores a Python scalar: a 0-d int64 / float64) into ``entries`` as the
+    zarr v2 array ``name``: one uncompressed chunk, C order.  Returns its
+    orbax value type."""
+    if isinstance(value, (bool, np.bool_)) or not isinstance(value, (int, float, np.ndarray)):
+        raise TypeError(f"{name}: a {type(value).__name__} is not a checkpoint leaf")
+    kind = "np.ndarray" if isinstance(value, np.ndarray) else "scalar"
+    a = (value if kind == "np.ndarray" else
+         np.array(value, np.int64 if isinstance(value, int) else np.float64))
+    a = a if a.flags.c_contiguous else a.copy()       # (ascontiguousarray makes 0-d 1-d)
+    zarray = {"chunks": list(a.shape), "compressor": None, "dimension_separator": ".",
+              "dtype": a.dtype.str, "fill_value": None, "filters": None,
+              "order": "C", "shape": list(a.shape), "zarr_format": 2}
+    entries[f"{name}/.zarray"] = json.dumps(zarray, sort_keys=True,
+                                            separators=(",", ":")).encode()
+    entries[f"{name}/" + (".".join("0" * a.ndim) if a.ndim else "0")] = \
+        a.reshape(-1).view(np.uint8)
+    return kind
+
+
+def write_orbax_tree(path: str, tree: dict) -> int:
+    """Write ``tree`` (nested dicts of numpy arrays and Python scalars) as a
+    ``PyTreeCheckpointHandler`` directory at ``path``, which orbax's restore
+    and the JAX ``load_checkpoint_orbax`` read: ``_METADATA``, an OCDBT
+    store of zarr v2 arrays (``engine/ocdbt.py::write_store``) and
+    ``_CHECKPOINT_METADATA``, each file fsynced, written into a temporary
+    sibling (``<path>.orbax-checkpoint-tmp-<ns>``, as orbax names it) that
+    replaces ``path`` by a rename once complete.  Returns the bytes
+    written."""
+    path = os.path.abspath(str(path))
+    start = time.time_ns()
+    tmp = f"{path}.orbax-checkpoint-tmp-{start}"
+    entries: Dict[str, Any] = {}
+    tree_meta: Dict[str, Any] = {}
+
+    def walk(node, keys):
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                walk(v, keys + (str(k),))
+                continue
+            kk = keys + (str(k),)
+            kind = _zarr_leaf(".".join(kk), v, entries)
+            tree_meta[str(kk)] = {
+                "key_metadata": [{"key": x, "key_type": 2} for x in kk],
+                "value_metadata": {"value_type": kind, "skip_deserialize": False}}
+
+    walk(tree, ())
+    try:
+        os.makedirs(tmp)
+        written = write_store(tmp, entries)
+        for name, obj in (
+                ("_METADATA", {"tree_metadata": tree_meta, "use_ocdbt": True,
+                               "use_zarr3": False,
+                               "store_array_data_equal_to_fill_value": True,
+                               "custom_metadata": None}),
+                ("_CHECKPOINT_METADATA", {"item_handlers": _HANDLER, "metrics": {},
+                                          "performance_metrics": {},
+                                          "init_timestamp_nsecs": start,
+                                          "commit_timestamp_nsecs": time.time_ns(),
+                                          "custom_metadata": {}})):
+            data = json.dumps(obj).encode()
+            with open(os.path.join(tmp, name), "wb") as fh:
+                fh.write(data)
+                fh.flush()
+                os.fsync(fh.fileno())
+            written += len(data)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return written

@@ -44,19 +44,67 @@ def params_from_flax(tree) -> dict:
     return sd
 
 
-def params_to_flax(state_dict) -> dict:
+def flax_path(name: str) -> tuple:
+    """A ``NeRFField`` state-dict name → its path in the flax tree
+    (``feature_net.hidden_0.weight`` → ``params/feature_net/hidden_0/kernel``)."""
+    if name == "grid_table":
+        return ("params", "grid_table")
+    net, layer, leaf = name.split(".")
+    return ("params", net, layer, "kernel" if leaf == "weight" else "bias")
+
+
+def params_to_flax(state_dict, copy: bool = True) -> dict:
     """``NeRFField`` state dict → ``{"params": …}`` tree of numpy arrays
-    (stacked state dicts → stacked leaves)."""
-    p = {"grid_table": state_dict["grid_table"].detach().cpu().numpy().copy()}
+    (stacked state dicts → stacked leaves).  ``copy=False`` keeps views of
+    CPU tensors where no transpose is needed (C-contiguous either way)."""
+    tree: dict = {}
     for key, value in state_dict.items():
-        if key == "grid_table":
-            continue
-        net, layer, leaf = key.split(".")
         a = value.detach().cpu().numpy()
-        p.setdefault(net, {}).setdefault(layer, {})[
-            "kernel" if leaf == "weight" else "bias"] = (
-                np.swapaxes(a, -1, -2) if leaf == "weight" else a).copy()
-    return {"params": p}
+        if key != "grid_table" and key.endswith(".weight"):
+            a = np.swapaxes(a, -1, -2)
+        *parents, leaf = flax_path(key)
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = a.copy() if copy else np.ascontiguousarray(a)
+    return tree
+
+
+def flax_shapes(state_dict) -> dict:
+    """Dotted flax path → shape of each entry of a ``NeRFField`` state
+    dict (what ``engine/pytreedef.py::optax_layout`` takes), without its
+    data."""
+    out = {}
+    for key, value in state_dict.items():
+        shape = tuple(value.shape)
+        if key != "grid_table" and key.endswith(".weight"):
+            shape = shape[:-2] + shape[:-3:-1]
+        out[".".join(flax_path(key))] = shape
+    return out
+
+
+def adam_to_torch(adam: dict, names, param_groups) -> dict:
+    """The port's Adam (``step``; ``exp_avg`` / ``exp_avg_sq`` by parameter
+    name) → a ``torch.optim.Adam`` state dict whose parameter i is
+    ``names[i]``, with ``param_groups`` (the optimizer's own)."""
+    state = {i: {"step": adam["step"].clone(),
+                 "exp_avg": adam["exp_avg"][n].clone(),
+                 "exp_avg_sq": adam["exp_avg_sq"][n].clone()}
+             for i, n in enumerate(names)}
+    return {"state": state, "param_groups": param_groups}
+
+
+def adam_from_torch(state_dict: dict, names, params: dict) -> dict:
+    """A ``torch.optim.Adam`` state dict (parameter i is ``names[i]``) →
+    ``{"exp_avg", "exp_avg_sq"}`` by parameter name; a parameter without
+    state (no update yet) has zero moments shaped as ``params[name]``."""
+    st = state_dict["state"]
+
+    def moment(k):
+        return {n: st[i][k] if i in st else torch.zeros_like(params[n])
+                for i, n in enumerate(names)}
+
+    return {"exp_avg": moment("exp_avg"), "exp_avg_sq": moment("exp_avg_sq")}
 
 
 def _is_array(x) -> bool:

@@ -38,6 +38,13 @@ Only manifests of the single kind are read (tensorstore's default, which
 orbax writes); the newest version is the one read, as tensorstore reads it.
 Every frame's length and CRC-32C are checked; a bad frame raises
 ``ValueError`` naming the file.
+
+:func:`write_store` writes a store of one version in the same format, the
+way the port commits a ``.orbax`` checkpoint: one data file holding the
+out-of-line values and then the B+tree, whose single leaf node holds every
+key (a leaf holds only references to values above ``max_inline_value_bytes``,
+so a checkpoint's tree stays a few kB), and the manifest.  Frames are
+uncompressed (compression 0), which tensorstore reads as it reads zstd ones.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ from __future__ import annotations
 import os
 import struct
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple
+import time
+import uuid
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -298,3 +307,118 @@ class OcdbtStore:
 
 def _key(key) -> bytes:
     return key.encode() if isinstance(key, str) else bytes(key)
+
+
+# ------------------------------------------------------------------ writing
+MAX_INLINE_VALUE_BYTES = 1024           # tensorstore's defaults, as orbax writes them
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _varints(vs) -> bytes:
+    return b"".join(_varint(v) for v in vs)
+
+
+def frame(body: bytes, magic: int) -> bytes:
+    """An uncompressed manifest or node frame around ``body``."""
+    head = struct.pack(">I", magic) + struct.pack("<Q", 12 + 2 + len(body) + 4) + b"\0\0"
+    buf = head + body
+    return buf + struct.pack("<I", crc32c(buf))
+
+
+def _encode_data_file_table(paths: Sequence[str]) -> bytes:
+    """Each path whole, with an empty base path (as tensorstore writes a
+    store's own files)."""
+    raw = [p.encode() for p in paths]
+    shared = [0] + [_common(a, b) for a, b in zip(raw, raw[1:])]
+    return (_varint(len(raw)) + _varints(shared[1:])
+            + _varints(len(r) - s for r, s in zip(raw, shared))
+            + _varints(0 for _ in raw)
+            + b"".join(r[s:] for r, s in zip(raw, shared)))
+
+
+def _common(a: bytes, b: bytes) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def write_store(root: str, entries) -> int:
+    """Write ``entries`` (key → bytes-like value; keys str or bytes) as a
+    new OCDBT store at ``root`` and return the bytes written.  Values above
+    ``MAX_INLINE_VALUE_BYTES`` go out of line into ``d/<uuid>`` (written
+    from their buffers, without a copy), followed there by the leaf node;
+    ``manifest.ocdbt`` names it.  Each file is fsynced, as tensorstore's
+    file store syncs its writes."""
+    items = sorted((_key(k), memoryview(v).cast("B")) for k, v in entries.items())
+    keys = [k for k, _ in items]
+    if len(set(keys)) != len(keys):
+        raise ValueError(f"{root}: duplicate keys")
+    if not keys:
+        raise ValueError(f"{root}: an OCDBT store needs at least one key")
+    os.makedirs(os.path.join(root, "d"), exist_ok=True)
+    data_name = f"d/{uuid.uuid4().hex}"
+    offsets: List[Optional[int]] = []
+    written = 0
+    with open(os.path.join(root, data_name), "wb") as fh:
+        for _, v in items:
+            if len(v) > MAX_INLINE_VALUE_BYTES:
+                offsets.append(written)
+                fh.write(v)
+                written += len(v)
+            else:
+                offsets.append(None)
+        indirect = written
+        ool = [i for i, o in enumerate(offsets) if o is not None]
+        shared = [0] + [_common(a, b) for a, b in zip(keys, keys[1:])]
+        body = b"".join([
+            b"\0",                                             # height
+            _encode_data_file_table([data_name] if ool else []),
+            _varint(len(keys)),
+            _varints(shared[1:]),
+            _varints(len(k) - s for k, s in zip(keys, shared)),
+            b"".join(k[s:] for k, s in zip(keys, shared)),
+            _varints(len(v) for _, v in items),
+            _varints(int(o is not None) for o in offsets),
+            _varints(0 for _ in ool),
+            _varints(offsets[i] for i in ool),
+            b"".join(bytes(v) for (_, v), o in zip(items, offsets) if o is None)])
+        if len(body) > MAX_DECODED_NODE_BYTES:
+            raise ValueError(f"{root}: a leaf node of {len(body)} bytes is above "
+                             f"max_decoded_node_bytes ({MAX_DECODED_NODE_BYTES})")
+        node = frame(body, NODE_MAGIC)
+        node_offset = written
+        fh.write(node)
+        written += len(node)
+        fh.flush()
+        os.fsync(fh.fileno())
+    manifest = frame(b"".join([
+        uuid.uuid4().bytes,
+        _varint(0),                                             # single manifest
+        _varint(MAX_INLINE_VALUE_BYTES),
+        _varint(MAX_DECODED_NODE_BYTES),
+        bytes([VERSION_TREE_ARITY_LOG2]),
+        _varint(0),                                             # no compression
+        _encode_data_file_table([data_name]),
+        _varint(1),                                             # one version
+        _varint(1),                                             # generation 1
+        b"\0",                                                 # root height
+        _varints([0, node_offset, len(node)]),
+        _varints([len(keys), len(node), indirect]),             # statistics
+        struct.pack("<Q", time.time_ns()),                      # commit time
+        _varint(0)]), MANIFEST_MAGIC)                           # no version nodes
+    with open(os.path.join(root, "manifest.ocdbt"), "wb") as fh:
+        fh.write(manifest)
+        fh.flush()
+        os.fsync(fh.fileno())
+    return written + len(manifest)

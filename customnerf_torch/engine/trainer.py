@@ -28,9 +28,11 @@ Reference semantics kept:
   * checkpoints (``engine/checkpoint.py``): saved before training and
     around each ``eval_interval`` (utils_init_nerf.py:492-506) from one
     host snapshot a state (``_host_state``, JAX ``trainer.py:921-937``),
-    written off the training thread under ``--ckpt_format orbax``
-    (``AsyncSaver``; the files keep the ``.pth`` contract) with a wait
-    before pruning, loading and the end of ``train``; the ``--ckpt``
+    written under ``--ckpt_format orbax`` as the JAX package's ``.orbax``
+    directories (parameters, occupancy, the Adam state as the JAX optax
+    state) off the training thread (``AsyncSaver``), with a wait before
+    pruning, loading and the end of ``train``, the best ``{name}.pth``
+    staying a ``.pth``; the ``--ckpt``
     policy scratch|latest|latest_model|<path> and ``--editing_from``
     (utils_init_nerf.py:136-150); every load restores the
     occupancy grid, ``model_only`` ones too;
@@ -77,10 +79,13 @@ takes the same whole step and nothing is summed (``trainer.py:443-447``).
 Under a mesh a K-step group runs as the CPU's plain loop (no CUDA graph:
 collectives are not captured).  Only the first rank writes checkpoints,
 strips and test frames; every rank renders.  ``--ckpt`` (a path,
-``latest``, ``latest_model``) and ``--editing_from`` also read a JAX
-``.orbax`` directory (``engine/checkpoint.py::load_checkpoint_orbax``):
-parameters, epoch, step, stats and the occupancy grid; its Adam state is
-not read, so a resume from one starts a fresh Adam and says so in the log.
+``latest``, ``latest_model``) and ``--editing_from`` also read a
+``.orbax`` directory, the JAX package's or the port's
+(``engine/checkpoint.py::load_checkpoint_orbax``): parameters, epoch,
+step, stats, the occupancy grid and, on a resume, the Adam state (moments
+and update count; ``engine/pytreedef.py``).  optax's ``found_nan`` flags,
+which its update never reads, are written back as they were read from a
+``.orbax`` resume and as False otherwise.
 """
 
 from __future__ import annotations
@@ -96,10 +101,14 @@ import torch
 
 from customnerf_torch.device import resolve_device
 from customnerf_torch.engine import checkpoint as ckpt_io
-from customnerf_torch.engine.convert import params_from_flax, params_to_flax
+from customnerf_torch.engine import pytreedef
+from customnerf_torch.engine.convert import (adam_from_torch, adam_to_torch,
+                                             flax_shapes, params_from_flax,
+                                             params_to_flax)
 from customnerf_torch.engine.dispatch import StepGraph
 from customnerf_torch.engine.editing import editing_step, editing_steps_many
-from customnerf_torch.models.field import FieldConfig, NeRFField, param_groups
+from customnerf_torch.models.field import (FieldConfig, NeRFField, param_groups,
+                                           param_names)
 from customnerf_torch.models.renderer import (RenderSettings, render_rays,
                                               render_rays_fast, scene_aabb)
 from customnerf_torch.ops.grid import GridSpec
@@ -237,8 +246,10 @@ class Trainer:
         self.saver = None
         if opt.ckpt_format == "orbax":
             self.saver = ckpt_io.AsyncSaver()
-            self.log("[INFO] --ckpt_format orbax: checkpoints are written off "
-                     "the training thread, as .pth files (the port has no orbax)")
+            self.log("[INFO] --ckpt_format orbax: checkpoints are .orbax "
+                     "directories, written off the training thread")
+        self._layout = None          # the JAX optax state's layout: optax_layout()
+        self._found_nan = None       # optax's found_nan flags of a .orbax resume
         self.occ_state = None        # the -O occupancy grid; -O2 has none
         if opt.cuda_ray:
             self.occ_state = init_state(opt.cascade, grid_size=opt.occ_grid_size,
@@ -690,14 +701,28 @@ class Trainer:
         epoch, step, n_updates = self.epoch, self.global_step, self.n_updates
         stats = copy.deepcopy(self.stats)
         iter_density = getattr(self.occ_state, "iter_density", None)
+        orbax = str(path).endswith(".orbax")
+        layout = self.optax_layout() if orbax and full else None
+        names, found_nan = param_names(self.field), self._found_nan
 
         def state():
-            optim = ({"state_dict": host["optimizer"], "n_updates": n_updates}
-                     if full else None)
-            return ckpt_io.checkpoint_state(
-                params_to_flax(host["field"]), epoch, step, stats,
-                optimizer_state=optim,
-                extra=self._occ_extra(host["occ"], iter_density))
+            extra = self._occ_extra(host["occ"], iter_density)
+            if not orbax:
+                optim = ({"state_dict": host["optimizer"], "n_updates": n_updates}
+                         if full else None)
+                return ckpt_io.checkpoint_state(
+                    params_to_flax(host["field"]), epoch, step, stats,
+                    optimizer_state=optim, extra=extra)
+            optim = None
+            if full:
+                adam = adam_from_torch(host["optimizer"], names, host["field"])
+                leaves = pytreedef.adam_to_leaves(
+                    layout, params_to_flax(adam["exp_avg"], copy=False),
+                    params_to_flax(adam["exp_avg_sq"], copy=False), n_updates,
+                    found_nan)
+                optim = (pytreedef.dumps_treedef(list(layout.nodes)), leaves)
+            return ckpt_io.orbax_state(params_to_flax(host["field"], copy=False),
+                                       epoch, step, stats, optim, extra)
 
         if self.saver is not None:
             return self.saver.save(path, state, ready=ready)
@@ -711,11 +736,22 @@ class Trainer:
         if self.saver is not None:
             self.saver.wait()
 
+    def optax_layout(self) -> pytreedef.OptaxLayout:
+        """The layout of the JAX trainer's optax state for this field and
+        ``--weight_decay`` (``engine/pytreedef.py``): how a ``.orbax``
+        directory's optimizer leaves map onto the port's Adam."""
+        if self._layout is None:
+            self._layout = pytreedef.optax_layout(
+                flax_shapes(self.field.state_dict()), bool(self.opt.weight_decay))
+        return self._layout
+
     def save_checkpoint(self):
         """A full checkpoint (with the Adam state) of this epoch into the
-        ring; returns its path.  A pending write finishes before the ring
-        is pruned (JAX ``trainer.py:960-963``)."""
-        file_name = f"{self.name}_ep{self.epoch:04d}.pth"
+        ring, a ``.orbax`` directory under ``--ckpt_format orbax``; returns
+        its path.  A pending write finishes before the ring is pruned (JAX
+        ``trainer.py:960-963``)."""
+        suffix = ".orbax" if self.opt.ckpt_format == "orbax" else ".pth"
+        file_name = f"{self.name}_ep{self.epoch:04d}{suffix}"
         self.stats["checkpoints"].append(file_name)
         self.wait_for_saves()
         if self.writer:
@@ -728,7 +764,8 @@ class Trainer:
             return
         self.wait_for_saves()          # never read a half-written file
         params, meta = ckpt_io.load_checkpoint(
-            str(path), conf_channels=self.field.cfg.conf_channels)
+            str(path), conf_channels=self.field.cfg.conf_channels,
+            layout=None if model_only else self.optax_layout(), log=self.log)
         self.field.load_state_dict(params_from_flax(params))
         self._state_version += 1       # captured steps and snapshots are stale
         self.log("[INFO] loaded model.")
@@ -742,13 +779,14 @@ class Trainer:
         self.global_step = meta.get("global_step", 0)
         if meta.get("stats"):
             self.stats = meta["stats"]
-        if meta.get(ckpt_io.ORBAX_OPTIMIZER_KEY):
-            self.log(f"[WARN] {path}: the JAX Adam state of a .orbax checkpoint is "
-                     f"not read (a pickled JAX treedef); the optimizer starts fresh "
-                     f"(ROADMAP.md §C, row '{ckpt_io.ORBAX_ADAM_ROW}')")
         optim = meta.get(ckpt_io.TORCH_OPTIMIZER_KEY)
         if optim is not None:
-            self.optimizer.load_state_dict(optim["state_dict"])
+            state_dict = optim.get("state_dict")
+            if state_dict is None:         # a .orbax directory's Adam state
+                state_dict = adam_to_torch(optim["adam"], param_names(self.field),
+                                           self.optimizer.state_dict()["param_groups"])
+            self._found_nan = optim.get("found_nan")
+            self.optimizer.load_state_dict(state_dict)
             self.n_updates = int(optim["n_updates"])
             self._bind_optimizer()
             self.log("[INFO] loaded optimizer.")

@@ -300,3 +300,9 @@ def param_groups(field: NeRFField):
     grid = [field.grid_table]
     mlp = [p for n, p in field.named_parameters() if n != "grid_table"]
     return {"grid": grid, "mlp": mlp}
+
+
+def param_names(field: NeRFField):
+    """The parameters' names in :func:`param_groups`' order (the index a
+    ``torch.optim`` state dict gives each)."""
+    return ["grid_table"] + [n for n, _ in field.named_parameters() if n != "grid_table"]

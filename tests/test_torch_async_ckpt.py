@@ -1,13 +1,15 @@
 """``--ckpt_format orbax``: checkpoint writes off the training thread
 (``engine/checkpoint.py::AsyncSaver``, the JAX ``OrbaxSaver``'s
-counterpart), in the ``.pth`` contract, on the CPU.
+counterpart), on the CPU; the ring's entries are ``.orbax`` directories and
+the best ``df.pth`` a ``.pth``.
 
-A file written by the worker while the trainer's state is changed in place
-after ``save`` returned reloads bit for bit as the state at the save; it
-holds what a synchronous save holds; the JAX package's loader reads it; the
-ring is pruned only once no write is pending; a failed write raises at
-``wait()``; and the three saves around one evaluation (ring, best
-``df.pth``, ring) take one host snapshot between them.
+A directory written by the worker while the trainer's state is changed in
+place after ``save`` returned reloads bit for bit as the state at the save;
+an asynchronous ``.pth`` holds what a synchronous save holds; the JAX
+package's loader reads the directory; the ring is pruned only once no write
+is pending; a failed write raises at ``wait()``; and the three saves around
+one evaluation (ring, best ``df.pth``, ring) take one host snapshot between
+them.
 """
 
 import os
@@ -23,6 +25,7 @@ from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine import checkpoint as ckpt_io
 from customnerf_torch.engine.convert import params_to_flax
 from customnerf_torch.engine.trainer import Trainer
+from customnerf_torch.models.field import param_names
 
 TINY = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 2 "
         "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
@@ -74,17 +77,19 @@ def test_async_file_reloads_bitwise_after_in_place_changes(tmp_path):
         for p in tr.field.parameters():
             p.add_(1.0)
     tr.wait_for_saves()
-    raw = torch.load(path, map_location="cpu", weights_only=False)
-    params, meta = ckpt_io.load_checkpoint(path)
+    assert path.endswith("df_ep0000.orbax") and os.path.isdir(path)
+    params, meta = ckpt_io.load_checkpoint(path, layout=tr.optax_layout())
     flat = ckpt_io.flatten(params)
     for k, v in ckpt_io.flatten(params_to_flax(want)).items():
         assert np.array_equal(flat[k], v), k
     assert np.array_equal(meta["density_grid"], grid.numpy())
-    assert meta["global_step"] == 2 and raw["torch_optimizer"]["n_updates"] == 2
-    state = raw["torch_optimizer"]["state_dict"]["state"]
+    optim = meta[ckpt_io.TORCH_OPTIMIZER_KEY]
+    assert meta["global_step"] == 2 and optim["n_updates"] == 2
     ids = [id(p) for g in tr.optimizer.param_groups for p in g["params"]]
-    for i, s in state.items():
-        assert _tree_equal(s, adam[ids[i]]), i
+    for i, name in enumerate(param_names(tr.field)):
+        assert float(adam[ids[i]]["step"]) == float(optim["adam"]["step"]) == 2
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(optim["adam"][k][name], adam[ids[i]][k]), (name, k)
     assert not torch.equal(tr.field.grid_table, want["grid_table"])
 
 
@@ -106,7 +111,7 @@ def test_the_jax_loader_reads_an_async_file(tmp_path):
     tr, _ = _stepped(tmp_path, "--ckpt_format", "orbax")
     path = tr.save_checkpoint()
     tr.wait_for_saves()
-    params, meta = jckpt.load_checkpoint(path)
+    params, meta = jckpt.load_checkpoint_orbax(path)
     want = ckpt_io.flatten(params_to_flax(tr.field.state_dict()))
     got = ckpt_io.flatten(params)
     assert got.keys() == want.keys()
@@ -136,7 +141,7 @@ def test_ring_prune_waits_for_the_pending_write(tmp_path, monkeypatch):
         assert tr.saver.pending
     tr.wait_for_saves()
     assert seen == [False] * 4
-    assert sorted(os.listdir(tr.ckpt_path)) == ["df_ep0003.pth", "df_ep0004.pth"]
+    assert sorted(os.listdir(tr.ckpt_path)) == ["df_ep0003.orbax", "df_ep0004.orbax"]
 
 
 def test_a_failed_write_raises_at_wait(tmp_path):
@@ -180,8 +185,13 @@ def test_three_saves_around_an_evaluation_share_one_snapshot(tmp_path, monkeypat
     tr.train(train, max_epochs=1, valid_loader=val)
     # one before training (step 0), one for the evaluation's three saves
     assert snaps == [0, tr.global_step] and tr.global_step == len(train)
-    assert sorted(os.listdir(tr.ckpt_path)) == ["df.pth", "df_ep0000.pth", "df_ep0001.pth"]
+    assert sorted(os.listdir(tr.ckpt_path)) == ["df.pth", f"df_ep0000.{fmt}",
+                                                f"df_ep0001.{fmt}"]
     best = torch.load(os.path.join(tr.ckpt_path, "df.pth"), weights_only=False)
-    ring = torch.load(os.path.join(tr.ckpt_path, "df_ep0001.pth"), weights_only=False)
-    assert _tree_equal(best["model"], ring["model"]) and "torch_optimizer" not in best
-    assert ring["stats"]["results"] == tr.stats["results"]
+    assert "torch_optimizer" not in best
+    params, meta = ckpt_io.load_checkpoint(os.path.join(tr.ckpt_path, f"df_ep0001.{fmt}"),
+                                           layout=tr.optax_layout())
+    model = {k: torch.from_numpy(np.asarray(v)) for k, v in ckpt_io.flatten(params).items()}
+    best_params = {k: v for k, v in best["model"].items() if not k.startswith("density_")}
+    assert _tree_equal(best_params, model) and "torch_optimizer" in meta
+    assert meta["stats"]["results"] == tr.stats["results"]

@@ -210,9 +210,10 @@ def test_unported_formats_name_their_roadmap_item(tmp_path):
     back = params_from_flax(params)
     assert back.keys() == field.state_dict().keys()
     assert all(torch.equal(v, field.state_dict()[k]) for k, v in back.items())
-    # --ckpt_format orbax is ported: writes off the training thread, as .pth
+    # --ckpt_format orbax is ported: .orbax directories, written off the
+    # training thread
     lines = []
     tr = Trainer(_opt(tmp_path, "--ckpt_format", "orbax"), device="cpu",
                  log=lines.append)
     assert isinstance(tr.saver, tckpt.AsyncSaver)
-    assert sum("--ckpt_format orbax" in l and ".pth" in l for l in lines) == 1
+    assert sum("--ckpt_format orbax" in l and ".orbax" in l for l in lines) == 1

@@ -48,6 +48,7 @@ assert {"customnerf_torch.utils.png", "customnerf_torch.utils.resample",
         "customnerf_torch.guidance.retrieve", "customnerf_torch.guidance.validate",
         "customnerf_torch.tune_custom_diffusion", "customnerf_torch.parallel",
         "customnerf_torch.parallel.mesh", "customnerf_torch.engine.ocdbt",
+        "customnerf_torch.engine.pytreedef", "customnerf_torch.engine.checkpoint",
         "customnerf_torch.utils.zstd", "customnerf_torch.utils.hostlib",
         "customnerf_torch.utils.image"} <= set(mods)
 assert not bad, bad
@@ -144,7 +145,7 @@ def test_unported_options_name_their_roadmap_item(tmp_path):
     opt = parse_args(f"--data_type synthetic {grid} -O --mesh_shape data:8".split())
     with pytest.raises(ValueError, match="needs 8 ranks, have 1"):
         Trainer(opt, device="cpu", log=quiet)
-    # --ckpt_format orbax is ported: the asynchronous writer of .pth files
+    # --ckpt_format orbax is ported: the asynchronous writer of .orbax directories
     from customnerf_torch.engine.checkpoint import AsyncSaver
     opt = parse_args(f"--data_type synthetic {grid} -O --ckpt_format orbax".split())
     assert isinstance(Trainer(opt, device="cpu", log=quiet).saver, AsyncSaver)

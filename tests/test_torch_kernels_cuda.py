@@ -752,9 +752,9 @@ def test_device_lr_follows_the_schedule(cuda, tmp_path):
 
 
 def test_async_checkpoint_reloads_bitwise_on_card(cuda, tmp_path):
-    """``--ckpt_format orbax`` on the card: a save's file, written while
-    replays went on updating the state in place, reloads bit for bit as the
-    state at the save."""
+    """``--ckpt_format orbax`` on the card: a save's ``.orbax`` directory,
+    written while replays went on updating the state in place, reloads bit
+    for bit as the state at the save."""
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine import checkpoint as ckpt_io
     from customnerf_torch.engine.convert import params_from_flax
@@ -767,11 +767,12 @@ def test_async_checkpoint_reloads_bitwise_on_card(cuda, tmp_path):
     path = tr.save_checkpoint()
     tr.train_many([b] * 3)
     tr.wait_for_saves()
-    params, meta = ckpt_io.load_checkpoint(path)
+    assert path.endswith(".orbax")
+    params, meta = ckpt_io.load_checkpoint(path, layout=tr.optax_layout())
     got = params_from_flax(params)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    saved = meta[ckpt_io.TORCH_OPTIMIZER_KEY]["state_dict"]["state"]
-    gid = [id(p) for p in tr.optimizer.param_groups[0]["params"]].index(
-        id(tr.field.grid_table))
-    assert all(torch.equal(saved[gid][k].cpu(), adam[k]) for k in adam)
+    saved = meta[ckpt_io.TORCH_OPTIMIZER_KEY]["adam"]
+    assert float(saved["step"]) == float(adam["step"]) == 3
+    assert all(torch.equal(saved[k]["grid_table"], adam[k])
+               for k in ("exp_avg", "exp_avg_sq"))
     assert not torch.equal(tr.field.grid_table.detach().cpu(), want["grid_table"])

@@ -12,15 +12,17 @@ zstandard (``customnerf_torch/engine/ocdbt.py``,
     the manifest fails its CRC-32C with ``ValueError``.
   * The committed fixture (``tools/write_orbax_fixture.py``: the JAX
     trainer's own ``save_checkpoint`` under ``--ckpt_format orbax``) loads
-    bit for bit equal to its ``.npz``.
+    bit for bit equal to its ``.npz``, its Adam state to ``_opt.npz``.
   * Directories the JAX trainer writes here — tri-plane and grid fields,
     with and without the optimizer, one re-saved over the same name — load
     equal to ``customnerf_tpu``'s ``load_checkpoint_orbax``: parameters bit
-    for bit, epoch, step, stats and occupancy arrays equal.
+    for bit, epoch, step, stats, occupancy arrays and the Adam state equal.
   * A port trainer resumed by ``--ckpt latest`` from such a workspace renders
-    what the same state renders from a ``.pth`` (rtol 1e-6) and logs the
-    fresh-Adam line; ``--editing_from`` a ``.orbax`` gives the ``.pth``'s pt
+    what the same state renders from a ``.pth`` (rtol 1e-6) and takes the
+    JAX Adam state; ``--editing_from`` a ``.orbax`` gives the ``.pth``'s pt
     image; the ring prunes ``.orbax`` directories as the JAX ring does.
+
+``tests/test_torch_orbax_write.py`` holds the directories the port writes.
 """
 
 import os
@@ -41,7 +43,7 @@ from customnerf_tpu.ops import occupancy as jocc
 from customnerf_torch import config as tconfig
 from customnerf_torch.data.base import NeRFDataset
 from customnerf_torch.engine import checkpoint as tckpt
-from customnerf_torch.engine import editing
+from customnerf_torch.engine import convert, editing, pytreedef
 from customnerf_torch.engine.ocdbt import OcdbtStore
 from customnerf_torch.engine.trainer import Trainer
 
@@ -172,7 +174,27 @@ def test_committed_fixture_equals_its_npz():
     for k in ("epoch", "global_step", "density_grid", "density_bitfield",
               "mean_density", "iter_density", "mean_count"):
         np.testing.assert_array_equal(np.asarray(meta[k]), want["meta." + k])
-    assert meta[tckpt.ORBAX_OPTIMIZER_KEY] is True
+    assert tckpt.TORCH_OPTIMIZER_KEY not in meta          # no layout: not read
+    # with the field's layout, the Adam state is the JAX restore's leaves
+    layout = pytreedef.optax_layout(pytreedef.shapes_of(params))
+    _, meta = tckpt.load_checkpoint(os.path.join(FIXTURE, "df_ep0002.orbax"),
+                                    layout=layout)
+    opt = np.load(os.path.join(FIXTURE, "df_ep0002_opt.npz"))
+    leaves = [opt[f"optimizer.leaves.{i}"] for i in range(len(opt.files) - 1)]
+    assert len(leaves) == len(layout.roles) == 28
+    assert pytreedef.loads_treedef(opt["treedef"].tobytes()) == list(layout.nodes)
+    optim = meta[tckpt.TORCH_OPTIMIZER_KEY]
+    assert optim["n_updates"] == int(leaves[1]) == 8
+    for (what, _, path), leaf in zip(layout.roles, leaves):
+        if what in ("mu", "nu"):
+            name = {"mu": "exp_avg", "nu": "exp_avg_sq"}[what]
+            got = convert.params_to_flax(optim["adam"][name])
+            got = dict(pytreedef._flat(got))[path]
+            assert got.dtype == leaf.dtype and got.tobytes() == leaf.tobytes(), path
+        elif what == "found_nan":
+            assert optim["found_nan"][path] == bool(leaf)
+        else:
+            assert int(leaf) == optim["n_updates"]
 
 
 # --------------------------------------------- directories the JAX trainer writes
@@ -216,7 +238,7 @@ def jax_workspace(request, tmp_path_factory):
 
 
 def test_orbax_loads_as_the_jax_package_loads_it(jax_workspace):
-    kind, ws, _, _ = jax_workspace
+    kind, ws, _, jopt = jax_workspace
     ckpts = os.path.join(ws, "checkpoints")
     assert sorted(os.listdir(ckpts)) == ["df_ep0003.orbax", "df_ep0004.orbax"]
     for name, with_optimizer in (("df_ep0003.orbax", False), ("df_ep0004.orbax", True)):
@@ -233,7 +255,19 @@ def test_orbax_loads_as_the_jax_package_loads_it(jax_workspace):
         for k in ("density_grid", "density_bitfield", "mean_density", "iter_density",
                   "mean_count"):
             np.testing.assert_array_equal(np.asarray(meta[k]), np.asarray(jmeta[k]))
-        assert bool(meta.get(tckpt.ORBAX_OPTIMIZER_KEY)) == with_optimizer
+        # with the field's layout the Adam state is the JAX restore's
+        layout = pytreedef.optax_layout(pytreedef.shapes_of(got))
+        _, meta = tckpt.load_checkpoint(path, layout=layout, log=quiet)
+        assert (tckpt.TORCH_OPTIMIZER_KEY in meta) == with_optimizer
+        if with_optimizer:
+            template = JTrainer("df", jopt, use_checkpoint="scratch").opt_state
+            want = convert.adam_from_optax(jax.device_get(
+                jckpt.load_checkpoint_orbax(path, template)[1]["opt_state"]))
+            adam = meta[tckpt.TORCH_OPTIMIZER_KEY]["adam"]
+            assert torch.equal(adam["step"], want["step"])
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert adam[k].keys() == want[k].keys()
+                assert all(torch.equal(adam[k][n], want[k][n]) for n in want[k])
     # the re-save replaced the first df_ep0004: its step is the last one's
     assert tckpt.load_checkpoint(os.path.join(ckpts, "df_ep0004.orbax"))[1]["global_step"] == 43
 
@@ -258,9 +292,14 @@ def test_resume_latest_from_orbax_renders_as_the_pth(jax_workspace):
     b = Trainer(_port_opt(jopt, kind, ws + "_pth"), device="cpu", log=quiet,
                 use_checkpoint=pth)
     assert (a.epoch, a.global_step) == (b.epoch, b.global_step) == (4, 43)
-    assert a.stats == b.stats and not a.optimizer.state and a.n_updates == 0
+    assert a.stats == b.stats and a.n_updates == 0
     assert any("df_ep0004.orbax" in l for l in lines)
-    assert sum(tckpt.ORBAX_ADAM_ROW in l and "starts fresh" in l for l in lines) == 1
+    assert "[INFO] loaded optimizer." in lines and not any("WARN" in l for l in lines)
+    # the JAX trainer's Adam state (its initial one: no update was taken)
+    assert len(a.optimizer.state) == len(list(a.field.parameters()))
+    for st in a.optimizer.state.values():
+        assert float(st["step"]) == 0
+        assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
     for (n, p), q in zip(a.field.state_dict().items(), b.field.state_dict().values()):
         assert torch.equal(p, q), n
     assert torch.equal(a.occ_state.bitfield, b.occ_state.bitfield)

@@ -11,10 +11,16 @@ JAX package's ``load_checkpoint_orbax`` returns: ``model.<dotted path>``
 for every parameter, ``meta.epoch``, ``meta.global_step``, the occupancy
 entries under ``meta.``, and ``meta.stats_pickle``.
 
+``--opt-only`` writes just ``df_ep0002_opt.npz`` from the committed
+directory, which it leaves as it is: the Adam state the JAX package's
+``load_checkpoint_orbax(path, opt_state_template)`` restores from it, as
+``optimizer.leaves.<i>`` (the optax state's leaves in flatten order) and
+``treedef`` (``pickle.dumps`` of its treedef, uint8).
+
 Run it where the JAX package, orbax and tensorstore are installed (never
 on the card; the port does not import this file):
 
-    JAX_PLATFORMS=cpu python tools/write_orbax_fixture.py [OUT_DIR]
+    JAX_PLATFORMS=cpu python tools/write_orbax_fixture.py [--opt-only] [OUT_DIR]
 """
 
 from __future__ import annotations
@@ -85,6 +91,33 @@ def main(out_dir: str) -> None:
     print(f"wrote {dst} and {NAME}.npz: {len(arrays)} arrays, {size} bytes in all")
 
 
+def write_optimizer(out_dir: str) -> None:
+    """``df_ep0002_opt.npz`` from ``out_dir/df_ep0002.orbax``, restored by
+    the JAX package against its trainer's optax state for ``FLAGS``."""
+    import jax
+    import numpy as np
+    from customnerf_tpu import config as jconfig
+    from customnerf_tpu.engine import checkpoint as jckpt
+    from customnerf_tpu.engine.trainer import Trainer
+
+    jax.config.update("jax_platforms", "cpu")
+    with tempfile.TemporaryDirectory() as ws:
+        opt = jconfig.parse_args(FLAGS + ["--workspace", ws, "--seed", "0"])
+        template = Trainer("df", opt, use_checkpoint="scratch").opt_state
+    _, meta = jckpt.load_checkpoint_orbax(os.path.join(out_dir, NAME + ".orbax"),
+                                          template)
+    leaves, treedef = jax.tree_util.tree_flatten(meta["opt_state"])
+    arrays = {f"optimizer.leaves.{i}": np.asarray(v) for i, v in enumerate(leaves)}
+    arrays["treedef"] = np.frombuffer(pickle.dumps(treedef), np.uint8)
+    path = os.path.join(out_dir, NAME + "_opt.npz")
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path}: {len(leaves)} leaves, {os.path.getsize(path)} bytes")
+
+
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else
-         os.path.join(REPO, "tests", "data", "jax_orbax"))
+    args = [a for a in sys.argv[1:] if a != "--opt-only"]
+    out = args[0] if args else os.path.join(REPO, "tests", "data", "jax_orbax")
+    if "--opt-only" in sys.argv[1:]:
+        write_optimizer(out)
+    else:
+        main(out)
