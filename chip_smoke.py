@@ -48,7 +48,7 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    on the card, exactly (steps + warm-up)/steps times as often, the
    wrappers counting the warm-up steps only, and the replays-only run
    exactly as often; median ms a step of both, the capture's ms, peaks and the
-   device-busy share of both (``engine/step_profile.py::dispatch_busy``);
+   tracer's graphed split of a dispatch (``engine/step_profile.py::graphed_split``);
    K1-bf16 and dT-bf16 held against their plain versions on the inputs the
    captured step holds after its last replay.  The same check runs on the
    parity step (8b: 16 steps, 2 dispatches), the editing step and the
@@ -729,15 +729,16 @@ def dispatch_check(tr, batches, kind, path):
     the kernels counted on the card, (steps + warm-up steps)/steps times as
     often as eager (the wrappers counting the warm-up steps only), and the
     replays-only run exactly as often.  The summary holds the median ms a
-    step of both, the capture's ms, peaks and the busy share of both
-    (``engine/step_profile.py::dispatch_busy``).  Returns (summary, K1's and
-    dT's inputs as the graph holds them)."""
+    step of both, the capture's ms, peaks and the tracer's split of one
+    graphed dispatch (``engine/step_profile.py::graphed_split``: each device
+    span in ms a step).  Returns (summary, K1's and dT's inputs as the graph
+    holds them)."""
     import contextlib
     import torch
     from customnerf_torch.engine import editing as ed
     from customnerf_torch.engine.dispatch import WARMUP_STEPS, SavedState
     from customnerf_torch.engine.measure import captured_calls
-    from customnerf_torch.engine.step_profile import dispatch_busy
+    from customnerf_torch.engine.step_profile import graphed_split
     from customnerf_torch.models import field
     from customnerf_torch.ops import triplane
 
@@ -849,7 +850,8 @@ def dispatch_check(tr, batches, kind, path):
     assert all(q["rms_over_lr_steps"] <= PARAM_RMS_LR for q in params), (path, params)
     assert all(q["spread_ratio"] <= SPREAD_RATIO for q in params), (path, params)
     assert all(math.isfinite(v) for v in b.tolist())
-    busy = dispatch_busy(tr, batches[:GRAPH_K])
+    split = graphed_split(tr, batches[:GRAPH_K])
+    step_span = "edit.step" if editing else "recon.step"
     summary = {
         "path": path, "steps": n, "k": GRAPH_K, "eager_ms": eager["ms"],
         "graph_ms": graph["ms"], "capture_ms": captures[0],
@@ -861,13 +863,12 @@ def dispatch_check(tr, batches, kind, path):
         "replay_only_launches": spread["graph_again"]["launches"],
         "loss_max_rel": loss_rel, "moments_max_rel": mom_rel, "params": params,
         "eager_losses": a.tolist(), "graph_losses": b.tolist(),
-        "busy_eager": busy["eager"]["busy_share"], "busy_graph": busy["graph"]["busy_share"],
-        "busy": busy}
+        "split": split, "step_span_ms": split["spans"][step_span]["ms"]}
     log(f"[dispatch {path}] {n} steps eager vs {n // GRAPH_K} dispatches of K = "
         f"{GRAPH_K}: median {summary['median_eager_ms']:.2f} vs "
         f"{summary['median_graph_ms']:.2f} ms/step (capture with {WARMUP_STEPS} "
-        f"warm-up steps {captures[0]:.0f} ms) | busy {summary['busy_eager']:.3f} vs "
-        f"{summary['busy_graph']:.3f} | peak {summary['eager_peak_gb']:.2f} vs "
+        f"warm-up steps {captures[0]:.0f} ms) | graphed {step_span} span "
+        f"{summary['step_span_ms']:.2f} ms | peak {summary['eager_peak_gb']:.2f} vs "
         f"{summary['graph_peak_gb']:.2f} GB | losses within {loss_rel:.2g} rel, "
         f"moments {mom_rel:.2g} rel, params max {max(q['max_over_lr_steps'] for q in params):.3g}"
         f" lr·steps, RMS {max(q['rms_over_lr_steps'] for q in params):.3g} lr·steps | "
@@ -1201,6 +1202,35 @@ def sd_bounds(guidance):
     return out
 
 
+def traced(fn):
+    """``fn()`` with the tracer on (``customnerf_torch/engine/spans.py``):
+    (its result, its wall ms to a synchronize, each span's device ms, each
+    host span's ms)."""
+    import torch
+    from customnerf_torch.engine import spans
+    spans.enable(True)
+    spans.reset()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = spans.collect()["spans"]
+    finally:
+        spans.enable(False)
+    return (out, wall, {k: v["device_ms"] for k, v in got.items()},
+            {k: v["host_ms"] for k, v in got.items()})
+
+
+def editing_stages(ms, host) -> dict:
+    """An eager editing step's stages from the tracer's spans: the pre-pass's
+    host ms (a pt render on a miss), then the device spans of ``edit.step``."""
+    pt = host.get("pre_pass", 0.0)
+    return {"total": pt + ms["edit.step"], "pt_and_draws": pt,
+            "render_to_latents": ms["render"] + ms["resize"] + ms["vae_encode"],
+            "unet": ms["unet"], "backward_adam": ms["loss"] + ms["backward"] + ms["adam"]}
+
+
 def profile_editing_step(trainer, batch, n_top: int = 12):
     """One more editing step under ``torch.profiler``: device time by
     kernel name (kernels only), the busy share of the step's window."""
@@ -1230,10 +1260,10 @@ def profile_editing_step(trainer, batch, n_top: int = 12):
 
 def editing_steps(trainer, opt, n_steps):
     """``n_steps`` editing steps through ``Trainer.train_step``, the launch
-    counters zeroed just before and read just after, with CUDA-event stage
-    times.  Returns (steps, launches, peak and resident bytes, the last
-    step's K1 and dT inputs, the field's largest change, the train
-    loader)."""
+    counters zeroed just before and read just after, with the tracer's stage
+    times (:func:`editing_stages`).  Returns (steps, launches, peak and
+    resident bytes, the last step's K1 and dT inputs, the field's largest
+    change, the train loader)."""
     import torch
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.measure import captured_calls
@@ -1258,19 +1288,8 @@ def editing_steps(trainer, opt, n_steps):
             if refreshed:
                 trainer.update_extra_state()
             trainer.global_step += 1
-            events = {}
-
-            def mark(name):
-                events[name] = torch.cuda.Event(enable_timing=True)
-                events[name].record()
-
-            mark("start")
-            loss, aux, stats = trainer.train_step(batch, mark=mark)
-            torch.cuda.synchronize()
-            span = {k: events[a].elapsed_time(events[b]) for k, a, b in (
-                ("total", "start", "update"), ("pt_and_draws", "start", "pt"),
-                ("render_to_latents", "pt", "latents"), ("unet", "latents", "unet"),
-                ("backward_adam", "unet", "update"))}
+            (loss, aux, stats), _, ms, host = traced(lambda: trainer.train_step(batch))
+            span = editing_stages(ms, host)
             mlp_input = mlp_calls[-1]
             steps.append(dict(span, step=trainer.global_step, refreshed=refreshed,
                               loss=float(loss), loss_sds=float(aux["loss_sds"]),
@@ -1383,16 +1402,6 @@ def _scene_state(tr, S, editing):
     return params_s, opt_s, occ_s
 
 
-def _stage_marks():
-    import torch
-    events = {}
-
-    def mark(name):
-        events[name] = torch.cuda.Event(enable_timing=True)
-        events[name].record()
-    return events, mark
-
-
 def run_multi_scene(tr, opt):
     """Phase 7a: S = 2 (and S = 4) scenes a step on the editing trainer.
     Returns its summary and K1 / dT rows on its inputs."""
@@ -1414,17 +1423,13 @@ def run_multi_scene(tr, opt):
     tr.train_step(views[0])                      # its pt entry
     single_ms, single_unet = [], []
     for k in range(3):
-        events, mark = _stage_marks()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         if k == 2:
             zero_counts()
-        mark("start")
         tr.global_step += 1
-        tr.train_step(views[0], mark=mark)
-        torch.cuda.synchronize()
-        single_ms.append((time.perf_counter() - t0) * 1e3)
-        single_unet.append(events["latents"].elapsed_time(events["unet"]))
+        _, wall, ms, _ = traced(lambda: tr.train_step(views[0]))
+        single_ms.append(wall)
+        single_unet.append(ms["unet"])
     single_launches = read_counts()
 
     # (a) S = 2: a step that fills the pt entries, then SCENE_STEPS counted
@@ -1439,16 +1444,10 @@ def run_multi_scene(tr, opt):
             captured_calls(triplane, "plane_dtable", keep=6) as dt_calls:
         zero_counts()
         for _ in range(SCENE_STEPS):
-            events, mark = _stage_marks()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mark("start")
-            params_s, opt_s, losses, aux = ed.editing_step_scenes(
-                tr, views[:2], params_s, opt_s, scenes=scenes[:2], occ_s=occ_s,
-                mark=mark)
-            torch.cuda.synchronize()
-            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                          "unet_ms": events["latents"].elapsed_time(events["unet"]),
+            (params_s, opt_s, losses, aux), wall, ms, _ = traced(
+                lambda: ed.editing_step_scenes(tr, views[:2], params_s, opt_s,
+                                               scenes=scenes[:2], occ_s=occ_s))
+            steps.append({"ms": wall, "unet_ms": ms["unet"],
                           "losses": losses.tolist(),
                           "loss_sds": aux["loss_sds"].tolist(),
                           "loss_bg": aux["loss_bg"].tolist()})
@@ -1471,15 +1470,9 @@ def run_multi_scene(tr, opt):
     p4, o4, _, _ = ed.editing_step_scenes(tr, views, p4, o4, scenes=scenes, occ_s=occ4)
     s4 = []
     for _ in range(2):
-        events, mark = _stage_marks()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mark("start")
-        p4, o4, losses4, _ = ed.editing_step_scenes(tr, views, p4, o4, scenes=scenes,
-                                                    occ_s=occ4, mark=mark)
-        torch.cuda.synchronize()
-        s4.append({"ms": (time.perf_counter() - t0) * 1e3,
-                   "unet_ms": events["latents"].elapsed_time(events["unet"])})
+        (p4, o4, losses4, _), wall, ms, _ = traced(
+            lambda: ed.editing_step_scenes(tr, views, p4, o4, scenes=scenes, occ_s=occ4))
+        s4.append({"ms": wall, "unet_ms": ms["unet"]})
         assert bool(torch.isfinite(losses4).all()), losses4
     del p4, o4, occ4
 
@@ -2045,10 +2038,8 @@ PARITY_STEPS = 20
 PARITY_EDIT_STEPS = 4
 PARITY_SAMPLES = STEP_RAYS * 128          # the fine pass: 64 uniform + 64 pdf
 PARITY_COARSE = STEP_RAYS * 64            # the density-only coarse pass
-PARITY_STAGES = (("coarse", "start", "coarse"), ("resample", "coarse", "resample"),
-                 ("fine", "resample", "fine"), ("composite", "fine", "composite"),
-                 ("loss", "composite", "loss"), ("backward", "loss", "backward"),
-                 ("adam", "backward", "adam"), ("total", "start", "adam"))
+# the parity step's device spans (engine/spans.py); "total" is recon.step
+PARITY_STAGES = ("coarse", "resample", "fine", "composite", "loss", "backward", "adam")
 
 
 def grid_consistency(x01, table, spec, n=65536):
@@ -2126,21 +2117,10 @@ def run_parity():
         for _ in range(PARITY_STEPS):
             batch = train.item(0)
             trainer.global_step += 1
-            events = {}
-
-            def mark(name):
-                events[name] = torch.cuda.Event(enable_timing=True)
-                events[name].record()
-
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mark("start")
-            loss, aux, _ = trainer.train_step(batch, mark=mark)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            steps.append(dict({k: events[a].elapsed_time(events[b])
-                               for k, a, b in PARITY_STAGES},
-                              ms=ms, loss=float(loss)))
+            (loss, aux, _), wall, ms, _ = traced(lambda: trainer.train_step(batch))
+            steps.append(dict({k: ms[k] for k in PARITY_STAGES}, total=ms["recon.step"],
+                              ms=wall, loss=float(loss)))
         view = val.item(0)
         out = trainer.render_image(view.rays_o, view.rays_d)
         torch.cuda.synchronize()
@@ -2162,7 +2142,7 @@ def run_parity():
     summary = {"steps": steps, "launches": launches, "init_s": init_s,
                "wall_s": wall_s, "peak_gb": peak / 1e9,
                "median_ms": {k: statistics.median(s[k] for s in warm)
-                             for k in [k for k, _, _ in PARITY_STAGES] + ["ms"]},
+                             for k in PARITY_STAGES + ("total", "ms")},
                "psnr_val0": psnr(img, view.rgbs.reshape(-1, 3))}
     summary["rays_per_s"] = STEP_RAYS / summary["median_ms"]["ms"] * 1e3
     return trainer, opt, summary, at_fine[-1], at_coarse[-1], enc[-1][0]
@@ -2618,8 +2598,8 @@ def log_sd2(card, sd2, ed15, cdp15):
     d, d15 = ed["dispatch"], ed15["dispatch"]
     log(f"[SD {SD2_VERSION} editing dispatch] eager {d['median_eager_ms']:.2f} -> graphed "
         f"{d['median_graph_ms']:.2f} ms/step (SD 1.5 {d15['median_eager_ms']:.2f} -> "
-        f"{d15['median_graph_ms']:.2f}); busy {d['busy_eager']:.3f} -> "
-        f"{d['busy_graph']:.3f}; peak {d['graph_peak_gb']:.2f} GB (SD 1.5 "
+        f"{d15['median_graph_ms']:.2f}); graphed step span {d['step_span_ms']:.2f} ms; "
+        f"peak {d['graph_peak_gb']:.2f} GB (SD 1.5 "
         f"{d15['graph_peak_gb']:.2f})")
     for name, b in ed["sd_bounds"].items():
         log(f"[SD {SD2_VERSION} bound] {name}: {b['flops'] / 1e12:.3f} TFLOP, "

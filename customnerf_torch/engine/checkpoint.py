@@ -53,7 +53,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from customnerf_torch.engine import pytreedef
+from customnerf_torch.engine import pytreedef, spans
 from customnerf_torch.engine.convert import params_from_flax
 from customnerf_torch.engine.ocdbt import OcdbtStore, write_store
 from customnerf_torch.engine.torch_shim import import_reference_checkpoint
@@ -174,7 +174,10 @@ class AsyncSaver:
     writes it (:func:`write_checkpoint`: a ``.orbax`` directory or a
     ``.pth``) on one worker thread; one write is in flight at a time.
     :meth:`wait` joins the worker and re-raises its error: a failed write
-    never passes silently."""
+    never passes silently.  The time each call holds the calling thread is
+    the tracer's counter ``saver_block`` (host spans ``ckpt.snapshot``,
+    ``ckpt.save``, ``ckpt.wait``), the worker's writes ``saver_write``
+    (``engine/spans.py``)."""
 
     def __init__(self):
         self.buffers: dict = {}
@@ -185,7 +188,8 @@ class AsyncSaver:
         """:func:`snapshot` into this saver's buffers, after the pending
         write (which may still read them) has finished."""
         self.wait()
-        return snapshot(tree, self.buffers)
+        with spans.span("ckpt.snapshot", counter="saver_block"):
+            return snapshot(tree, self.buffers)
 
     def save(self, path: str, state: Callable[[], dict], ready=None) -> str:
         """Write ``state()`` to ``path`` on the worker, which calls it once
@@ -197,13 +201,16 @@ class AsyncSaver:
             try:
                 if ready is not None:
                     ready.synchronize()
+                t0 = time.perf_counter()
                 write_checkpoint(path, state())
+                spans.count("saver_write", time.perf_counter() - t0)
             except BaseException as e:      # surfaced by wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=work, name="checkpoint-writer",
-                                        daemon=True)
-        self._thread.start()
+        with spans.span("ckpt.save", counter="saver_block"):
+            self._thread = threading.Thread(target=work, name="checkpoint-writer",
+                                            daemon=True)
+            self._thread.start()
         return path
 
     @property
@@ -212,7 +219,8 @@ class AsyncSaver:
 
     def wait(self):
         if self._thread is not None:
-            self._thread.join()
+            with spans.span("ckpt.wait", counter="saver_block"):
+                self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None

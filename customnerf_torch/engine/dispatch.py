@@ -30,6 +30,11 @@ The kernels' wrappers count the warm-up steps' launches; a capture only
 records launches, and the wrappers do not count it.  A replay runs no
 wrapper: its launches are counted by the kernels themselves on the card
 (``ops/kernels.py::device_launches``).
+
+The tracer (``engine/spans.py``) sees a replay as the host spans
+``replay.copy`` and ``replay``; the device spans of a step captured with
+the tracer on are stamps in the graph, so each replay records them (the
+trainer counts captures: ``Trainer._step_graph``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import os
 import traceback
 
 import torch
+
+from customnerf_torch.engine import spans
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WARMUP_STEPS = 3
@@ -132,7 +139,9 @@ class StepGraph:
         """One step on ``inputs``: copied into the static buffers, then the
         graph.  The outputs are the graph's own tensors, overwritten by the
         next replay."""
-        for k, buf in self.static_in.items():
-            buf.copy_(inputs[k])
-        self.graph.replay()
+        with spans.span("replay.copy"):
+            for k, buf in self.static_in.items():
+                buf.copy_(inputs[k])
+        with spans.span("replay"):
+            self.graph.replay()
         return self.static_out

@@ -51,6 +51,15 @@ SDS ε-prediction of all S scenes is ONE UNet call of batch 2S
 scene:s,data:d`` each rank takes its S/s scenes, their rays sharded over
 ``data``, and the results are gathered over ``scene``.
 
+The tracer's spans (``engine/spans.py``): the host spans ``pre_pass``
+and, on a pt-cache miss, ``pt_render`` (counted); the device spans of a step
+``edit.step`` › ``render`` (› the renderer's stages), ``resize``,
+``vae_encode``, ``unet`` (the SDS ε call with its CFG batch), ``loss``,
+``backward`` › (``vae_encode.bwd``, ``resize.bwd``, ``render.bwd``, stamped
+by gradient hooks where the latents', the 512² image's and the frame's
+gradients are complete) and ``adam``.  A multi-scene step has the same
+spans, a scene's render, VAE, loss, backward and Adam once a scene.
+
 Dtypes along the step, as in the JAX package: the render and the resized
 image are f32; the VAE encodes in the guidance's dtype (bf16 on the card)
 and gives f32 latents; the UNet casts them to its dtype and gives f32 ε;
@@ -66,6 +75,7 @@ import copy
 import torch
 import torch.nn.functional as F
 
+from customnerf_torch.engine import spans
 from customnerf_torch.guidance.clip_view import VIEW_NAMES
 from customnerf_torch.ops.occupancy import OccupancyState
 from customnerf_torch.parallel.mesh import all_gather_cat
@@ -116,14 +126,15 @@ def _get_pt(trainer, batch, bg_color, field=None, cache_key=None):
     cache_key = cache_key if cache_key is not None else batch.img_path
     if cache_key in trainer.pt_dict:
         return trainer.pt_dict[cache_key]
-    out = trainer.render_image(batch.rays_o, batch.rays_d, perturb=True,
-                               bg_color=bg_color,
-                               field=field if field is not None else trainer.field_pretrained)
-    H, W = batch.H, batch.W
-    pt_rgb = out["image"].reshape(H, W, 3)
-    match_probs = None
-    if trainer.opt.clip_view:
-        match_probs = trainer.clip_matcher.match_probs(pt_rgb[None])[0]
+    field = field if field is not None else trainer.field_pretrained
+    with spans.span("pt_render", counter="pt_render"):
+        out = trainer.render_image(batch.rays_o, batch.rays_d, perturb=True,
+                                   bg_color=bg_color, field=field)
+        H, W = batch.H, batch.W
+        pt_rgb = out["image"].reshape(H, W, 3)
+        match_probs = None
+        if trainer.opt.clip_view:
+            match_probs = trainer.clip_matcher.match_probs(pt_rgb[None])[0]
     entry = dict(pt_rgb_bg=out["bg"]["image"].reshape(H, W, 3),
                  pt_rgb_fg=out["fg"]["image"].reshape(H, W, 3),
                  pt_mask=out["render_mask"].reshape(H, W, -1),
@@ -175,10 +186,10 @@ def _lgie_gate(trainer, text_z, text_z_fg):
 
 
 def editing_inputs(trainer, batch, draws=None, scene=None):
-    """The host pre-pass of one step at the current ``global_step``: the
-    bg colour, the pt entry, the prompt, the LGIE gate and t, in the JAX
-    order (``editing.py:441-476``).  Returns (inputs, local): ``inputs``
-    holds the tensors :func:`editing_body` reads (``use_fg`` a 0-d f32, t a
+    """The host pre-pass (host span ``pre_pass``) of one step at the
+    current ``global_step``: the bg colour, the pt entry, the prompt, the
+    LGIE gate and t, in the JAX order (``editing.py:441-476``).  Returns
+    (inputs, local): ``inputs`` holds the tensors :func:`editing_body` reads (``use_fg`` a 0-d f32, t a
     [1] int64); ``local`` is the gate's branch.  ``draws`` may fix
     ``bg_color`` and ``t``.  ``scene`` (a scene of
     :func:`editing_step_scenes`): its ``index``, frozen ``field``, ``occ``
@@ -186,6 +197,11 @@ def editing_inputs(trainer, batch, draws=None, scene=None):
     ``(index, img_path)`` and rendered with the bg colour only under
     ``--random_bg_c`` (on the trainer's grid), it has no ``--ori_bg`` target (JAX
     ``editing.py:649-678``), and ``inputs`` carry its ``occ``."""
+    with spans.span("pre_pass"):
+        return _editing_inputs(trainer, batch, draws, scene)
+
+
+def _editing_inputs(trainer, batch, draws, scene):
     opt, guidance, dev = trainer.opt, trainer.guidance, trainer.device
     if guidance is None:
         raise RuntimeError("editing needs the SD guidance (--lambda_sd > 0)")
@@ -231,19 +247,26 @@ def editing_latents(trainer, inputs, H: int, W: int, perturb: bool = True,
     noise are None without ``--lambda_sd``."""
     opt, guidance = trainer.opt, trainer.guidance
     draws = draws or {}
-    out = trainer.render(inputs["rays_o"], inputs["rays_d"], train=True,
-                         perturb=perturb, bg_color=inputs.get("bg_color"),
-                         field=field, occ=inputs.get("occ"))
+    with spans.device("render"):
+        out = trainer.render(inputs["rays_o"], inputs["rays_d"], train=True,
+                             perturb=perturb, bg_color=inputs.get("bg_color"),
+                             field=field, occ=inputs.get("occ"))
     if not opt.lambda_sd:
         return out, None, None
     n = H * W
-    fg = out["fg"]["image"] if "fg" in out else out["image"]
-    img = torch.where(inputs["use_fg"] > 0.5, fg, out["image"])
-    img = img[:n].reshape(1, H, W, 3).permute(0, 3, 1, 2)
-    img = F.interpolate(img, size=(RESIZE, RESIZE), mode="bilinear",
-                        align_corners=False, antialias=True)
-    latents = guidance.encode_imgs(img, generator=trainer.generator,
-                                   noise=draws.get("vae_noise"))
+    with spans.device("resize"):
+        fg = out["fg"]["image"] if "fg" in out else out["image"]
+        frame = torch.where(inputs["use_fg"] > 0.5, fg, out["image"])
+        frame = frame[:n].reshape(1, H, W, 3).permute(0, 3, 1, 2)
+        img = F.interpolate(frame, size=(RESIZE, RESIZE), mode="bilinear",
+                            align_corners=False, antialias=True)
+    with spans.device("vae_encode"):
+        latents = guidance.encode_imgs(img, generator=trainer.generator,
+                                       noise=draws.get("vae_noise"))
+    # the backward's stages, stamped where each gradient is complete
+    spans.at_grad(latents, begins="vae_encode.bwd")
+    spans.at_grad(img, ends="vae_encode.bwd", begins="resize.bwd")
+    spans.at_grad(frame, ends="resize.bwd", begins="render.bwd")
     noise = draws.get("noise")
     if noise is None:
         noise = torch.randn(latents.shape, generator=trainer.generator,
@@ -274,40 +297,36 @@ def editing_loss(trainer, inputs, out, latents, cotangent, H: int, W: int):
 
 
 def editing_body(trainer, inputs, H: int, W: int, perturb: bool = True,
-                 draws=None, mark=None):
-    """The device step: :func:`editing_latents`, the SDS cotangent (UNet
-    without a graph), :func:`editing_loss`, backward and Adam.  Reads only
-    ``inputs`` (from :func:`editing_inputs`) and the trainer's state.
-    Returns ({``loss_sds``, ``loss_bg``: detached}, render stats)."""
-    mark = mark or (lambda _: None)
-    out, latents, noise = editing_latents(trainer, inputs, H, W, perturb, draws)
-    aux, cotangent = {}, None
-    if latents is not None:
-        mark("latents")
-        cotangent, aux["loss_sds"] = trainer.guidance.sds_grad(
-            latents.detach(), inputs["text_emb"], inputs["t"], noise)
-        mark("unet")
-    loss, loss_bg = editing_loss(trainer, inputs, out, latents, cotangent, H, W)
-    if loss_bg is not None:
-        aux["loss_bg"] = loss_bg
-    trainer.apply_gradients(loss)
-    mark("update")
+                 draws=None):
+    """The device step (device span ``edit.step``): :func:`editing_latents`,
+    the SDS cotangent (UNet without a graph), :func:`editing_loss`, backward
+    and Adam.  Reads only ``inputs`` (from :func:`editing_inputs`) and the
+    trainer's state.  Returns ({``loss_sds``, ``loss_bg``: detached}, render
+    stats)."""
+    with spans.device("edit.step"):
+        out, latents, noise = editing_latents(trainer, inputs, H, W, perturb, draws)
+        aux, cotangent = {}, None
+        if latents is not None:
+            with spans.device("unet"):
+                cotangent, aux["loss_sds"] = trainer.guidance.sds_grad(
+                    latents.detach(), inputs["text_emb"], inputs["t"], noise)
+        with spans.device("loss"):
+            loss, loss_bg = editing_loss(trainer, inputs, out, latents, cotangent, H, W)
+        if loss_bg is not None:
+            aux["loss_bg"] = loss_bg
+        trainer.apply_gradients(loss)
     return {k: v.detach() for k, v in aux.items()}, out["stats"]
 
 
-def editing_step(trainer, batch, perturb: bool = True, draws=None, mark=None):
+def editing_step(trainer, batch, perturb: bool = True, draws=None):
     """One eager LGIE editing step.  Returns (loss, aux, render stats):
     ``aux`` holds ``loss_sds`` (0.5·Σ grad², the reference's value) and
     ``loss_bg``, ``loss`` their sum.  ``draws`` may fix ``bg_color``, ``t``,
-    ``noise`` (the SDS ε) and ``vae_noise`` (the posterior sample's ε);
-    ``mark(name)`` is called at the stage boundaries ``pt`` (the pre-pass
-    done), ``latents``, ``unet`` and ``update``.  The stats add the LGIE
-    branch (``local``) and ``t``."""
+    ``noise`` (the SDS ε) and ``vae_noise`` (the posterior sample's ε).
+    The stats add the LGIE branch (``local``) and ``t``."""
     inputs, local = editing_inputs(trainer, batch, draws)
-    if mark:
-        mark("pt")
     aux, stats = editing_body(trainer, inputs, batch.H, batch.W,
-                              perturb=perturb, draws=draws, mark=mark)
+                              perturb=perturb, draws=draws)
     return sum(aux.values()), aux, dict(stats, local=local, t=inputs["t"])
 
 
@@ -422,7 +441,7 @@ def _bind_scene(slot, params, moments, j: int, count: float):
 
 def editing_step_scenes(trainer, batches, params_s, opt_state_s,
                         generator_or_draws=None, scenes=None, occ_s=None,
-                        perturb: bool = True, mark=None):
+                        perturb: bool = True):
     """One batched multi-scene LGIE step (N scenes × M prompts; JAX
     ``editing.py:605-723``).
 
@@ -447,13 +466,13 @@ def editing_step_scenes(trainer, batches, params_s, opt_state_s,
     (:func:`editing_latents`), loss and update (:func:`editing_loss`,
     ``Trainer.apply_gradients`` with the scene's Adam and count); only the
     UNet runs once for all.  There is no ``--ori_bg`` branch, as in the JAX
-    step, and ``global_step`` does not move.  ``mark(name)`` is called at
-    ``pt``, ``latents``, ``unet`` and ``update``.  Returns (params_s,
+    step, and ``global_step`` does not move.  The device work after the
+    pre-pass is the device span ``edit.step``, with a single-scene step's
+    spans inside.  Returns (params_s,
     opt_state_s, losses [S], aux {``loss_sds``, ``loss_bg``: [S]}), new
     tensors; a loss is Σ latents·cotangent + loss_bg, as the JAX step
     returns it, and ``loss_sds`` is 0.5·Σ grad²."""
     opt, dev = trainer.opt, trainer.device
-    mark = mark or (lambda _: None)
     S = len(batches)
     scenes = scenes if scenes is not None else [{}] * S
     if len(scenes) != S:
@@ -492,46 +511,45 @@ def editing_step_scenes(trainer, batches, params_s, opt_state_s,
         with _drawing_from(trainer, gens[i]):
             pre[i], _ = editing_inputs(trainer, batch, draws[i] if draws else None,
                                        scene=scene)
-    mark("pt")
+    with spans.device("edit.step"):
+        # per scene: render and VAE encode, graphs kept for the backward
+        counts = [float(opt_state_s["step"][i]) for i in local]
+        outs, latents, noises = [], [], []
+        for j, i in enumerate(local):
+            _bind_scene(slots[j], new_params, new_state, j, counts[j])
+            with _drawing_from(trainer, gens[i]):
+                out, lat, noise = editing_latents(trainer, pre[i], H, W, perturb,
+                                                  draws[i] if draws else None,
+                                                  field=slots[j][0])
+            outs.append(out)
+            latents.append(lat)
+            noises.append(noise)
 
-    # per scene: render and VAE encode, graphs kept for the backward
-    counts = [float(opt_state_s["step"][i]) for i in local]
-    outs, latents, noises = [], [], []
-    for j, i in enumerate(local):
-        _bind_scene(slots[j], new_params, new_state, j, counts[j])
-        with _drawing_from(trainer, gens[i]):
-            out, lat, noise = editing_latents(trainer, pre[i], H, W, perturb,
-                                              draws[i] if draws else None,
-                                              field=slots[j][0])
-        outs.append(out)
-        latents.append(lat)
-        noises.append(noise)
-    mark("latents")
+        # one UNet call on every local scene: batch 2·S_local
+        cots = [None] * len(local)
+        loss_sds = torch.zeros(len(local), device=dev)
+        if opt.lambda_sd:
+            with spans.device("unet"):
+                cot, loss_sds = trainer.guidance.sds_grad_batch(
+                    torch.cat([x.detach() for x in latents]),
+                    torch.stack([pre[i]["text_emb"].reshape(
+                        2, *pre[i]["text_emb"].shape[-2:]) for i in local]),
+                    torch.cat([pre[i]["t"] for i in local]), torch.cat(noises))
+            cots = [cot[j:j + 1] for j in range(len(local))]
 
-    # one UNet call on every local scene: batch 2·S_local
-    cots = [None] * len(local)
-    loss_sds = torch.zeros(len(local), device=dev)
-    if opt.lambda_sd:
-        cot, loss_sds = trainer.guidance.sds_grad_batch(
-            torch.cat([x.detach() for x in latents]),
-            torch.stack([pre[i]["text_emb"].reshape(2, *pre[i]["text_emb"].shape[-2:])
-                         for i in local]),
-            torch.cat([pre[i]["t"] for i in local]), torch.cat(noises))
-        cots = [cot[j:j + 1] for j in range(len(local))]
-    mark("unet")
+        losses, loss_bgs = [], []
+        for j, i in enumerate(local):
+            with spans.device("loss"):
+                loss, loss_bg = editing_loss(trainer, pre[i], outs[j], latents[j], cots[j],
+                                             H, W)
+            trainer.apply_gradients(loss, optimizer=slots[j][1], count=int(counts[j]))
+            losses.append(torch.as_tensor(loss).detach().float().reshape(()))
+            loss_bgs.append(loss_bg.detach() if loss_bg is not None
+                            else torch.zeros((), device=dev))
 
-    losses, loss_bgs = [], []
-    for j, i in enumerate(local):
-        loss, loss_bg = editing_loss(trainer, pre[i], outs[j], latents[j], cots[j], H, W)
-        trainer.apply_gradients(loss, optimizer=slots[j][1], count=int(counts[j]))
-        losses.append(torch.as_tensor(loss).detach().float().reshape(()))
-        loss_bgs.append(loss_bg.detach() if loss_bg is not None
-                        else torch.zeros((), device=dev))
-    mark("update")
-
-    new_state["step"] = torch.tensor([c + 1.0 for c in counts])
-    aux = {"loss_sds": loss_sds.detach(), "loss_bg": torch.stack(loss_bgs)}
-    losses = torch.stack(losses)
+        new_state["step"] = torch.tensor([c + 1.0 for c in counts])
+        aux = {"loss_sds": loss_sds.detach(), "loss_bg": torch.stack(loss_bgs)}
+        losses = torch.stack(losses)
     if ns > 1:
         gather = lambda x: all_gather_cat(x, mesh, "scene")     # noqa: E731
         new_params = {k: gather(v) for k, v in new_params.items()}

@@ -101,7 +101,7 @@ import torch
 
 from customnerf_torch.device import resolve_device
 from customnerf_torch.engine import checkpoint as ckpt_io
-from customnerf_torch.engine import pytreedef
+from customnerf_torch.engine import pytreedef, spans
 from customnerf_torch.engine.convert import (adam_from_torch, adam_to_torch,
                                              flax_shapes, params_from_flax,
                                              params_to_flax)
@@ -328,13 +328,15 @@ class Trainer:
     # --------------------------------------------------- occupancy refresh
     def update_extra_state(self):
         """Refresh the occupancy grid (reference renderer.py:1659-1717),
-        in place: a captured step marches the tensors it was captured on."""
+        in place: a captured step marches the tensors it was captured on.
+        A host and a device span ``refresh``; counted."""
         occ = self.occ_state
-        new = update_grid(occ, self.field.density, self.opt.bound,
-                          self.opt.density_thresh, generator=self.generator)
-        occ.density_grid.copy_(new.density_grid)
-        occ.bitfield.copy_(new.bitfield)
-        occ.mean_density.copy_(new.mean_density)
+        with spans.span("refresh", counter="refresh"), spans.device("refresh"):
+            new = update_grid(occ, self.field.density, self.opt.bound,
+                              self.opt.density_thresh, generator=self.generator)
+            occ.density_grid.copy_(new.density_grid)
+            occ.bitfield.copy_(new.bitfield)
+            occ.mean_density.copy_(new.mean_density)
         occ.iter_density = new.iter_density
 
     # -------------------------------------------------------------- render
@@ -344,9 +346,10 @@ class Trainer:
         path; training marches 2× the kept samples, eval marches at the
         reference's inference budget (max_steps candidates) or
         ``--eval_march_candidates``.  ``field`` defaults to the trained
-        one, ``occ`` to the trainer's occupancy grid; ``mark`` is
-        ``render_rays``' stage callback.  Under a ``data`` axis this rank
-        renders its rays of the batch and the per-ray outputs come back
+        one, ``occ`` to the trainer's occupancy grid; ``mark`` is ignored
+        (the stages are ``engine/spans.py``'s device spans; the argument
+        stays for callers that pass it by position).  Under a ``data`` axis
+        this rank renders its rays of the batch and the per-ray outputs come back
         gathered (:meth:`ray_shard`); a training render only when
         :attr:`shards_steps`."""
         opt = self.opt
@@ -358,7 +361,7 @@ class Trainer:
         if not opt.cuda_ray:
             out = render_rays(field, rays_o, rays_d, self.settings, train=train,
                               perturb=perturb, generator=self.generator,
-                              bg_color=bg_color, mark=mark, shard=shard)
+                              bg_color=bg_color, shard=shard)
         else:
             n_total = max(opt.num_steps + opt.upsample_steps, 2)
             n_eval = int(opt.eval_march_candidates) or max(opt.max_steps, n_total * 2)
@@ -408,37 +411,37 @@ class Trainer:
 
     def apply_gradients(self, loss, mark=None, optimizer=None, count: int = 0):
         """Backward, the sum over the ``data`` axis (:meth:`reduce_gradients`),
-        NaN-zeroing, the decayed lr, one Adam update; ``mark(name)`` after
-        the ``backward`` and the ``adam`` update.  ``optimizer``: another
+        NaN-zeroing, the decayed lr, one Adam update: the device spans
+        ``backward`` (spans opened inside it by gradient hooks close with
+        it) and ``adam``.  ``optimizer``: another
         field's Adam (:meth:`make_optimizer`, a scene of multi-scene
         editing), at the lr of its own update ``count``; the trainer's
-        update count then stays."""
-        mark = mark or (lambda _: None)
+        update count then stays.  ``mark`` is ignored (as in :meth:`render`)."""
         own = optimizer is None
         optimizer = self.optimizer if own else optimizer
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.reduce_gradients(optimizer)
-        mark("backward")
-        if own and self._capturable:
-            # lr_at on the device, from the update counter
-            base = self.opt.lr * torch.pow(
-                0.1, torch.clamp(self._count_t / self.opt.iters, max=1.0))
-            for group, lr in zip(self.optimizer.param_groups, self._lr_t):
-                lr.copy_(group["lr_scale"] * base)
-        else:
-            base = self.lr_at(self.n_updates if own else count)
+        with spans.device("backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.reduce_gradients(optimizer)
+        with spans.device("adam"):
+            if own and self._capturable:
+                # lr_at on the device, from the update counter
+                base = self.opt.lr * torch.pow(
+                    0.1, torch.clamp(self._count_t / self.opt.iters, max=1.0))
+                for group, lr in zip(self.optimizer.param_groups, self._lr_t):
+                    lr.copy_(group["lr_scale"] * base)
+            else:
+                base = self.lr_at(self.n_updates if own else count)
+                for group in optimizer.param_groups:
+                    group["lr"] = group["lr_scale"] * base
             for group in optimizer.param_groups:
-                group["lr"] = group["lr_scale"] * base
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
-        optimizer.step()
-        mark("adam")
-        if own:
-            if self._capturable:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        p.grad.masked_fill_(torch.isnan(p.grad), 0.0)
+            optimizer.step()
+            if own and self._capturable:
                 self._count_t += 1
+        if own:
             self.n_updates += 1
 
     def reduce_gradients(self, optimizer):
@@ -450,38 +453,37 @@ class Trainer:
                  if p.grad is not None]
         all_reduce_sum(grads, self.mesh, "data")
 
-    def train_step(self, batch, perturb: bool = True, mark=None):
+    def train_step(self, batch, perturb: bool = True):
         """One eager reconstruction step (render, loss, backward,
         NaN-zeroing, Adam), or under ``--pretrained`` one editing step.
-        ``mark(name)`` is called at the stage boundaries: the dense render's,
-        ``loss``, ``backward`` and ``adam``, or the editing step's.  Returns
-        (loss, aux, render stats) as device tensors."""
+        Returns (loss, aux, render stats) as device tensors."""
         if self.opt.pretrained:
-            return editing_step(self, batch, perturb=perturb, mark=mark)
-        return self._recon_step(self._recon_inputs(batch), perturb=perturb,
-                                mark=mark)
+            return editing_step(self, batch, perturb=perturb)
+        return self._recon_step(self._recon_inputs(batch), perturb=perturb)
 
     @staticmethod
     def _recon_inputs(batch) -> dict:
         return {"rays_o": batch.rays_o, "rays_d": batch.rays_d,
                 "rgbs": batch.rgbs.reshape(-1, 3), "mask": batch.mask.reshape(-1)}
 
-    def _recon_step(self, inputs, perturb: bool = True, mark=None):
+    def _recon_step(self, inputs, perturb: bool = True):
         """The step :meth:`train_step` takes and a dispatch captures:
-        (loss, aux, render stats), the stats' tensors detached."""
-        rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
-        rgbs, mask = inputs["rgbs"], inputs["mask"]
-        if self.opt.batch_rays:
-            n = rays_o.shape[0]
-            sel = torch.randperm(n, generator=self.generator,
-                                 device=self.device)[:int(self.opt.batch_rays)]
-            rgbs, mask, rays_o, rays_d = rgbs[sel], mask[sel], rays_o[sel], rays_d[sel]
-
-        out = self.render(rays_o, rays_d, train=True, perturb=perturb, mark=mark)
-        loss, aux = self.loss(out, rgbs, mask)
-        if mark:
-            mark("loss")
-        self.apply_gradients(loss, mark=mark)
+        (loss, aux, render stats), the stats' tensors detached.  Device
+        spans: ``recon.step`` › ``render`` (the renderer's stages inside),
+        ``loss``, ``backward`` (› ``k1.bwd``, ``grid_encode.bwd``), ``adam``."""
+        with spans.device("recon.step"):
+            rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
+            rgbs, mask = inputs["rgbs"], inputs["mask"]
+            if self.opt.batch_rays:
+                n = rays_o.shape[0]
+                sel = torch.randperm(n, generator=self.generator,
+                                     device=self.device)[:int(self.opt.batch_rays)]
+                rgbs, mask, rays_o, rays_d = rgbs[sel], mask[sel], rays_o[sel], rays_d[sel]
+            with spans.device("render"):
+                out = self.render(rays_o, rays_d, train=True, perturb=perturb)
+            with spans.device("loss"):
+                loss, aux = self.loss(out, rgbs, mask)
+            self.apply_gradients(loss)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, out["stats"]
 
     def train_many(self, batches):
@@ -513,13 +515,15 @@ class Trainer:
         return outs
 
     def _graph_key(self, kind, inputs):
-        """What a captured step depends on besides its inputs' values."""
+        """What a captured step depends on besides its inputs' values: a
+        graph captured with the tracer off holds no stamp, so switching it
+        captures again."""
         occ = self.occ_state
         occ_key = None if occ is None else (
             occ.density_grid.data_ptr(), occ.bitfield.data_ptr(),
             occ.mean_density.data_ptr(), occ.iter_density > WARMUP_UPDATES)
         return (kind, self._state_version, id(self.field.cfg), occ_key,
-                self.opt.compact_frac, self.opt.batch_rays,
+                self.opt.compact_frac, self.opt.batch_rays, spans.enabled(),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
 
     def _step_graph(self, kind, step, inputs) -> StepGraph:
@@ -529,9 +533,10 @@ class Trainer:
             self._graphs.pop(kind, None)     # free the old graph's pool first
             n_updates = self.n_updates
             try:
-                graph = StepGraph(kind, step, inputs, self.generator,
-                                  [*self.field.parameters(), self._count_t],
-                                  self.optimizer.state)
+                with spans.span("capture", counter="capture"):
+                    graph = StepGraph(kind, step, inputs, self.generator,
+                                      [*self.field.parameters(), self._count_t],
+                                      self.optimizer.state)
             finally:
                 self.n_updates = n_updates
             self._graphs[kind] = held = (key, graph)
@@ -565,7 +570,8 @@ class Trainer:
         if self.occ_state.iter_density <= WARMUP_UPDATES:
             return
         batch = loader.item(0) if hasattr(loader, "item") else next(iter(loader))
-        fill = self.measure_slab_fill(batch)
+        with spans.span("autotune"):
+            fill = self.measure_slab_fill(batch)
         n_total = max(self.opt.num_steps + self.opt.upsample_steps, 2)
         frac = compaction_frac(fill, self.opt.compact_block, n_total)
         self.log(f"[INFO] compaction auto-tune: measured slab fill "
@@ -575,7 +581,12 @@ class Trainer:
     # ---------------------------------------------------------- train loop
     def train_one_epoch(self, loader):
         """One epoch in dispatches of ``steps_per_dispatch`` steps, as the
-        JAX ``train_one_epoch`` (``trainer.py:574-648``) groups them."""
+        JAX ``train_one_epoch`` (``trainer.py:574-648``) groups them; the
+        host span ``epoch``, the losses fetched in the span ``loss_fetch``."""
+        with spans.span("epoch"):
+            return self._train_one_epoch(loader)
+
+    def _train_one_epoch(self, loader):
         if self.opt.cuda_ray and self.opt.compact_frac == -1:
             self._autotune_compaction(loader)
         self.log(f"==> Start Training Epoch {self.epoch}, "
@@ -599,10 +610,11 @@ class Trainer:
             pending.append((len(group), aux))
         # one host transfer a dispatch; a step's loss is the sum of its aux
         total, n_steps = 0.0, 0
-        for n, aux in pending:
-            host = torch.stack([v.reshape(n) for v in aux.values()]).cpu().double()
-            total += float(host.sum())
-            n_steps += n
+        with spans.span("loss_fetch"):
+            for n, aux in pending:
+                host = torch.stack([v.reshape(n) for v in aux.values()]).cpu().double()
+                total += float(host.sum())
+                n_steps += n
         avg = total / max(n_steps, 1)
         self.stats["loss"].append(avg)
         self.log(f"==> Finished Epoch {self.epoch}. average_loss {avg}")
@@ -612,8 +624,10 @@ class Trainer:
         """Epochs up to ``max_epochs``, saving a full checkpoint first and
         before and after each ``eval_interval``'s evaluation
         (utils_init_nerf.py:492-506); a pending write is waited for at the
-        end (JAX ``trainer.py:501-503``)."""
+        end (JAX ``trainer.py:501-503``), and the tracer's counters of the
+        run are logged in one line."""
         t0 = time.time()
+        counted = dict(spans.counters)
         self.save_checkpoint()
         prof = self._start_profile() if self.opt.profile else None
         for epoch in range(self.epoch + 1, max_epochs + 1):
@@ -628,19 +642,26 @@ class Trainer:
                     self.evaluate_one_epoch(valid_loader)
                 self.save_checkpoint()
         self.wait_for_saves()
+        self.log(spans.counters_line(counted))
         self.log(f"[INFO] training takes {(time.time() - t0) / 60:.4f} minutes.")
 
     def _start_profile(self):
         """``--profile``: a ``torch.profiler`` trace of the first epoch (the
-        JAX trainer's xplane trace, trainer.py:484-497)."""
+        JAX trainer's xplane trace, trainer.py:484-497), with the tracer on
+        (``engine/spans.py``; the step is captured again for it)."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        self._spans_were_on = spans.enabled()
+        spans.enable(True, self.device)
+        spans.reset()
         prof = profile(activities=acts)
         prof.__enter__()
         return prof
 
     def _stop_profile(self, prof):
+        """The trace, the tracer's device spans added to it as the ``cn
+        spans`` track, in ``{workspace}/profile/trace_ep{epoch}.json``."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.__exit__(None, None, None)
@@ -648,7 +669,10 @@ class Trainer:
         os.makedirs(out, exist_ok=True)
         path = os.path.join(out, f"trace_ep{self.epoch:04d}.json")
         prof.export_chrome_trace(path)
-        self.log(f"[INFO] --profile: epoch {self.epoch} traced to {path}")
+        n = spans.add_track(path)
+        spans.enable(self._spans_were_on, self.device)
+        self.log(f"[INFO] --profile: epoch {self.epoch} traced to {path} "
+                 f"({n} device spans on the track '{spans.TRACK}')")
         self.opt.profile = False
 
     # ---------------------------------------------------------- checkpoints
@@ -676,7 +700,8 @@ class Trainer:
             if self.saver is not None:
                 host, ready = self.saver.snapshot(tree)
             else:
-                host, ready = ckpt_io.snapshot(tree)
+                with spans.span("ckpt.snapshot"):
+                    host, ready = ckpt_io.snapshot(tree)
             self._host_cache = (key, host, ready)
         return self._host_cache[1], self._host_cache[2]
 
@@ -726,9 +751,10 @@ class Trainer:
 
         if self.saver is not None:
             return self.saver.save(path, state, ready=ready)
-        if ready is not None:
-            ready.synchronize()
-        return ckpt_io.write_checkpoint(path, state())
+        with spans.span("ckpt.write"):
+            if ready is not None:
+                ready.synchronize()
+            return ckpt_io.write_checkpoint(path, state())
 
     def wait_for_saves(self):
         """Block until a pending checkpoint write has finished; re-raises

@@ -15,6 +15,11 @@ mask (reference renderer.py:383-418, 597-718).  The field hands back f32
 σ and radiance under either head precision (the bf16 heads widen their
 outputs), so the composites, ``sample_pdf`` and their gradients run in f32,
 as the JAX renderer's do.
+
+The tracer's device spans (``engine/spans.py``): ``render_rays`` stamps
+``coarse``, ``resample``, ``fine`` and ``composite``; ``render_rays_fast``
+stamps ``march``, ``eval`` (the field on the slab or its compaction) and
+``composite``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from customnerf_torch.engine import spans
 from customnerf_torch.ops.compaction import (block_budget, compact_plan,
                                              ray_permutation, slot_sources)
 from customnerf_torch.ops.composite import (alphas_from_sigmas, sample_pdf,
@@ -131,14 +137,13 @@ def _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars,
 
 def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
                 perturb: bool = False, generator=None, bg_color=None,
-                draws=None, mark=None, shard=None):
+                draws=None, shard=None):
     """The dense two-pass path.  ``field`` is a ``NeRFField`` (its
     ``density`` runs the coarse pass, its call the fine one).  The depth
     jitter (``perturb``) and, when ``train``, ``sample_pdf``'s u come from
     ``generator``; ``draws`` may fix them (``jitter`` [N, num_steps],
     ``u`` [N, upsample_steps]).  Evaluation (``train`` False) samples the
-    pdf at evenly spaced u.  ``mark(name)`` is called at the stage
-    boundaries ``coarse``, ``resample``, ``fine`` and ``composite``.
+    pdf at evenly spaced u.
     ``shard`` (``parallel/mesh.py::RayShard``): the rays are this rank's
     rows of a batch, whose draws are taken for the whole batch, in the
     single-process order, and cut to those rows.
@@ -152,7 +157,6 @@ def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
         if train and s.upsample_steps > 0 and "u" not in draws:
             draws["u"] = torch.rand((n, s.upsample_steps), generator=generator,
                                     device=rays_o.device)[rows]
-    mark = mark or (lambda _: None)
     dev = rays_o.device
     T = s.num_steps
     aabb = scene_aabb(s.bound, dev)
@@ -177,32 +181,31 @@ def render_rays(field, rays_o, rays_d, s: RenderSettings, train: bool = False,
         # importance resampling on the coarse pass's weights, which carry no
         # gradient (renderer.py:333-367): run it without a graph
         with torch.no_grad():
-            sigmas_coarse = field.density(make_xyzs(z_vals))        # [N, T]
-            mark("coarse")
-            deltas = z_vals[..., 1:] - z_vals[..., :-1]
-            deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])], -1)
-            weights_c = weights_from_alphas(alphas_from_sigmas(sigmas_coarse, deltas))
-            z_mid = z_vals[..., :-1] + 0.5 * deltas[..., :-1]
-            new_z = sample_pdf(z_mid, weights_c[:, 1:-1], s.upsample_steps,
-                               det=not train, generator=generator,
-                               u=draws.get("u") if train else None)
-            z_all, _ = torch.sort(torch.cat([z_vals, new_z], dim=1), dim=1)
-            mark("resample")
+            with spans.device("coarse"):
+                sigmas_coarse = field.density(make_xyzs(z_vals))    # [N, T]
+            with spans.device("resample"):
+                deltas = z_vals[..., 1:] - z_vals[..., :-1]
+                deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])], -1)
+                weights_c = weights_from_alphas(alphas_from_sigmas(sigmas_coarse, deltas))
+                z_mid = z_vals[..., :-1] + 0.5 * deltas[..., :-1]
+                new_z = sample_pdf(z_mid, weights_c[:, 1:-1], s.upsample_steps,
+                                   det=not train, generator=generator,
+                                   u=draws.get("u") if train else None)
+                z_all, _ = torch.sort(torch.cat([z_vals, new_z], dim=1), dim=1)
     else:
         z_all = z_vals
     # a point is a function of its depth alone: computing the points from
     # the sorted depths equals sorting the coarse and fine points (as the
     # JAX package does with a stable argsort), ties included
-    xyz_all = make_xyzs(z_all)
-
-    sigmas, radiance = field(xyz_all, rays_d[:, None, :].expand_as(xyz_all))
-    mark("fine")
-    rgbs = radiance[..., :3]
-    masks = radiance[..., 3:] if radiance.shape[-1] > 3 else None
-    results = _composite(sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s,
-                         detach_nonedit=s.detach_bg, bg_color=bg_color)
-    _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s)
-    mark("composite")
+    with spans.device("fine"):
+        xyz_all = make_xyzs(z_all)
+        sigmas, radiance = field(xyz_all, rays_d[:, None, :].expand_as(xyz_all))
+    with spans.device("composite"):
+        rgbs = radiance[..., :3]
+        masks = radiance[..., 3:] if radiance.shape[-1] > 3 else None
+        results = _composite(sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s,
+                             detach_nonedit=s.detach_bg, bg_color=bg_color)
+        _add_fg_bg(results, sigmas, rgbs, masks, z_all, sample_dist, nears, fars, s)
     results["stats"] = {}
     return results
 
@@ -300,49 +303,52 @@ def render_rays_fast(field, rays_o, rays_d, occ_state, s: RenderSettings,
     and overflow share when compaction is on)."""
     dev = rays_o.device
     aabb = scene_aabb(s.bound, dev)
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, s.min_near)
-    miss = nears >= fars
-    nears_ = torch.where(miss, torch.zeros_like(nears), nears)
-    fars_ = torch.where(miss, torch.ones_like(fars), fars)
+    with spans.device("march"):
+        nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, s.min_near)
+        miss = nears >= fars
+        nears_ = torch.where(miss, torch.zeros_like(nears), nears)
+        fars_ = torch.where(miss, torch.ones_like(fars), fars)
 
-    jitter = None
-    if shard is not None and perturb:
-        jitter = torch.rand((shard.n, n_coarse), generator=generator,
-                            device=dev)[shard.draw_rows]
-    z, valid, dt_scale = march_rays_occupancy(
-        occ_state, rays_o, rays_d, nears_, fars_, s.bound, n_coarse=n_coarse,
-        n_keep=n_keep, perturb=perturb, generator=generator, jitter=jitter)
-    valid = valid & ~miss[:, None]
-    if shard is not None:
-        valid = valid & ~shard.pad_mask[:, None]
-    # invalid tail slots hold depths of unoccupied candidates that can be
-    # SMALLER than the last valid one → negative deltas → NaN: pin to far
-    z = torch.where(valid, z, fars_[:, None].expand_as(z))
+        jitter = None
+        if shard is not None and perturb:
+            jitter = torch.rand((shard.n, n_coarse), generator=generator,
+                                device=dev)[shard.draw_rows]
+        z, valid, dt_scale = march_rays_occupancy(
+            occ_state, rays_o, rays_d, nears_, fars_, s.bound, n_coarse=n_coarse,
+            n_keep=n_keep, perturb=perturb, generator=generator, jitter=jitter)
+        valid = valid & ~miss[:, None]
+        if shard is not None:
+            valid = valid & ~shard.pad_mask[:, None]
+        # invalid tail slots hold depths of unoccupied candidates that can be
+        # SMALLER than the last valid one → negative deltas → NaN: pin to far
+        z = torch.where(valid, z, fars_[:, None].expand_as(z))
 
     stats = {}
-    if compact_frac and compact_frac > 0.0:
-        permuted = shard is not None and shard.block is not None
-        if permuted and shard.block != compact_block:
-            raise ValueError(f"a shard of blocks of {shard.block} rays under "
-                             f"compaction blocks of {compact_block}")
-        sigmas, radiance, dt_mult, stats = _eval_field_compacted(
-            field, rays_o, rays_d, z, valid, compact_frac, compact_block, aabb,
-            permuted=permuted)
-        dt_scale = dt_scale * dt_mult[:, None]
-    else:
-        xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-        xyz = torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
-        sigmas, radiance = field(xyz, rays_d[:, None, :].expand_as(xyz))
-    sigmas = sigmas * valid.to(sigmas.dtype)
-    rgbs = radiance[..., :3]
-    masks = radiance[..., 3:] if radiance.shape[-1] > 3 else None
+    with spans.device("eval"):
+        if compact_frac and compact_frac > 0.0:
+            permuted = shard is not None and shard.block is not None
+            if permuted and shard.block != compact_block:
+                raise ValueError(f"a shard of blocks of {shard.block} rays under "
+                                 f"compaction blocks of {compact_block}")
+            sigmas, radiance, dt_mult, stats = _eval_field_compacted(
+                field, rays_o, rays_d, z, valid, compact_frac, compact_block, aabb,
+                permuted=permuted)
+            dt_scale = dt_scale * dt_mult[:, None]
+        else:
+            xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+            xyz = torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
+            sigmas, radiance = field(xyz, rays_d[:, None, :].expand_as(xyz))
+    with spans.device("composite"):
+        sigmas = sigmas * valid.to(sigmas.dtype)
+        rgbs = radiance[..., :3]
+        masks = radiance[..., 3:] if radiance.shape[-1] > 3 else None
 
-    sample_dist = ((fars_ - nears_) / n_coarse)[:, None] * dt_scale
-    nears2, fars2 = nears[:, None], fars[:, None]
-    results = _composite(sigmas, rgbs, masks, z, sample_dist, nears2, fars2, s,
-                         detach_nonedit=s.detach_bg, bg_color=bg_color,
-                         const_dt=True)
-    _add_fg_bg(results, sigmas, rgbs, masks, z, sample_dist, nears2, fars2, s,
-               const_dt=True)
+        sample_dist = ((fars_ - nears_) / n_coarse)[:, None] * dt_scale
+        nears2, fars2 = nears[:, None], fars[:, None]
+        results = _composite(sigmas, rgbs, masks, z, sample_dist, nears2, fars2, s,
+                             detach_nonedit=s.detach_bg, bg_color=bg_color,
+                             const_dt=True)
+        _add_fg_bg(results, sigmas, rgbs, masks, z, sample_dist, nears2, fars2, s,
+                   const_dt=True)
     results["stats"] = stats
     return results

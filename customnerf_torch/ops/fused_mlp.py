@@ -19,12 +19,14 @@ every layer's output rounded to bf16, ReLU on the rounded value; sigma_raw
 and rgb_raw are bf16 values widened to f32.  Inputs and weights are f32 in
 both modes (the f32 master weights); the bf16 backward is autograd of the
 plain bf16 head, whose casts carry the cotangent back to f32 as JAX's do.
+The backward is the tracer's device span ``k1.bwd`` (``engine/spans.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from customnerf_torch.engine import spans
 from customnerf_torch.ops import kernels
 
 HIDDEN = 64
@@ -153,6 +155,11 @@ class _FusedFieldMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        with spans.device("k1.bwd"):
+            return _FusedFieldMLP._backward(ctx, *grads)
+
+    @staticmethod
+    def _backward(ctx, *grads):
         x_en, view_en, *weights = ctx.saved_tensors
         needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                  *ctx.needs_input_grad[4:])

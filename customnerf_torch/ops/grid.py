@@ -25,6 +25,8 @@ Semantics kept exactly (the JAX module's "traps"):
   * inputs outside [0, 1] give zeros (and zero gradients).
 
 The table's initial draw is the field's (``models/field.py::encoder_init``).
+The tracer's device spans (``engine/spans.py``): ``grid_encode`` around a
+forward, ``grid_encode.bwd`` around the backward.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from customnerf_torch.engine import spans
 
 # xor-hash primes for up to 3 input dims (gridencoder.cu:51-63)
 PRIMES = (1, 2654435761, 805459861)
@@ -205,6 +209,11 @@ class _GridEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with spans.device("grid_encode.bwd"):
+            return _GridEncode._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x, table = ctx.saved_tensors
         spec, n_levels = ctx.spec, ctx.n_levels
         need_dx, need_dt = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
@@ -243,5 +252,6 @@ def grid_encode(x01: torch.Tensor, table: torch.Tensor, spec: GridSpec,
     n_levels = L if max_level is None else min(max_level, L)
     prefix = x01.shape[:-1]
     x = x01.reshape(-1, spec.input_dim).float()
-    out = _GridEncode.apply(x, table, spec, n_levels)
+    with spans.device("grid_encode"):
+        out = _GridEncode.apply(x, table, spec, n_levels)
     return out.reshape(*prefix, spec.output_dim)

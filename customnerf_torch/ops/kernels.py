@@ -62,6 +62,11 @@ _SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
 for _k in ("fused_mlp", "plane_dtable"):
     _SIGNATURES[f"cn_{_k}_launch_counts"] = [_vp]       # out: 2 × uint64
     _SIGNATURES[f"cn_{_k}_reset_launch_counts"] = []
+# the tracer's stamps (csrc/spans.cu, engine/spans.py)
+_SIGNATURES["cn_span_stamp"] = [ctypes.c_uint32, _vp]   # tag, stream
+_SIGNATURES["cn_span_read"] = [_vp]                     # out: the ring
+_SIGNATURES["cn_span_reset"] = []
+_SIZES = ("cn_span_capacity", "cn_span_ring_bytes")     # return a uint64
 
 
 def _sources():
@@ -133,6 +138,9 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _SIZES:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [], ctypes.c_uint64
         lib.cn_error_string.argtypes = [ctypes.c_int]
         lib.cn_error_string.restype = ctypes.c_char_p
         _lib = lib

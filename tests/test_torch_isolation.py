@@ -452,6 +452,11 @@ def test_c1_flags_warn_trace_or_run_the_drill(tmp_path, capsys, monkeypatch, fla
         with open(tmp_path / "profile" / "trace_ep0001.json") as f:
             events = json.load(f)["traceEvents"]
         assert any("aten::" in e.get("name", "") for e in events)
+        # the program's host spans, and the tracer's device spans on their track
+        names = {e.get("name", "") for e in events}
+        assert {"cn.epoch", "cn.refresh", "cn.loss_fetch"} <= names
+        track = [e for e in events if e.get("cat") == "cn_span"]
+        assert {"recon.step", "render", "backward", "adam"} <= {e["name"] for e in track}
         assert not opt.profile and sum("--profile" in l for l in lines) == 1
     else:
         from customnerf_torch import __main__ as cli

@@ -776,3 +776,148 @@ def test_async_checkpoint_reloads_bitwise_on_card(cuda, tmp_path):
     assert all(torch.equal(saved[k]["grid_table"], adam[k])
                for k in ("exp_avg", "exp_avg_sq"))
     assert not torch.equal(tr.field.grid_table.detach().cpu(), want["grid_table"])
+
+
+# ------------------------------------------- the tracer's stamps (spans.cu)
+@pytest.fixture
+def tracer_off_after():
+    from customnerf_torch.engine import spans
+    yield spans
+    spans.enable(False)
+    spans.reset()
+
+
+def test_span_stamps_replay_with_the_graph_in_order(cuda, tmp_path, tracer_off_after):
+    """A step captured with the tracer on holds its stamps as graph nodes:
+    the warm-up steps stamp as an eager step does, the capture stamps
+    nothing, and each of K replays appends the eager step's stamps again,
+    in order, on the card's clock."""
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine.dispatch import WARMUP_STEPS
+    spans = tracer_off_after
+    tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    spans.enable(True, "cuda")
+    spans.reset()
+    tr.train_step(b)
+    one = [tag for tag, _ in spans._card_stamps()[0]]
+    assert one and one[0] == 2 * spans._id("recon.step")
+    spans.reset()
+    tr.train_many([b])                       # warm-up steps, capture, one replay
+    assert [tag for tag, _ in spans._card_stamps()[0]] == one * (WARMUP_STEPS + 1)
+    spans.reset()
+    tr.train_many([b] * 4)                   # replays only
+    stamps, dropped = spans._card_stamps()
+    assert [tag for tag, _ in stamps] == one * 4 and dropped == 0
+    times = [t for _, t in stamps]
+    assert times == sorted(times)
+    got = spans.collect()["spans"]
+    assert got["recon.step"]["count"] == 4 and got["k1.bwd"]["count"] == 4
+    assert 0 <= got["recon.step"]["self_ms"] < got["recon.step"]["device_ms"]
+
+
+def test_span_ring_full_counts_drops_and_does_not_wrap(cuda, tracer_off_after):
+    """Past the ring's capacity a stamp writes nothing and is counted as
+    dropped; the first stamps stay where they were."""
+    from customnerf_torch.ops import kernels
+    spans = tracer_off_after
+    spans.enable(True, "cuda")
+    spans.reset()
+    cap = int(kernels.library().cn_span_capacity())
+    assert cap == spans.CAPACITY
+    for _ in range(cap // 2 + 5):
+        spans.begin("s")
+        spans.end("s")
+    stamps, dropped = spans._card_stamps()
+    i = spans._id("s")
+    assert len(stamps) == cap and dropped == 10
+    assert [tag for tag, _ in stamps] == [2 * i, 2 * i + 1] * (cap // 2)
+    assert spans.collect()["counters"]["dropped_stamps"] == 10
+
+
+def test_switching_the_tracer_captures_again(cuda, tmp_path, tracer_off_after):
+    """The tracer is part of the graph key: switching it on or off captures
+    the step again (counted), and a graph captured with it off stamps
+    nothing when replayed."""
+    from customnerf_torch.data.base import NeRFDataset
+    spans = tracer_off_after
+    tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path)
+    b = NeRFDataset(tr.opt, "train").dataloader().item(0)
+    captures = spans.counters["capture"]
+    tr.train_many([b])
+    g0 = tr._graphs["recon"][1]
+    spans.enable(True, "cuda")
+    spans.reset()
+    tr.train_many([b])
+    g1 = tr._graphs["recon"][1]
+    assert g1 is not g0 and spans._card_stamps()[0]
+    spans.enable(False)
+    tr.train_many([b])
+    assert tr._graphs["recon"][1] is not g1
+    spans.reset()
+    tr.train_many([b] * 3)                   # the tracer-off graph, replayed
+    assert spans._card_stamps() == ([], 0)
+    assert spans.counters["capture"] - captures == 3
+    assert spans.counters["capture_s"] > 0
+
+
+def test_tracer_on_and_off_take_bit_identical_graphed_steps(cuda, tmp_path,
+                                                            tracer_off_after):
+    """Two dispatches of K = 3 from one seed, the tracer off and on: the
+    same losses bit for bit.  At lr 0 the field stays put, so the losses are
+    the forward's alone, which has no atomics (a training step's atomic sums
+    would differ run to run whatever the tracer does)."""
+    from customnerf_torch.data.base import NeRFDataset
+    spans = tracer_off_after
+    flags = ["-O", "--lr", "0"] + TINY_FIELD
+    losses = []
+    for on in (False, True):
+        spans.enable(on, "cuda")
+        tr = _tiny_trainer(flags, tmp_path / str(on))
+        loader = NeRFDataset(tr.opt, "train").dataloader()
+        batches = [loader.item(i % len(loader)) for i in range(6)]
+        losses.append(torch.cat([tr.train_many(batches[:3])[0],
+                                 tr.train_many(batches[3:])[0]]).cpu())
+    assert torch.equal(losses[0], losses[1]), losses
+    assert len(set(losses[0].tolist())) == 6
+
+
+def test_graphed_editing_step_splits_its_backward(cuda, tmp_path, monkeypatch,
+                                                  tracer_off_after):
+    """The editing step captured with the tracer on: the gradient hooks ran
+    during the capture, so each replay stamps the VAE's, the resize's and
+    the render's backward inside ``backward``, and every stage of
+    ``edit.step`` once a step."""
+    from customnerf_torch.config import parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import editing
+    from customnerf_torch.engine.trainer import Trainer
+    spans = tracer_off_after
+    recon = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path / "r")
+    recon.train(NeRFDataset(recon.opt, "train").dataloader(), max_epochs=1)
+    opt = parse_args(["-O"] + TINY_FIELD + [
+        "--workspace", str(tmp_path / "e"), "--pretrained", "--editing_from",
+        str(tmp_path / "r" / "checkpoints" / "df_ep0001.pth"), "--text", "a corgi",
+        "--text_fg", "a dog", "--lambda_sd", "0.01", "--keep_bg", "100",
+        "--random_bg_c", "--detach_bg", "--allow_random_guidance"])
+    monkeypatch.setattr(editing, "RESIZE", 64)
+    tr = Trainer(opt, guidance=_tiny_guidance(opt, cuda), use_checkpoint="scratch",
+                 log=lambda *_: None)
+    loader = NeRFDataset(opt, "train").dataloader()
+    batches = [loader.item(i % len(loader)) for i in range(3)]
+    spans.enable(True, "cuda")
+    editing.editing_steps_many(tr, batches)          # pt renders, capture, replays
+    spans.reset()
+    editing.editing_steps_many(tr, batches)          # replays only
+    stamps, _ = spans._card_stamps()
+    got = spans.collect()["spans"]
+    stages = ("edit.step", "render", "resize", "vae_encode", "unet", "loss", "backward",
+              "vae_encode.bwd", "resize.bwd", "render.bwd", "k1.bwd", "adam")
+    assert all(got[n]["count"] == 3 for n in stages), got
+    depth = {spans._names[i]: d for i, _, _, d, _ in spans.occurrences(stamps)}
+    assert depth["backward"] == 1 and depth["render.bwd"] == 2 and depth["k1.bwd"] == 3
+    kids = ("render", "resize", "vae_encode", "unet", "loss", "backward", "adam")
+    step = got["edit.step"]
+    assert step["self_ms"] + sum(got[n]["device_ms"] for n in kids) == pytest.approx(
+        step["device_ms"], rel=1e-9)
+    assert got["pre_pass"]["host_count"] == 3 and got["replay"]["host_count"] == 3

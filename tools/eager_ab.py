@@ -11,7 +11,8 @@ that calls the checkout's own ``chip_smoke.py`` phases in its order: the
 main path (40 eager flagship steps with K1-f32), the 4 steps with
 ``mm_bf16`` off, the checkpoint, the flagship's dispatch check (24 eager
 steps against K = 8 replays, then the sync and async saves), and the
-editing phase (8 eager steps with stage marks, then its dispatch check).
+editing phase (8 eager steps with the tracer's stage times, then its
+dispatch check).
 Each run's numbers go to OUT/<a|b><n>.json (OUT defaults to
 ``chiprun_out/eager_ab``), and a summary of medians by side to stdout.
 Needs the card."""
@@ -57,12 +58,12 @@ def one(checkout: str, out: str) -> None:
         "flagship_k1_f32_ms": tr["steady_ms_per_step"],
         "flagship_eager_ms": disp["median_eager_ms"],
         "flagship_graph_ms": disp["median_graph_ms"],
-        "flagship_busy_eager": disp["busy_eager"],
+        "flagship_step_span_ms": disp.get("step_span_ms"),     # None before the tracer
         "save_sync_ms": disp["checkpoint"]["sync_block_ms"],
         "save_async_ms": disp["checkpoint"]["async_block_ms"],
         "editing_eager_ms": ed["dispatch"]["median_eager_ms"],
         "editing_graph_ms": ed["dispatch"]["median_graph_ms"],
-        "editing_busy_eager": ed["dispatch"]["busy_eager"],
+        "editing_step_span_ms": ed["dispatch"].get("step_span_ms"),
         "editing_marked_ms": ed["median_ms"]["total"],
         "editing_marked_pt_cached_ms": ed["median_ms_pt_cached"],
     }
