@@ -137,17 +137,19 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    ``Trainer.train_step`` with CUDA-event stage times (coarse encode + K1
    density-only, ``sample_pdf`` + sort, fine encode + K1, composites,
    loss, backward, Adam), the median step, rays/s and peak memory.
-   Counters zeroed before and read after; K1 must launch.  Every loss
+   Counters zeroed before and read after; K1's bf16 mode and both grid
+   encode kernels must launch.  Every loss
    finite, every parameter moved.  K1 is held against its plain version on
    the last step's 2,097,152 fine and 1,048,576 coarse (density-only)
-   samples; the grid encode's forward and backward are timed on the fine
-   points, and ``grid_encode`` on the card is held against the same call
-   on the CPU (tiled and hash, 65,536 points).  The field is exported as a
+   samples; the grid encode's kernels against the plain encoder on the
+   card (coarse forward, fine forward, fine backward: kernel, plain,
+   library and bound ms), and ``grid_encode`` on the card against the same
+   call on the CPU (tiled and hash, 65,536 points).  The field is exported as a
    reference-format (tcnn) checkpoint and loaded through
    ``Trainer(use_checkpoint=...)``: it must render bit for bit.  Then
    ``bear.sh --parity`` phase 2: 4 editing steps on ``-O2`` from the parity
    reconstruction's checkpoint, with the SD stack of phase 5 (stage
-   times, peak memory); K1 must launch.
+   times, peak memory); K1 and the grid kernels must launch.
 8c. SD 2.x (``--sd_version 2.1``), once the SD 1.5 stack is freed: the
    full-width 2.1 stack on the card (UNet 865,910,724 and OpenCLIP ViT-H
    text 340,387,840 parameters, ``FULL_WIDTH_PARAMS["2.x"]``; UNet and VAE
@@ -291,27 +293,34 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# the four kernel modes, by the names of the {"kernels": ...} line
+# the four kernel modes and the grid encode's two kernels, by the names of
+# the {"kernels": ...} line
 K1, K1_BF16, DT, DT_BF16 = ("fused_field_mlp", "fused_field_mlp_bf16",
                             "plane_dtable", "plane_dtable_bf16")
+GRID, GRID_BWD = "grid_encode", "grid_encode_bwd"
+# the grid field's paths (--parity): K1's bf16 mode and both grid kernels
+GRID_PATH = (K1_BF16, GRID, GRID_BWD)
 
 
 def zero_counts():
     """Set every launch count to 0 (just before a path is driven): the
     wrappers' and the kernels' own counts on the card."""
-    from customnerf_torch.ops import fused_mlp, kernels, triplane_kernels
+    from customnerf_torch.ops import fused_mlp, grid, kernels, triplane_kernels
     for fn in (fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable):
         fn.launches = fn.launches_bf16 = 0
+    grid.grid_encode.launches = grid.grid_encode.launches_bwd = 0
     kernels.reset_device_launches()
 
 
 def read_wrapper_counts():
     """Each kernel mode's launches since :func:`zero_counts` as its wrapper
     counted them: eager launches only (a replayed graph runs no wrapper)."""
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    from customnerf_torch.ops import fused_mlp, grid, triplane_kernels
     mlp, dt = fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable
+    enc = grid.grid_encode
     return {K1: mlp.launches, K1_BF16: mlp.launches_bf16,
-            DT: dt.launches, DT_BF16: dt.launches_bf16}
+            DT: dt.launches, DT_BF16: dt.launches_bf16,
+            GRID: enc.launches, GRID_BWD: enc.launches_bwd}
 
 
 def read_counts(graphed=False):
@@ -324,7 +333,9 @@ def read_counts(graphed=False):
     from customnerf_torch.ops import kernels
     k1, k1_bf16 = kernels.device_launches("fused_mlp")
     dt, dt_bf16 = kernels.device_launches("plane_dtable")
-    device = {K1: k1, K1_BF16: k1_bf16, DT: dt, DT_BF16: dt_bf16}
+    fwd, bwd = kernels.device_launches("grid_encode")
+    device = {K1: k1, K1_BF16: k1_bf16, DT: dt, DT_BF16: dt_bf16, GRID: fwd,
+              GRID_BWD: bwd}
     wrappers = read_wrapper_counts()
     for name, n in device.items():
         assert (wrappers[name] <= n) if graphed else (wrappers[name] == n), \
@@ -1095,14 +1106,17 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
 
 def log_row(r):
     log(f"[kernel] {r['path']} {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
-        f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms (the other mode "
-        f"{r['other_mode_ms']:.4f} ms) plain "
-        f"{r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
+        f"(tol {r['tolerance']:.3g}) kernel {r['ms']:.4f} ms"
+        + (f" (the other mode {r['other_mode_ms']:.4f} ms)"
+           if r["other_mode_ms"] is not None else "")
+        + f" plain {r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
         f"{r['call_ms']:.4f} ms) bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
         + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
         + (f" | live rows {r['live_share']:.3f}: {r['live_rows_ms']:.4f} ms"
            if "live_rows_ms" in r else
-           f" | f32-FMA bound {r['bound_f32_fma_ms']:.4f} ms"))
+           f" | f32-FMA bound {r['bound_f32_fma_ms']:.4f} ms"
+           if "bound_f32_fma_ms" in r else "")
+        + (f" | launches {r['launches']}" if "launches" in r else ""))
 
 
 def dtable_rows(calls):
@@ -2043,10 +2057,10 @@ PARITY_STAGES = ("coarse", "resample", "fine", "composite", "loss", "backward", 
 
 
 def grid_consistency(x01, table, spec, n=65536):
-    """``grid_encode`` on the card against the same call on the CPU, for the
-    parity spec and its hash twin (same sizes), on ``n`` of the step's fine
-    points: the output and the table gradient (index_add_ atomics on the
-    card).  Consistency of the plain encoder, not a kernel check."""
+    """``grid_encode`` on the card (the kernels) against the same call on
+    the CPU (the plain encoder), for the parity spec and its hash twin (same
+    sizes), on ``n`` of the step's fine points: the output and the table
+    gradient (atomics on the card)."""
     import dataclasses
     import torch
     from customnerf_torch.ops.grid import grid_encode
@@ -2079,9 +2093,9 @@ def run_parity():
     """The parity reconstruction: PARITY_STEPS steps of ``-O2`` on the
     reference field, with CUDA-event stage times, through
     ``Trainer.train_step``.  Counters zeroed just before and read just
-    after; K1 must launch (dT is not on this path).  Returns (trainer,
-    summary, K1's inputs at the last step's fine and coarse pass, the
-    last fine pass's encode inputs)."""
+    after; K1 and both grid kernels must launch (dT is not on this path).
+    Returns (trainer, opt, summary, K1's inputs at the last step's fine and
+    coarse pass, the last fine and coarse passes' encode inputs)."""
     import torch
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
@@ -2110,7 +2124,10 @@ def run_parity():
                            when=lambda a, k: k.get("with_rgb") is False
                            and a[0].shape[0] == PARITY_COARSE) as at_coarse, \
             captured_calls(field, "encode_positions", keep=1,
-                           when=lambda a, k: torch.is_grad_enabled()) as enc:
+                           when=lambda a, k: torch.is_grad_enabled()) as enc, \
+            captured_calls(field, "encode_positions", keep=1,
+                           when=lambda a, k: a[0].reshape(-1, 3).shape[0]
+                           == PARITY_COARSE) as enc_coarse:
         # the parity path starts here: counters read only its launches
         zero_counts()
         t_start = time.time()
@@ -2128,7 +2145,7 @@ def run_parity():
         launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    check_launched(launches, (K1_BF16,), "parity")
+    check_launched(launches, GRID_PATH, "parity")
     assert all(math.isfinite(s["loss"]) for s in steps), steps
     moved = [float((p.detach() - q).abs().max())
              for p, q in zip(trainer.field.parameters(), start_params)]
@@ -2145,26 +2162,92 @@ def run_parity():
                              for k in PARITY_STAGES + ("total", "ms")},
                "psnr_val0": psnr(img, view.rgbs.reshape(-1, 3))}
     summary["rays_per_s"] = STEP_RAYS / summary["median_ms"]["ms"] * 1e3
-    return trainer, opt, summary, at_fine[-1], at_coarse[-1], enc[-1][0]
+    return trainer, opt, summary, at_fine[-1], at_coarse[-1], enc[-1][0], enc_coarse[-1][0]
 
 
-def time_grid_encode(x01, table, spec):
-    """The grid encode's forward and backward on the step's fine points,
-    device times: the backward zeroes the 192 MB table gradient and adds
-    each level's corners with index_add_."""
+def grid_rows(coarse_x, fine_x, table, spec, launches):
+    """The grid encode's kernels (``csrc/grid_encode.cu``) against the plain
+    encoder on the card, on the parity step's own points: the coarse pass's
+    forward, the fine pass's forward and its backward to the table.  Device
+    times of the kernel, of a wrapper call with the host in the loop, of the
+    plain version and of the one library call it holds (``index_select``
+    forward, ``index_add_`` backward, on precomputed rows and values).  The
+    least time: a forward's from ``benchmark/lib/counts.py::grid_encode_step``;
+    the backward's for this call alone, which asks for no dx and so never
+    reads the table: coordinates and cotangent in, the gradient written once.
+    Tolerance: forward 1e-5 of the largest output (the same products and
+    sum order); backward, in each row, 1e-5 of that row's sum of magnitudes
+    Σ|w·g| (the error is given relative to it): both sides add the same f32
+    terms, in orders the atomics set, and a coarse row takes thousands of
+    terms of either sign, so its sum is far smaller than the mass its
+    rounding scales with; a row of one term must be exact."""
     import torch
+    from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
-    from customnerf_torch.ops.grid import grid_encode
+    from customnerf_torch.ops import grid
 
-    t = table.detach().clone().requires_grad_(True)
-    fwd = device_ms(lambda: grid_encode(x01, t, spec), 5)
-    out = grid_encode(x01, t, spec)
-    g = torch.randn_like(out)
-    bwd = device_ms(lambda: torch.autograd.grad(out, t, g, retain_graph=True), 5)
-    B = x01.reshape(-1, 3).shape[0]
-    return {"points": B, "forward_ms": fwd, "backward_ms": bwd,
-            # one 8-byte corner row per corner and level, read / added
-            "corner_rows": B * 8 * spec.num_levels}
+    L, C, n_rows = spec.num_levels, spec.level_dim, spec.table_size
+    table = table.detach()
+
+    def row(name, shape, got, want, k_ms, call_ms, p_ms, lib_ms, work, n, mass=None):
+        if mass is None:
+            err, tol = float((got - want).abs().max()), 1e-5 * float(want.abs().max())
+        else:
+            err = float(((got - want).abs() / mass.clamp(min=1e-30)).max())
+            tol = 1e-5
+        if not err <= tol:
+            raise AssertionError(f"{name} {shape}: max_abs_err {err} > tol {tol}")
+        b_ms, b_by = bound(*work)
+        return {"name": name, "shape": shape, "route": "cuda",
+                "source": "customnerf_torch/csrc/grid_encode.cu",
+                "replaces": "none (the JAX encoder is plain XLA); the plain "
+                            "encoder of customnerf_torch/ops/grid.py",
+                "max_abs_err": err, "tolerance": tol, "ms": k_ms, "kernel_ms": k_ms,
+                "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_peak": "HBM3 3.35 TB/s; f32 67 TFLOP/s",
+                "library_ms": lib_ms, "other_mode_ms": None, "launches": n,
+                "path": "parity reconstruction"}
+
+    rows = []
+    with torch.no_grad():
+        for label, x in (("coarse", coarse_x), ("fine", fine_x)):
+            x = x.reshape(-1, 3).float().contiguous()
+            B = x.shape[0]
+            got = grid.grid_encode(x, table, spec)
+            want = grid._encode_forward(x, table, spec, L)
+            idx = grid._corners(x, spec, L)[0].reshape(-1)
+            rows.append(row(
+                GRID, f"{label} forward, B={B} L={L} C={C} rows={n_rows}", got, want,
+                device_ms(lambda: grid._kernel_forward(x, table, spec, L), 10),
+                device_ms(lambda: grid.grid_encode(x, table, spec), 10, host_ahead=False),
+                device_ms(lambda: grid._encode_forward(x, table, spec, L), 3),
+                device_ms(lambda: table.index_select(0, idx), 3),
+                counts.grid_encode_step(B, 0, L, C, n_rows), launches[GRID]))
+            del got, want, idx
+    B = x.shape[0]
+    g = torch.randn(B, spec.output_dim, device=x.device,
+                    generator=torch.Generator(x.device).manual_seed(0))
+    got = grid._kernel_backward(x, table, g, spec, L, False, True)[1]
+    want = grid._plain_backward(x, table, g, spec, L, False, True)[1]
+    t = table.clone().requires_grad_(True)
+    out = grid.grid_encode(x, t, spec)
+    idx, factors, _ = grid._corners(x, spec, L)
+    idx = idx.reshape(-1)
+    vals = (grid._weights(factors)[..., None] * g.reshape(B, L, 1, C)).reshape(-1, C)
+    into = torch.zeros_like(table)
+    mass = torch.zeros_like(table).index_add_(0, idx, vals.abs())
+    del factors
+    rows.append(row(
+        GRID_BWD, f"fine backward (table gradient), B={B} L={L} C={C} rows={n_rows}",
+        got, want,
+        device_ms(lambda: grid._kernel_backward(x, table, g, spec, L, False, True), 10),
+        device_ms(lambda: torch.autograd.grad(out, t, g, retain_graph=True), 10,
+                  host_ahead=False),
+        device_ms(lambda: grid._plain_backward(x, table, g, spec, L, False, True), 3),
+        device_ms(lambda: into.index_add_(0, idx, vals), 3),
+        (2.0 * B * L * 8 * C, 4.0 * (B * 3 + B * L * C + n_rows * C)),
+        launches[GRID_BWD], mass))
+    return rows
 
 
 def run_reference_checkpoint(trainer, opt):
@@ -2215,7 +2298,7 @@ def run_parity_editing(recon, guidance, clip_matcher):
     assert trainer.occ_state is None
     steps, launches, peak, base_mem, mlp_input, _, moved, _ = editing_steps(
         trainer, opt, PARITY_EDIT_STEPS)
-    check_launched(launches, (K1_BF16,), "parity editing")
+    check_launched(launches, GRID_PATH, "parity editing")
     assert mlp_input[0][0].shape[0] == PARITY_SAMPLES, mlp_input[0][0].shape
     del trainer
     return {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -2253,7 +2336,7 @@ QUALITY_RUNS = [
      "kernels": BOTH_KERNELS, "jpeg": t == "nerfstudio"}
     for t, g in QUALITY_GATES.items()] + [
     {"name": "nerfstudio_parity", "data_type": "nerfstudio",
-     "flags": BEAR_PARITY + ASYNC_CKPT, "gate": PARITY_GATE, "kernels": (K1_BF16,)}]
+     "flags": BEAR_PARITY + ASYNC_CKPT, "gate": PARITY_GATE, "kernels": GRID_PATH}]
 TEST_FRAMES = 73              # the bear's slerp test path: 3 gaps × 25 − 2
 
 
@@ -2531,7 +2614,7 @@ def parity_phase(card, guidance, clip_matcher):
     """The parity reconstruction, K1 on its inputs, the grid encode's times
     and its card/CPU consistency, the reference-format round trip and the
     parity editing steps.  Returns the summary and the kernel rows."""
-    recon, opt, pa, fine, coarse, enc_args = run_parity()
+    recon, opt, pa, fine, coarse, enc_args, enc_coarse = run_parity()
     med = pa["median_ms"]
     log(f"[parity] {card} | {PARITY_STEPS} -O2 steps of {STEP_RAYS} rays on the "
         f"reference grid (16 x 2 at 2^21 rows, 23,967,296 x 2 table) | median "
@@ -2551,13 +2634,13 @@ def parity_phase(card, guidance, clip_matcher):
     batches = [train.item(i % len(train)) for i in range(PARITY_DISPATCHES * GRAPH_K)]
     pa["dispatch"], mlp, _ = dispatch_check(recon, batches, "reconstruction",
                                             "parity dispatch (graph)")
-    check_launched(pa["dispatch"]["graph_launches"], (K1_BF16,), "parity dispatch")
+    check_launched(pa["dispatch"]["graph_launches"], GRID_PATH, "parity dispatch")
     rows += dispatch_rows(mlp, None, pa["dispatch"], with_dt=False)
     pa["checkpoint"] = checkpoint_blocking(recon, batches[:GRAPH_K], "parity")
-    pa["grid_encode"] = ge = time_grid_encode(*enc_args)
-    log(f"[parity grid] encode of the fine pass's {ge['points']} points: forward "
-        f"{ge['forward_ms']:.2f} ms, backward {ge['backward_ms']:.2f} ms (device "
-        f"times, {ge['corner_rows']} corner rows)")
+    g_rows = grid_rows(enc_coarse[0], *enc_args, pa["launches"])
+    for r in g_rows:
+        log_row(r)
+    rows += g_rows
     pa["grid_consistency"] = gc = grid_consistency(*enc_args)
     log("[parity grid] card vs CPU on 65,536 points: " + "; ".join(
         f"{t} output {e['output']['max_abs_err']:.3g}, table gradient "
@@ -3182,7 +3265,7 @@ def run_all(card, procs) -> int:
             "max_abs_err", "tolerance", "ms", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_peak", "library_ms", "other_mode_ms",
             "live_share")
-    missing = {K1, K1_BF16, DT, DT_BF16} - {r["name"] for r in rows}
+    missing = {K1, K1_BF16, DT, DT_BF16, GRID, GRID_BWD} - {r["name"] for r in rows}
     assert not missing, f"no row for {missing}"
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {

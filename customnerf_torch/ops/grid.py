@@ -1,15 +1,20 @@
 """Multiresolution tiled / hash grid encoding (counterpart of
 ``customnerf_tpu/ops/grid.py``; reference CUDA ``gridencoder.cu:88-339``).
 
-The JAX package runs this encoder as plain XLA (no Pallas kernel), so the
-port's is plain PyTorch: one gather of every level's eight cell corners
-and a trilinear sum.  The table gradient is an ``autograd.Function`` whose
-backward recomputes the corners and adds every level's rows with ONE
-``index_add_`` into one zeroed gradient (atomics on the card).  Indexing
-the table with ``table[idx]`` instead would backpropagate through
+On the card the encode and its backward are hand-written kernels
+(``csrc/grid_encode.cu``): a level-major forward, one thread a (point,
+level), and a backward that adds each corner's gradient with one float2
+atomic.  The JAX package runs this encoder as plain XLA (no Pallas kernel),
+and the plain PyTorch version stays here as the CPU path and the oracle the
+card's tests hold the kernels to: one gather of every level's eight cell
+corners and a trilinear sum, and a backward that recomputes the corners and
+adds every level's rows with ONE ``index_add_`` into one zeroed gradient.
+Indexing the table with ``table[idx]`` instead would backpropagate through
 ``index_put_(accumulate=True)``, which sorts its indices on CUDA; and a
 differentiable ``index_select`` per level would allocate and sum a
-full-table gradient per level (16 × 192 MB at the parity spec).
+full-table gradient per level (16 × 192 MB at the parity spec).  A CUDA
+tensor launches the kernels or raises (:func:`check_kernel`); a CPU tensor
+takes the plain version.
 
 Semantics kept exactly (the JAX module's "traps"):
   * ``scale_l = 2^(l·S)·H − 1``, ``res_l = ceil(scale_l) + 1`` with
@@ -19,10 +24,15 @@ Semantics kept exactly (the JAX module's "traps"):
   * the dense stride sum takes only the axes whose stride fits the level's
     table (``include``); the xor-prime hash (1, 2654435761, 805459861) only
     on *hash*-type levels that overflow; then ``% size``.  The arithmetic is
-    uint32 with wraparound in the JAX package and the CUDA reference; here
-    it is int64 masked to 32 bits before the modulo;
+    uint32 with wraparound in the JAX package, the CUDA reference and the
+    kernels; in the plain version it is int64 masked to 32 bits before the
+    modulo;
   * per-level sizes capped at ``2^log2_hashmap_size``, rounded up to 8;
-  * inputs outside [0, 1] give zeros (and zero gradients).
+  * inputs outside [0, 1] give zeros (and zero gradients);
+  * levels ≥ ``max_level`` give zeros.
+
+The kernels take the level constants as one packed argument
+(:func:`kernel_levels`) and compute the same uint32 index arithmetic.
 
 The table's initial draw is the field's (``models/field.py::encoder_init``).
 The tracer's device spans (``engine/spans.py``): ``grid_encode`` around a
@@ -38,6 +48,7 @@ import numpy as np
 import torch
 
 from customnerf_torch.engine import spans
+from customnerf_torch.ops import kernels
 
 # xor-hash primes for up to 3 input dims (gridencoder.cu:51-63)
 PRIMES = (1, 2654435761, 805459861)
@@ -200,54 +211,182 @@ def _encode_forward(x, table, spec: GridSpec, n_levels: int):
     return torch.where(_out_of_range(x), torch.zeros_like(out), out)
 
 
+def _plain_backward(x, table, g, spec: GridSpec, n_levels: int, need_dx: bool,
+                    need_dt: bool):
+    """(dx, dtable) of the plain version; None where not needed."""
+    C, D, B = spec.level_dim, spec.input_dim, x.shape[0]
+    g = torch.where(_out_of_range(x), torch.zeros_like(g), g.float())
+    gl = g[:, :n_levels * C].reshape(B, n_levels, 1, C)
+    idx, factors, c = _corners(x, spec, n_levels)
+    dtable = dx = None
+    if need_dt:
+        # one zeroed gradient, every level's corners added in one call
+        contrib = _weights(factors)[..., None] * gl                     # [B, L, K, C]
+        dtable = torch.zeros_like(table, dtype=torch.float32)
+        dtable.index_add_(0, idx.reshape(-1), contrib.reshape(-1, C))
+        dtable = dtable.to(table.dtype)
+    if need_dx:
+        vals = table.index_select(0, idx.reshape(-1)).float()
+        gv = (vals.reshape(B, n_levels, -1, C) * gl).sum(dim=-1)       # [B, L, K]
+        sign = torch.tensor([-1.0, 1.0], device=x.device).expand(B, n_levels, 2)
+        dx = torch.empty_like(x)
+        for d in range(D):
+            # d w / d frac_d: the other axes' factors, signed by the
+            # corner's side along d; d frac / d x = the level's scale
+            dw = _weights(factors, skip=d) * _weights(
+                [sign if e == d else torch.ones_like(f)
+                 for e, f in enumerate(factors)])
+            dx[:, d] = ((gv * dw).sum(dim=-1) * c["scales"][None, :]).sum(dim=-1)
+        dx = torch.where(_out_of_range(x), torch.zeros_like(dx), dx)
+    return dx, dtable
+
+
+# ------------------------------------------------------------------ kernels
+KERNEL_LEVELS = 16                  # levels the kernels' argument holds
+KERNEL_CHANNELS = (1, 2, 4, 8)      # level_dim values the kernels are built for
+LEVEL_WORDS = 8                     # uint32 words a level (csrc/grid_encode.cu::Level)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_levels(spec: GridSpec, n_levels: int) -> np.ndarray:
+    """The kernels' level argument, [KERNEL_LEVELS, LEVEL_WORDS] uint32 (C
+    order, as ``csrc/grid_encode.cu::Levels``): per level the f32 scale's
+    bits, the size, the offset, the three dense strides (0 on an axis the
+    level leaves out of its dense sum), the hash flag and a 0; rows ≥
+    ``n_levels`` are 0."""
+    meta = spec.level_meta
+    packed = np.zeros((KERNEL_LEVELS, LEVEL_WORDS), dtype=np.uint32)
+    L = n_levels
+    packed[:L, 0] = meta["scales"][:L].astype(np.float32).view(np.uint32)
+    packed[:L, 1] = meta["sizes"][:L]
+    packed[:L, 2] = meta["offsets"][:L]
+    packed[:L, 3:6] = np.where(meta["include"], meta["strides"], 0)[:L]
+    packed[:L, 6] = meta["use_hash"][:L]
+    packed.flags.writeable = False
+    return packed
+
+
+def check_kernel(x, table, spec: GridSpec, n_levels: int) -> None:
+    """Raise on what the kernels do not take: 3-D inputs, C in
+    KERNEL_CHANNELS, at most KERNEL_LEVELS levels, a table of < 2^32 rows,
+    f32 [rows, C] contiguous and aligned to a row's vector width, on x's
+    device."""
+    C = spec.level_dim
+    if spec.input_dim != 3:
+        raise ValueError(f"grid_encode: the kernels take input_dim 3, not {spec.input_dim}")
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"grid_encode: the kernels take level_dim in "
+                         f"{KERNEL_CHANNELS}, not {C}")
+    if not 1 <= n_levels <= KERNEL_LEVELS:
+        raise ValueError(f"grid_encode: the kernels take 1-{KERNEL_LEVELS} "
+                         f"levels, not {n_levels}")
+    if spec.table_size >= 2 ** 32:
+        raise ValueError(f"grid_encode: the kernels index < 2^32 rows, not "
+                         f"{spec.table_size}")
+    if table.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"grid_encode: the kernels take float32 tables and "
+                        f"inputs, not {table.dtype} / {x.dtype}")
+    if tuple(table.shape) != (spec.table_size, C) or not table.is_contiguous():
+        raise ValueError(f"grid_encode: the kernels take a contiguous "
+                         f"[{spec.table_size}, {C}] table, not "
+                         f"{tuple(table.shape)} with strides {table.stride()}")
+    if table.data_ptr() % (4 * min(C, 4)):
+        raise ValueError("grid_encode: the kernels read a table row as one "
+                         "vector: its base must be aligned to it")
+    if table.device != x.device:
+        raise ValueError(f"grid_encode: table on {table.device}, inputs on {x.device}")
+
+
+def _on_card(x) -> bool:
+    """True for CUDA tensors (the kernels), False for CPU ones (the plain
+    version); raises for any other device."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"grid_encode: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def _vector_aligned(t, C):
+    """``t`` contiguous with its base aligned to a row of C floats' vector."""
+    t = t.contiguous()
+    return t if t.data_ptr() % (4 * min(C, 4)) == 0 else t.clone()
+
+
+def _shift(spec: GridSpec) -> float:
+    return 0.0 if spec.align_corners else 0.5
+
+
+def _kernel_forward(x, table, spec: GridSpec, n_levels: int):
+    check_kernel(x, table, spec, n_levels)
+    x = x.contiguous()
+    B = x.shape[0]
+    # levels ≥ n_levels are not launched: zeros there
+    alloc = torch.empty if n_levels == spec.num_levels else torch.zeros
+    out = alloc(B, spec.output_dim, device=x.device, dtype=torch.float32)
+    if B:
+        lib = kernels.library()
+        with torch.cuda.device(x.device):
+            err = lib.cn_grid_encode_forward(
+                x.data_ptr(), table.data_ptr(), out.data_ptr(), spec.output_dim, B,
+                n_levels, spec.level_dim, _shift(spec),
+                kernel_levels(spec, n_levels).ctypes.data,
+                torch.cuda.current_stream().cuda_stream)
+        kernels.check(err, "grid_encode")
+        if not torch.cuda.is_current_stream_capturing():  # a capture only records one
+            grid_encode.launches += 1
+    return out
+
+
+def _kernel_backward(x, table, g, spec: GridSpec, n_levels: int, need_dx: bool,
+                     need_dt: bool):
+    check_kernel(x, table, spec, n_levels)
+    x = x.contiguous()
+    g = _vector_aligned(g.float(), spec.level_dim)
+    B = x.shape[0]
+    dtable = torch.zeros_like(table) if need_dt else None
+    dx = torch.zeros_like(x) if need_dx else None
+    if B and (need_dt or need_dx):
+        lib = kernels.library()
+        with torch.cuda.device(x.device):
+            err = lib.cn_grid_encode_backward(
+                x.data_ptr(), table.data_ptr(), g.data_ptr(), g.stride(0),
+                None if dtable is None else dtable.data_ptr(),
+                None if dx is None else dx.data_ptr(), B, n_levels, spec.level_dim,
+                _shift(spec), kernel_levels(spec, n_levels).ctypes.data,
+                torch.cuda.current_stream().cuda_stream)
+        kernels.check(err, "grid_encode.bwd")
+        if not torch.cuda.is_current_stream_capturing():
+            grid_encode.launches_bwd += 1
+    return dx, dtable
+
+
 class _GridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, table, spec, n_levels):
         ctx.spec, ctx.n_levels = spec, n_levels
         ctx.save_for_backward(x, table)
+        if _on_card(x):
+            return _kernel_forward(x, table, spec, n_levels)
         return _encode_forward(x, table, spec, n_levels).to(table.dtype)
 
     @staticmethod
     def backward(ctx, g):
         with spans.device("grid_encode.bwd"):
-            return _GridEncode._backward(ctx, g)
-
-    @staticmethod
-    def _backward(ctx, g):
-        x, table = ctx.saved_tensors
-        spec, n_levels = ctx.spec, ctx.n_levels
-        need_dx, need_dt = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        C, D, B = spec.level_dim, spec.input_dim, x.shape[0]
-        g = torch.where(_out_of_range(x), torch.zeros_like(g), g.float())
-        gl = g[:, :n_levels * C].reshape(B, n_levels, 1, C)
-        idx, factors, c = _corners(x, spec, n_levels)
-        dtable = dx = None
-        if need_dt:
-            # one zeroed gradient, every level's corners added in one call
-            contrib = _weights(factors)[..., None] * gl                 # [B, L, K, C]
-            dtable = torch.zeros_like(table, dtype=torch.float32)
-            dtable.index_add_(0, idx.reshape(-1), contrib.reshape(-1, C))
-            dtable = dtable.to(table.dtype)
-        if need_dx:
-            vals = table.index_select(0, idx.reshape(-1)).float()
-            gv = (vals.reshape(B, n_levels, -1, C) * gl).sum(dim=-1)   # [B, L, K]
-            sign = torch.tensor([-1.0, 1.0], device=x.device).expand(B, n_levels, 2)
-            dx = torch.empty_like(x)
-            for d in range(D):
-                # d w / d frac_d: the other axes' factors, signed by the
-                # corner's side along d; d frac / d x = the level's scale
-                dw = _weights(factors, skip=d) * _weights(
-                    [sign if e == d else torch.ones_like(f)
-                     for e, f in enumerate(factors)])
-                dx[:, d] = ((gv * dw).sum(dim=-1) * c["scales"][None, :]).sum(dim=-1)
-            dx = torch.where(_out_of_range(x), torch.zeros_like(dx), dx)
-        return dx, dtable, None, None
+            x, table = ctx.saved_tensors
+            run = _kernel_backward if _on_card(x) else _plain_backward
+            dx, dtable = run(x, table, g, ctx.spec, ctx.n_levels,
+                             ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+            return dx, dtable, None, None
 
 
 def grid_encode(x01: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                 max_level: int | None = None) -> torch.Tensor:
     """x01 [..., D] in [0, 1] → [..., L·C] features; levels ≥ ``max_level``
-    output zeros (the reference's progressive-level option)."""
+    output zeros (the reference's progressive-level option).  CUDA tensors
+    launch the kernels (``launches`` counts the forward's launches,
+    ``launches_bwd`` the backward's, none while a CUDA graph is captured;
+    the kernels count their own, a graph's replays included:
+    ``kernels.device_launches("grid_encode")``); CPU tensors take the plain
+    version."""
     L = spec.num_levels
     n_levels = L if max_level is None else min(max_level, L)
     prefix = x01.shape[:-1]
@@ -255,3 +394,7 @@ def grid_encode(x01: torch.Tensor, table: torch.Tensor, spec: GridSpec,
     with spans.device("grid_encode"):
         out = _GridEncode.apply(x, table, spec, n_levels)
     return out.reshape(*prefix, spec.output_dim)
+
+
+grid_encode.launches = 0
+grid_encode.launches_bwd = 0

@@ -53,13 +53,25 @@ _SIGNATURES = {
         _i64, _i32, _i32,                          # B, R, C
         _vp,                                       # stream
     ],
+    "cn_grid_encode_forward": [
+        _vp, _vp, _vp, _i64,                       # x, table, out, out row stride
+        _i64, _i32, _i32, ctypes.c_float,          # B, n_levels, C, shift
+        _vp, _vp,                                  # packed levels (host), stream
+    ],
+    "cn_grid_encode_backward": [
+        _vp, _vp, _vp, _i64,                       # x, table, g, g row stride
+        _vp, _vp,                                  # dtable, dx (either may be null)
+        _i64, _i32, _i32, ctypes.c_float,          # B, n_levels, C, shift
+        _vp, _vp,                                  # packed levels (host), stream
+    ],
 }
 # the bf16 modes take the f32 modes' arguments (K1's scratch holds bf16)
 _SIGNATURES["cn_fused_mlp_bf16_forward"] = _SIGNATURES["cn_fused_mlp_forward"]
 _SIGNATURES["cn_fused_mlp_bf16_packed_elems"] = _SIGNATURES["cn_fused_mlp_packed_floats"]
 _SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
 # each kernel's launches as it counts them on the card (see device_launches)
-for _k in ("fused_mlp", "plane_dtable"):
+COUNTED = ("fused_mlp", "plane_dtable", "grid_encode")
+for _k in COUNTED:
     _SIGNATURES[f"cn_{_k}_launch_counts"] = [_vp]       # out: 2 × uint64
     _SIGNATURES[f"cn_{_k}_reset_launch_counts"] = []
 # the tracer's stamps (csrc/spans.cu, engine/spans.py)
@@ -148,11 +160,11 @@ def library():
 
 
 def device_launches(kernel: str) -> tuple:
-    """(f32 mode, bf16 mode) launches of ``kernel`` (``"fused_mlp"`` or
-    ``"plane_dtable"``) since :func:`reset_device_launches`, as the kernel
-    counts them itself on the card: a replayed CUDA graph's launches
-    included, which no wrapper sees.  (0, 0) before the library is loaded:
-    nothing has launched then."""
+    """Launches of ``kernel`` since :func:`reset_device_launches`, as the
+    kernel counts them itself on the card: a replayed CUDA graph's launches
+    included, which no wrapper sees.  ``"fused_mlp"`` and ``"plane_dtable"``:
+    (f32 mode, bf16 mode); ``"grid_encode"``: (forward, backward).  (0, 0)
+    before the library is loaded: nothing has launched then."""
     if _lib is None:
         return (0, 0)
     import torch
@@ -168,7 +180,7 @@ def reset_device_launches() -> None:
         return
     import torch
     torch.cuda.synchronize()
-    for kernel in ("fused_mlp", "plane_dtable"):
+    for kernel in COUNTED:
         check(getattr(_lib, f"cn_{kernel}_reset_launch_counts")(),
               "reset_device_launches")
 

@@ -120,6 +120,100 @@ def test_grid_encode_of_the_parity_spec_on_a_few_points():
     assert torch.equal(back, table)
 
 
+def _rays_points(rng, n_rays=256, n_samples=64):
+    """Points along rays through the unit cube, consecutive samples of a
+    ray next to each other (the layout of a step's fine pass)."""
+    o = rng.rand(n_rays, 1, 3).astype(np.float32)
+    d = rng.randn(n_rays, 1, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(0.0, 0.6, n_samples, dtype=np.float32)[None, :, None]
+    return (o + t * d).reshape(-1, 3).astype(np.float32)
+
+
+def _emulated_rows(packed, x, n_levels, shift):
+    """The kernels' index arithmetic (``csrc/grid_encode.cu::corner_row``) in
+    numpy uint32, from the packed level argument alone: [B, n_levels, 8]."""
+    scale = packed[:, 0].view(np.float32)
+    size, offset, strides, hashed = packed[:, 1], packed[:, 2], packed[:, 3:6], packed[:, 6]
+    primes = [np.uint32(p) for p in tgrid.PRIMES]
+    rows = np.empty((x.shape[0], n_levels, 8), dtype=np.int64)
+    for lv in range(n_levels):
+        pos = x * scale[lv] + np.float32(shift)                      # f32, rounded twice
+        c0 = np.floor(pos).astype(np.int64).astype(np.uint32)
+        for k in range(8):
+            c = [c0[:, d] + np.uint32((k >> (2 - d)) & 1) for d in range(3)]
+            if hashed[lv]:
+                idx = (c[0] * primes[0]) ^ (c[1] * primes[1]) ^ (c[2] * primes[2])
+            else:
+                idx = c[0] * strides[lv, 0] + c[1] * strides[lv, 1] + c[2] * strides[lv, 2]
+            rows[:, lv, k] = (idx % size[lv]).astype(np.int64) + int(offset[lv])
+    return rows
+
+
+@pytest.mark.parametrize("kind,max_level", [("tiled", None), ("hash", None), ("mixed", None),
+                                            ("parity", None), ("mixed", 3), ("parity", 7)])
+def test_kernel_level_argument_gives_the_plain_rows(kind, max_level, monkeypatch):
+    """The kernels' packed per-level argument, decoded by a uint32 emulation
+    of their index arithmetic, gives exactly the plain path's corner rows;
+    CPU tensors take the plain path and launch nothing."""
+    if kind == "parity":
+        ts = tgrid.GridSpec(**PARITY)
+    elif kind == "mixed":          # a hash spec whose coarse levels fit densely
+        ts = _specs("hash", 12)[1]
+        assert 0 < ts.level_meta["use_hash"].sum() < ts.num_levels
+    else:
+        ts = _specs(kind, 10)[1]
+    n_levels = ts.num_levels if max_level is None else max_level
+    rng = np.random.RandomState(len(kind) + n_levels)
+    x = np.concatenate([_points(ts, rng), _rays_points(rng)])
+    packed = tgrid.kernel_levels(ts, n_levels)
+    assert packed.shape == (tgrid.KERNEL_LEVELS, tgrid.LEVEL_WORDS) and packed.dtype == np.uint32
+    assert not packed[n_levels:].any()
+    meta = ts.level_meta
+    assert packed[:n_levels, 1].tolist() == meta["sizes"][:n_levels].tolist()
+    assert packed[:n_levels, 6].tolist() == meta["use_hash"][:n_levels].astype(int).tolist()
+    want, _, _ = tgrid._corners(torch.tensor(x), ts, n_levels)
+    np.testing.assert_array_equal(_emulated_rows(packed, x, n_levels, 0.5), want.numpy())
+
+    def no_library():
+        raise AssertionError("a CPU tensor reached the kernels")
+
+    monkeypatch.setattr(tgrid.kernels, "library", no_library)
+    table = torch.zeros(ts.table_size, ts.level_dim, requires_grad=True)
+    xt = torch.tensor(x[:512], requires_grad=True)
+    tgrid.grid_encode(xt, table, ts, max_level=max_level).sum().backward()
+    assert table.grad is not None and xt.grad is not None
+    assert (tgrid.grid_encode.launches, tgrid.grid_encode.launches_bwd) == (0, 0)
+
+
+@pytest.mark.parametrize("bad", ["level_dim", "input_dim", "levels", "dtype", "strided", "shape"])
+def test_check_kernel_names_what_the_kernels_do_not_take(bad):
+    """The wrapper's check, on CPU tensors: it accepts the parity spec's
+    shapes and raises on each thing the kernels are not built for."""
+    spec = tgrid.GridSpec(**dict(PARITY, log2_hashmap_size=10, desired_resolution=64))
+    table = torch.zeros(spec.table_size, 2)
+    x = torch.zeros(8, 3)
+    tgrid.check_kernel(x, table, spec, spec.num_levels)
+    n_levels = spec.num_levels
+    if bad == "level_dim":
+        spec = tgrid.GridSpec(**dict(PARITY, level_dim=3, log2_hashmap_size=10))
+        table = torch.zeros(spec.table_size, 3)
+    elif bad == "input_dim":
+        spec = tgrid.GridSpec(**dict(PARITY, input_dim=2, log2_hashmap_size=10))
+        table, x = torch.zeros(spec.table_size, 2), torch.zeros(8, 2)
+    elif bad == "levels":
+        spec = tgrid.GridSpec(**dict(PARITY, num_levels=17, log2_hashmap_size=10))
+        table, n_levels = torch.zeros(spec.table_size, 2), 17
+    elif bad == "dtype":
+        table = table.to(torch.bfloat16)
+    elif bad == "strided":
+        table = torch.zeros(spec.table_size, 4)[:, :2]
+    else:
+        table = table[:-8]
+    with pytest.raises((ValueError, TypeError), match="grid_encode"):
+        tgrid.check_kernel(x, table, spec, n_levels)
+
+
 def test_morton_round_trip_and_codes_match_jax():
     rng = np.random.RandomState(0)
     coords = rng.randint(0, 1024, size=(4096, 3)).astype(np.int32)

@@ -124,28 +124,132 @@ def test_fused_mlp_bf16_kernel_matches_plain(cuda, B, in_dim, with_rgb):
             fm.fused_mlp_forward(x, v, ws, bf16=True)[0], sk)
 
 
-@pytest.mark.parametrize("gridtype", ["tiled", "hash"])
-def test_grid_encode_on_card_matches_cpu(cuda, gridtype):
-    """The plain grid encoder on the card against the same call on the CPU:
-    the output, and the table gradient summed by index_add_ atomics."""
+SMALL_GRID = dict(num_levels=16, base_resolution=16, log2_hashmap_size=15,
+                  desired_resolution=1024)
+PARITY_GRID = dict(num_levels=16, level_dim=2, base_resolution=16, log2_hashmap_size=21,
+                   desired_resolution=8192, gridtype="tiled")
+# (spec, max_level, points along rays): C = 2 tiled, hash (its coarse
+# levels dense: some levels hash, some do not), a spec whose levels all
+# hash but the first, C = 1, 4, 8, levels cut by max_level, and the cell's
+# own spec on 200,000 points along rays (runs of samples sharing corners)
+GRID_CASES = {
+    "tiled": (dict(SMALL_GRID, level_dim=2, gridtype="tiled"), None, False),
+    "hash": (dict(SMALL_GRID, level_dim=2, gridtype="hash"), None, False),
+    "mixed": (dict(SMALL_GRID, level_dim=2, gridtype="hash", log2_hashmap_size=13), None, False),
+    "C1": (dict(SMALL_GRID, level_dim=1, gridtype="tiled"), None, False),
+    "C4": (dict(SMALL_GRID, level_dim=4, gridtype="hash"), None, False),
+    "C8": (dict(SMALL_GRID, level_dim=8, gridtype="hash"), None, False),
+    "max_level": (dict(SMALL_GRID, level_dim=2, gridtype="hash"), 5, False),
+    "parity": (PARITY_GRID, None, True),
+}
+
+
+def _grid_points(rng, along_rays):
+    """20,000 uniform points, or 200,000 along 3,125 rays of 64 samples; some
+    outside [0, 1] either way."""
+    if not along_rays:
+        return (rng.rand(20000, 3) * 1.1 - 0.05).astype(np.float32)
+    o = rng.rand(3125, 1, 3)
+    d = rng.randn(3125, 1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(0.0, 0.5, 64)[None, :, None]
+    return (o + t * d).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_grid_encode_on_card_matches_cpu(cuda, case):
+    """The kernels (``csrc/grid_encode.cu``) against the plain encoder on the
+    CPU: the output, the table gradient and dx, with points outside [0, 1];
+    the wrapper's and the card's launch counts equal.  Tolerance: forward
+    rtol 1e-5 (the same products, summed in the same order, on another
+    machine); gradients 1e-5 of the largest entry (atomics add in an order
+    that varies; merged runs sum in another order)."""
+    from customnerf_torch.ops import kernels
     from customnerf_torch.ops.grid import GridSpec, grid_encode
-    spec = GridSpec(num_levels=16, level_dim=2, base_resolution=16,
-                    log2_hashmap_size=15, desired_resolution=1024, gridtype=gridtype)
-    table = torch.rand(spec.table_size, spec.level_dim,
-                       generator=torch.Generator().manual_seed(0)) * 2.0 - 1.0
-    rng = np.random.RandomState(1)
-    x = torch.tensor(rng.rand(20000, 3).astype(np.float32) * 1.1 - 0.05)
-    g = torch.tensor(rng.randn(20000, spec.output_dim).astype(np.float32))
+    kw, max_level, along_rays = GRID_CASES[case]
+    spec = GridSpec(**kw)
+    rng = np.random.RandomState(len(case))
+    table = torch.tensor(rng.rand(spec.table_size, spec.level_dim).astype(np.float32) * 2 - 1)
+    x = torch.tensor(_grid_points(rng, along_rays))
+    g = torch.tensor(rng.randn(x.shape[0], spec.output_dim).astype(np.float32))
 
     def run(dev):
         t = table.to(dev).clone().requires_grad_(True)
         xx = x.to(dev).clone().requires_grad_(True)
-        out = grid_encode(xx, t, spec)
+        out = grid_encode(xx, t, spec, max_level=max_level)
         (out * g.to(dev)).sum().backward()
         return out.detach().cpu(), t.grad.cpu(), xx.grad.cpu()
 
-    for got, want in zip(run(cuda), run("cpu")):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    n0 = (grid_encode.launches, grid_encode.launches_bwd)
+    d0 = kernels.device_launches("grid_encode")
+    card = run(cuda)
+    d1 = kernels.device_launches("grid_encode")
+    n1 = (grid_encode.launches, grid_encode.launches_bwd)
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 1)
+    want = run("cpu")
+    outside = ((x < 0) | (x > 1)).any(-1)
+    assert outside.sum() > 10 and not card[0][outside].any() and not card[2][outside].any()
+    if max_level is not None:
+        assert not card[0][:, max_level * spec.level_dim:].any()
+    torch.testing.assert_close(card[0], want[0], rtol=1e-5,
+                               atol=1e-5 * float(want[0].abs().max()))
+    for got, w in zip(card[1:], want[1:]):
+        torch.testing.assert_close(got, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+def test_grid_encode_graph_replay_matches_eager(cuda):
+    """Forward and backward captured in a CUDA graph: a replay gives the
+    eager output bit for bit and its table gradient within 1e-5 of the
+    largest entry (atomic order); the kernels count the replay's launches."""
+    from customnerf_torch.ops import kernels
+    from customnerf_torch.ops.grid import GridSpec, grid_encode
+    spec = GridSpec(**PARITY_GRID)
+    rng = np.random.RandomState(3)
+    table = torch.tensor(rng.rand(spec.table_size, 2).astype(np.float32) * 2 - 1, device=cuda)
+    x = torch.tensor(_grid_points(rng, True), device=cuda)
+    g = torch.tensor(rng.randn(x.shape[0], spec.output_dim).astype(np.float32), device=cuda)
+    t = table.clone().requires_grad_(True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            t.grad = None
+            grid_encode(x, t, spec).backward(g)
+    torch.cuda.current_stream().wait_stream(side)
+    t.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = grid_encode(x, t, spec)
+        out.backward(g)
+    n0 = (grid_encode.launches, grid_encode.launches_bwd)
+    d0 = kernels.device_launches("grid_encode")
+    graph.replay()
+    d1 = kernels.device_launches("grid_encode")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 1)
+    assert (grid_encode.launches, grid_encode.launches_bwd) == n0
+    got_out, got_dt = out.clone(), t.grad.clone()
+    e = table.clone().requires_grad_(True)
+    want = grid_encode(x, e, spec)
+    want.backward(g)
+    assert torch.equal(got_out, want.detach())
+    scale = float(e.grad.abs().max())
+    torch.testing.assert_close(got_dt, e.grad, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bad", ["level_dim", "dtype"])
+def test_grid_encode_kernel_rejects_what_it_does_not_take(cuda, bad):
+    """A CUDA tensor launches the kernels or raises: a C the kernels are not
+    built for, or a table that is not f32, never falls back."""
+    from customnerf_torch.ops.grid import GridSpec, grid_encode
+    C = 3 if bad == "level_dim" else 2
+    spec = GridSpec(**dict(SMALL_GRID, level_dim=C, gridtype="hash"))
+    table = torch.zeros(spec.table_size, C, device=cuda)
+    if bad == "dtype":
+        table = table.to(torch.bfloat16)
+    x = torch.rand(100, 3, device=cuda)
+    with pytest.raises((ValueError, TypeError), match="grid_encode"):
+        grid_encode(x, table, spec)
 
 
 def _dtable_inputs(rng, B, R, C, device, ld=None):
