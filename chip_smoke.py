@@ -1494,7 +1494,7 @@ def run_multi_scene(tr, opt):
     for i, v in enumerate(views[:2]):
         tr.pt_dict[(i, v.img_path)] = ed._get_pt(tr, v, ed._bg_color(tr))
     g = torch.Generator(device=dev).manual_seed(11)
-    side = ed.RESIZE // 8                          # the latents' side
+    side = ed.resize_side(tr) // 8                 # the latents' side
     draws = [dict(bg_color=torch.rand(3, generator=g, device=dev), t=400 + 200 * i,
                   noise=torch.randn(1, 4, side, side, generator=g, device=dev),
                   vae_noise=torch.randn(1, 4, side, side, generator=g, device=dev))

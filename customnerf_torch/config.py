@@ -155,7 +155,7 @@ class Config:
     text_fg: str = "text_fg"
     text_fg_norm: str = "text_fg"
     text_norm: str = "text_norm"
-    sd_version: str = "1.5"
+    sd_version: str = "1.5"         # 1.5 | 2.0 | 2.1 | xl (SDXL base 1.0)
     use_cd: Optional[str] = None
     test_split: str = "test"
 

@@ -13,7 +13,8 @@ eager :func:`editing_step` and the K-step :func:`editing_steps_many` (on the
 card, replays of one captured device step) share both halves.
 
 One step renders the full frame once with the graph, resizes the chosen
-image (full, or foreground under the local branch) to 512² bilinear,
+image (full, or foreground under the local branch) bilinear to the
+guidance VAE's ``sample_size`` (512², SDXL's 1024²),
 VAE-encodes it with the graph, runs the UNet without a graph on the detached
 latents for the SDS cotangent, then backpropagates
 ``sum(latents · cotangent) + keep_bg · L1(pt_bg, pred_bg)`` and takes the
@@ -30,6 +31,11 @@ Kept exact (reference ``nerf/utils_init_nerf.py:243-394``):
     drawn from ``numpy.random.RandomState(opt.seed)``, the JAX package's
     stream; the local branch takes ``text_z_fg`` and ``local_t_ratio``;
   * ``--clip_view``: the prompt of the view CLIP matches the pt render to.
+
+Under ``--sd_version xl`` each prompt's embedding is a ``PooledText`` (the
+context and SDXL's pooled embedding): it goes wherever a ``text_z*`` goes
+(per view under ``--clip_view``, the LGIE gate) and into the device step's
+inputs as ``text_emb`` and ``text_pooled``.  Multi-scene editing refuses xl.
 
 The bg colour, t and both noises come from the trainer's ``torch.Generator``
 (not ``jax.random``'s streams); ``draws`` hands them in for tests.
@@ -56,7 +62,7 @@ and, on a pt-cache miss, ``pt_render`` (counted); the device spans of a step
 ``edit.step`` › ``render`` (› the renderer's stages), ``resize``,
 ``vae_encode``, ``unet`` (the SDS ε call with its CFG batch), ``loss``,
 ``backward`` › (``vae_encode.bwd``, ``resize.bwd``, ``render.bwd``, stamped
-by gradient hooks where the latents', the 512² image's and the frame's
+by gradient hooks where the latents', the resized image's and the frame's
 gradients are complete) and ``adam``.  A multi-scene step has the same
 spans, a scene's render, VAE, loss, backward and Adam once a scene.
 
@@ -77,11 +83,20 @@ import torch.nn.functional as F
 
 from customnerf_torch.engine import spans
 from customnerf_torch.guidance.clip_view import VIEW_NAMES
+from customnerf_torch.guidance.text import PooledText
 from customnerf_torch.ops.occupancy import OccupancyState
 from customnerf_torch.parallel.mesh import all_gather_cat
 
-# side of the square image the VAE encodes (reference sd.py:99)
-RESIZE = 512
+# the side of the square image the VAE encodes (reference sd.py:99) is the
+# guidance VAE's sample_size (512, SDXL's 1024); a number here overrides it,
+# which only benchmark/tests/test_bench_reference.py still sets (to its tiny
+# VAE's own sample_size)
+RESIZE = None
+
+
+def resize_side(trainer) -> int:
+    """The side of the square image the step's VAE encodes."""
+    return RESIZE or trainer.guidance.vae.cfg.sample_size
 
 
 def _embed(trainer, text):
@@ -219,6 +234,9 @@ def _editing_inputs(trainer, batch, draws, scene):
     text_z, text_z_fg = _select_text(trainer, pt, scene.get("text_z"),
                                      scene.get("text_z_fg"))
     use_fg, text_emb, t_ratio = _lgie_gate(trainer, text_z, text_z_fg)
+    pooled = None
+    if isinstance(text_emb, PooledText):
+        text_emb, pooled = text_emb
     if "t" in draws:
         t = torch.as_tensor(draws["t"], dtype=torch.int64, device=dev).reshape(1)
     else:
@@ -227,6 +245,8 @@ def _editing_inputs(trainer, batch, draws, scene):
     inputs = {"rays_o": batch.rays_o, "rays_d": batch.rays_d,
               "pt_rgb_bg": pt["pt_rgb_bg"], "text_emb": text_emb, "t": t,
               "use_fg": torch.full((), float(use_fg), device=dev)}
+    if pooled is not None:
+        inputs["text_pooled"] = pooled
     if bg_color is not None:
         inputs["bg_color"] = torch.as_tensor(bg_color, dtype=torch.float32,
                                              device=dev)
@@ -254,11 +274,12 @@ def editing_latents(trainer, inputs, H: int, W: int, perturb: bool = True,
     if not opt.lambda_sd:
         return out, None, None
     n = H * W
+    side = resize_side(trainer)
     with spans.device("resize"):
         fg = out["fg"]["image"] if "fg" in out else out["image"]
         frame = torch.where(inputs["use_fg"] > 0.5, fg, out["image"])
         frame = frame[:n].reshape(1, H, W, 3).permute(0, 3, 1, 2)
-        img = F.interpolate(frame, size=(RESIZE, RESIZE), mode="bilinear",
+        img = F.interpolate(frame, size=(side, side), mode="bilinear",
                             align_corners=False, antialias=True)
     with spans.device("vae_encode"):
         latents = guidance.encode_imgs(img, generator=trainer.generator,
@@ -309,7 +330,8 @@ def editing_body(trainer, inputs, H: int, W: int, perturb: bool = True,
         if latents is not None:
             with spans.device("unet"):
                 cotangent, aux["loss_sds"] = trainer.guidance.sds_grad(
-                    latents.detach(), inputs["text_emb"], inputs["t"], noise)
+                    latents.detach(), inputs["text_emb"], inputs["t"], noise,
+                    pooled=inputs.get("text_pooled"))
         with spans.device("loss"):
             loss, loss_bg = editing_loss(trainer, inputs, out, latents, cotangent, H, W)
         if loss_bg is not None:
@@ -473,6 +495,9 @@ def editing_step_scenes(trainer, batches, params_s, opt_state_s,
     tensors; a loss is Σ latents·cotangent + loss_bg, as the JAX step
     returns it, and ``loss_sds`` is 0.5·Σ grad²."""
     opt, dev = trainer.opt, trainer.device
+    if trainer.guidance is not None and trainer.guidance.family == "xl":
+        from customnerf_torch.guidance.sds import XL_REFUSED
+        raise ValueError(XL_REFUSED.format(what="multi-scene editing"))
     S = len(batches)
     scenes = scenes if scenes is not None else [{}] * S
     if len(scenes) != S:

@@ -27,7 +27,9 @@ to: graph captures and their seconds (``capture``, ``capture_s``),
 pretrained renders of a pt-cache miss (``pt_render``), occupancy refreshes
 (``refresh``), the time ``AsyncSaver`` holds the training thread
 (``saver_block``: its snapshots, saves and waits) and its worker's writes
-(``saver_write``); a read of the ring sets ``dropped_stamps``.
+(``saver_write``), the SD guidance's build, weights (drawn or loaded) and
+storage cast (``guidance_build``); a read of the ring sets
+``dropped_stamps``.
 
 :func:`collect` reads the ring (after a synchronize, one copy from the
 card: never inside a dispatch) and returns, by span name, the device
@@ -67,7 +69,8 @@ _host: dict = {}                    # host span name -> [count, ns]
 _anchors: dict = {}                 # host span name -> ns of its first begin since reset
 counters = {"capture": 0, "capture_s": 0.0, "pt_render": 0, "pt_render_s": 0.0,
             "refresh": 0, "refresh_s": 0.0, "saver_block": 0, "saver_block_s": 0.0,
-            "saver_write": 0, "saver_write_s": 0.0, "dropped_stamps": 0}
+            "saver_write": 0, "saver_write_s": 0.0, "guidance_build": 0,
+            "guidance_build_s": 0.0, "dropped_stamps": 0}
 
 
 def enable(on: bool = True, device=None) -> None:
@@ -303,14 +306,18 @@ def collect() -> dict:
 
 
 def counters_line(since: dict) -> str:
-    """The counters less ``since`` (an earlier copy) in one line."""
+    """The counters less ``since`` (an earlier copy) in one line; the
+    guidance's build, which comes before a run, and the dropped stamps as
+    they stand."""
     c = {k: v - since.get(k, 0) for k, v in counters.items()}
-    c["dropped_stamps"] = counters["dropped_stamps"]
+    for k in ("guidance_build", "guidance_build_s", "dropped_stamps"):
+        c[k] = counters[k]
     return (f"[INFO] counters: {c['capture']} graph captures ({c['capture_s']:.3f} s), "
             f"{c['pt_render']} pt renders ({c['pt_render_s']:.3f} s), "
             f"{c['refresh']} occupancy refreshes, checkpoint writer held the "
             f"training thread {c['saver_block_s']:.3f} s over {c['saver_block']} calls "
             f"and wrote {c['saver_write_s']:.3f} s in {c['saver_write']} writes, "
+            f"{c['guidance_build']} guidance builds ({c['guidance_build_s']:.3f} s), "
             f"{c['dropped_stamps']} stamps dropped")
 
 

@@ -336,9 +336,12 @@ def train_custom_diffusion(
         checkpoint-N dir);
       * ``validation_prompt``: a DDIM sample grid every ``validation_steps``.
     """
-    from customnerf_torch.guidance.sds import StableDiffusionGuidance
+    from customnerf_torch.guidance.sds import (XL_REFUSED, StableDiffusionGuidance,
+                                               sd_family)
 
     assert freeze_model in ("crossattn_kv", "crossattn"), freeze_model
+    if sd_family(opt.sd_version) == "xl":
+        raise ValueError(XL_REFUSED.format(what="Custom Diffusion tuning"))
     if guidance is None:
         guidance = StableDiffusionGuidance(opt, device=device)
     dev = guidance.device

@@ -1,5 +1,6 @@
-"""Score Distillation Sampling guidance with Stable Diffusion 1.5, 2.0 or
-2.1 (counterpart of ``customnerf_tpu/guidance/sds.py``).
+"""Score Distillation Sampling guidance with Stable Diffusion 1.5, 2.0, 2.1
+or SDXL base 1.0 (counterpart of ``customnerf_tpu/guidance/sds.py``, which
+has no SDXL).
 
 Semantics kept from the reference (``nerf/sd.py:34-154``):
   * t ∈ [0.02·T, max_ratio·T], an inclusive randint; ``--stage_time``
@@ -13,8 +14,17 @@ The stack is built at full width for ``--sd_version``, as the JAX package
 builds it (``sds.py:62-71``): SD 1.x's UNet and CLIP ViT-L/14 text tower,
 or SD 2.x's UNet (a 1024-wide context, 64-wide heads at every level) and
 OpenCLIP ViT-H text tower (:func:`unet_config`, ``text.text_config``); the
-VAE is the same for both.  A caller's ``unet_cfg`` (reduced-width tests)
-must take the text tower's width as its context.
+VAE is the same for both.  ``--sd_version xl`` builds SDXL base 1.0: its
+UNet (``unet.sdxl_unet_config``), the two text towers
+(``text.DualTextEncoder``) and the same VAE at 1024² with scaling 0.13025
+(:func:`vae_config`).  Its prompts embed as ``text.PooledText`` (the
+context and the pooled embedding), and every UNet call adds the
+"text_time" conditioning: the pooled embedding of each CFG half and the
+time ids (S, S, 0, 0, S, S) for the VAE's side S: original size, crop
+corner (0, 0) and target size, the base pipeline's defaults for a 1024²
+target.  ``--use_cd`` and multi-scene editing refuse xl.
+A caller's ``unet_cfg`` (reduced-width tests) must take the text tower's
+width as its context.
 Precision is the JAX package's rule (``sds.py:60-66,120-128``): on the card
 the UNet and VAE are stored in bf16, once their weights and the adapters
 have loaded, and compute in bf16 under flax's policy (``layers.py``); on the
@@ -26,6 +36,8 @@ names a local diffusers directory.  ``--use_cd <dir>``
 (outside ``--test``) loads a Custom Diffusion artifact pair after the
 weights: the adapters go into every UNet call as ``cd_kv`` and the modifier
 tokens are registered on the text encoder, so prompts carry ``<new1>``.
+The build, draw or load and cast is the tracer's counter
+``guidance_build`` (``engine/spans.py``), with its seconds.
 """
 
 from __future__ import annotations
@@ -36,22 +48,26 @@ import time
 import torch
 
 from customnerf_torch.device import resolve_device
+from customnerf_torch.engine import spans
 from customnerf_torch.guidance.layers import build, n_params
 from customnerf_torch.guidance.scheduler import DDPMSchedule
-from customnerf_torch.guidance.text import TextEncoder
+from customnerf_torch.guidance.text import make_text_encoder
 from customnerf_torch.guidance.unet import (UNet2DCondition, UNetConfig,
-                                            sd2_unet_config)
+                                            sd2_unet_config, sdxl_unet_config)
 from customnerf_torch.guidance.vae import AutoencoderKL, VAEConfig
 
 # parameter counts of the full-width stack by SD family (sd_family): UNet,
-# VAE, text encoder (CLIP ViT-L/14 for 1.x, OpenCLIP ViT-H for 2.x) and the
-# CLIP ViT-B/32 of --clip_view, equal to the JAX package's
-# (tests/test_torch_guidance.py, tests/test_torch_sd2.py)
+# VAE, text encoder (CLIP ViT-L/14 for 1.x, OpenCLIP ViT-H for 2.x, both
+# towers for xl) and the CLIP ViT-B/32 of --clip_view; 1.x and 2.x equal to
+# the JAX package's (tests/test_torch_guidance.py, tests/test_torch_sd2.py),
+# xl to the plain reference's (tests/test_torch_sdxl.py)
 FULL_WIDTH_PARAMS = {
     "1.x": {"unet": 859_520_964, "vae": 83_653_863, "text_encoder": 123_060_480,
             "clip_view": 151_277_313},
     "2.x": {"unet": 865_910_724, "vae": 83_653_863, "text_encoder": 340_387_840,
             "clip_view": 151_277_313},
+    "xl": {"unet": 2_567_463_684, "vae": 83_653_863, "text_encoder": 817_720_320,
+           "clip_view": 151_277_313},
 }
 
 RANDOM_WEIGHTS_ERROR = (
@@ -67,15 +83,35 @@ def sd_dtype(device) -> str:
 
 
 def sd_family(sd_version) -> str:
-    """"2.x" for 2.0 and 2.1, "1.x" otherwise: the JAX package's test
-    (``sd_version.startswith("2")``)."""
+    """"xl" for SDXL, "2.x" for 2.0 and 2.1, "1.x" otherwise: the JAX
+    package's test (``sd_version.startswith("2")``) besides xl."""
+    if str(sd_version).lower() == "xl":
+        return "xl"
     return "2.x" if str(sd_version).startswith("2") else "1.x"
 
 
 def unet_config(sd_version) -> UNetConfig:
-    """The JAX package's UNet for ``sd_version`` (``sds.py:62-71``), in f32
-    until the guidance sets its compute dtype."""
-    return sd2_unet_config() if sd_family(sd_version) == "2.x" else UNetConfig()
+    """The UNet for ``sd_version`` (the JAX package's for 1.x and 2.x,
+    ``sds.py:62-71``), in f32 until the guidance sets its compute dtype."""
+    return {"2.x": sd2_unet_config, "xl": sdxl_unet_config}.get(
+        sd_family(sd_version), UNetConfig)()
+
+
+def vae_config(sd_version) -> VAEConfig:
+    """SD's AutoencoderKL: at 512² with scaling 0.18215, or for xl at 1024²
+    with scaling 0.13025 (``vae/config.json``)."""
+    if sd_family(sd_version) == "xl":
+        return VAEConfig(sample_size=1024, scaling_factor=0.13025)
+    return VAEConfig()
+
+
+def time_ids(side: int) -> list:
+    """SDXL's six time ids for an image of ``side``²: the base pipeline's
+    defaults (original size, crop corner (0, 0), target size)."""
+    return [side, side, 0, 0, side, side]
+
+
+XL_REFUSED = "--sd_version xl does not support {what}"
 
 
 class StableDiffusionGuidance:
@@ -83,34 +119,57 @@ class StableDiffusionGuidance:
     dtype; ``None`` takes :func:`sd_dtype`'s rule.  Where the JAX package
     forces f32 on a CPU whatever it is given, an explicit ``dtype`` stands
     here, so that the bf16 stack can be held against the JAX modules on a
-    CPU.  ``unet_cfg=None`` takes ``--sd_version``'s (:func:`unet_config`);
-    ``device="meta"`` builds the modules' shapes only (no weights)."""
+    CPU.  ``unet_cfg=None`` / ``vae_cfg=None`` take ``--sd_version``'s
+    (:func:`unet_config`, :func:`vae_config`); ``device="meta"`` builds the
+    modules' shapes only (no weights)."""
 
     def __init__(self, opt, device=None, unet_cfg: UNetConfig | None = None,
-                 vae_cfg: VAEConfig = VAEConfig(), text_encoder=None,
+                 vae_cfg: VAEConfig | None = None, text_encoder=None,
                  dtype: str | None = None):
         if not opt.sd_weights and (opt.pretrained and not opt.test
                                    and not opt.allow_random_guidance):
             # a 10k-iter semantic run must not silently distill noise
             raise RuntimeError(RANDOM_WEIGHTS_ERROR)
         self.opt = opt
+        self.family = sd_family(opt.sd_version)
+        if self.family == "xl" and opt.use_cd is not None and not opt.test:
+            raise ValueError(XL_REFUSED.format(what="--use_cd (Custom Diffusion)"))
         self.device = resolve_device(device)
         self.dtype = dtype or sd_dtype(self.device)
         unet_cfg = dataclasses.replace(unet_cfg or unet_config(opt.sd_version),
                                        dtype=self.dtype)
-        vae_cfg = dataclasses.replace(vae_cfg, dtype=self.dtype)
+        vae_cfg = dataclasses.replace(vae_cfg or vae_config(opt.sd_version),
+                                      dtype=self.dtype)
         t0 = time.time()
+        with spans.span("guidance_build", counter="guidance_build"):
+            self._build(opt, unet_cfg, vae_cfg, text_encoder)
+        self.init_seconds = time.time() - t0
+
+        self.scheduler = DDPMSchedule(device=self.device)
+        self.num_train_timesteps = self.scheduler.num_train_timesteps
+        self.min_step = int(self.num_train_timesteps * 0.02)
+        self.max_step = int(self.num_train_timesteps * opt.max_ratio)
+        self.alphas = self.scheduler.alphas_cumprod
+        # the text-time conditioning's time ids (None without it)
+        self.time_ids = None
+        if unet_cfg.addition_embed_type is not None:
+            self.time_ids = torch.tensor(time_ids(vae_cfg.sample_size),
+                                         dtype=torch.float32, device=self.device)
+
+    def _build(self, opt, unet_cfg, vae_cfg, text_encoder):
+        """The models, their weights (drawn or loaded), the adapters and the
+        storage cast."""
         gen = (None if self.device.type == "meta" else
                torch.Generator(device=self.device).manual_seed(int(opt.seed)))
         self.unet = build(UNet2DCondition, unet_cfg, device=self.device,
                           generator=gen).eval().requires_grad_(False)
         self.vae = build(AutoencoderKL, vae_cfg, device=self.device,
                          generator=gen).eval().requires_grad_(False)
-        self.text_encoder = text_encoder or TextEncoder(
+        self.text_encoder = text_encoder or make_text_encoder(
             opt.sd_version, weights_dir=opt.sd_weights, device=self.device,
             generator=gen)
         self.text_encoder.model.eval().requires_grad_(False)
-        width = self.text_encoder.model.text_model.cfg.hidden_size
+        width = self.text_encoder.width
         if width != unet_cfg.cross_attention_dim:
             raise ValueError(
                 f"--sd_version {opt.sd_version}: the text tower is {width} wide, "
@@ -132,18 +191,13 @@ class StableDiffusionGuidance:
         self.vae.to(self.vae.cfg.compute_dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.init_seconds = time.time() - t0
-
-        self.scheduler = DDPMSchedule(device=self.device)
-        self.num_train_timesteps = self.scheduler.num_train_timesteps
-        self.min_step = int(self.num_train_timesteps * 0.02)
-        self.max_step = int(self.num_train_timesteps * opt.max_ratio)
-        self.alphas = self.scheduler.alphas_cumprod
 
     def load_cd(self, model_dir: str) -> dict:
         """``--use_cd``: the artifact pair in ``model_dir`` → ``self.cd_kv``
         (None without adapter weights) and its tokens registered on the text
         encoder; returns {token: embedding}."""
+        if self.family == "xl":
+            raise ValueError(XL_REFUSED.format(what="--use_cd (Custom Diffusion)"))
         from customnerf_torch.guidance.custom_diffusion import load_cd_artifacts
         self.cd_kv, token_embeds = load_cd_artifacts(model_dir, self.text_encoder,
                                                      device=self.device)
@@ -158,7 +212,19 @@ class StableDiffusionGuidance:
 
     # ---------------------------------------------------------------- text
     def get_text_embeds(self, prompt, negative_prompt):
+        """[uncond; cond]: a tensor, or for xl a ``text.PooledText``."""
         return self.text_encoder.get_text_embeds(prompt, negative_prompt)
+
+    def added_cond(self, pooled):
+        """The UNet's "text_time" conditioning for pooled embeddings [B, P]
+        (None without it, where ``pooled`` must be None too)."""
+        if (pooled is None) != (self.time_ids is None):
+            raise ValueError("the pooled text embedding goes with the text-time "
+                             f"UNet alone (--sd_version {self.opt.sd_version})")
+        if pooled is None:
+            return None
+        return {"text_embeds": pooled,
+                "time_ids": self.time_ids.expand(pooled.shape[0], -1)}
 
     # --------------------------------------------------------------- image
     def encode_imgs(self, images, generator=None, noise=None):
@@ -169,31 +235,35 @@ class StableDiffusionGuidance:
 
     # ----------------------------------------------------------------- SDS
     @torch.no_grad()
-    def sds_grad(self, latents, text_embeddings, t, noise):
+    def sds_grad(self, latents, text_embeddings, t, noise, pooled=None):
         """dL_sds/dlatents and the loss value 0.5·Σ grad², for latents
         [1, 4, h, w], text_embeddings [uncond; cond] and noise ε, all f32, at
         timestep ``t`` (a [1] int64 tensor on the latents' device, or an
-        int); the UNet casts its inputs, and the gradient is formed in f32
-        from its f32 ε (the JAX ``sds_loss_fn``).  Nothing here reads t on
-        the host."""
-        grad, loss = self.sds_grad_batch(latents, text_embeddings[None], t, noise)
+        int); for xl ``pooled`` [uncond; cond] [2, P]; the UNet casts its
+        inputs, and the gradient is formed in f32 from its f32 ε (the JAX
+        ``sds_loss_fn``).  Nothing here reads t on the host."""
+        grad, loss = self.sds_grad_batch(latents, text_embeddings[None], t, noise,
+                                         None if pooled is None else pooled[None])
         return grad, loss[0]
 
     @torch.no_grad()
-    def sds_grad_batch(self, latents, text_embeddings, t, noise):
+    def sds_grad_batch(self, latents, text_embeddings, t, noise, pooled=None):
         """:meth:`sds_grad` of S scenes through ONE UNet call of batch 2S
         (the JAX ``editing.py:545-552`` vmapped ε-prediction): latents and
         noise [S, 4, h, w], text_embeddings [S, 2, 77, C] (each scene's
-        [uncond; cond]), t [S] int64 (or an int).  The UNet's batch is
-        [all S noisy; all S noisy] against [all S uncond; all S cond].
-        Returns grad [S, 4, h, w] and the loss values [S]."""
+        [uncond; cond]), for xl pooled [S, 2, P], t [S] int64 (or an int).
+        The UNet's batch is [all S noisy; all S noisy] against [all S
+        uncond; all S cond].  Returns grad [S, 4, h, w] and the loss values
+        [S]."""
         S = latents.shape[0]
         t = torch.as_tensor(t, device=latents.device).reshape(-1).expand(S)
         noisy = self.scheduler.add_noise(latents, noise, t)
         latent_in = torch.cat([noisy, noisy])
         context = torch.cat([text_embeddings[:, 0], text_embeddings[:, 1]])
+        added = self.added_cond(None if pooled is None
+                                else torch.cat([pooled[:, 0], pooled[:, 1]]))
         eps_uncond, eps_text = self.unet(latent_in, torch.cat([t, t]), context,
-                                         cd_kv=self.cd_kv).chunk(2)
+                                         cd_kv=self.cd_kv, added_cond=added).chunk(2)
         eps_hat = eps_text + self.opt.cfg * (eps_text - eps_uncond)
         w = (1.0 - self.alphas.index_select(0, t)).reshape(S, 1, 1, 1)
         grad = torch.nan_to_num(w * (eps_hat.float() - noise) * self.opt.lambda_sd)

@@ -11,6 +11,21 @@ ViT-L/14's (768 wide, 12 layers, ``quick_gelu``), for SD 2.x OpenCLIP
 ViT-H's (1024 wide, 23 layers, 16 heads, exact-erf ``gelu``, which flax
 lowers as ``nn.gelu(approximate=False)``).
 
+SDXL (``--sd_version xl``, :class:`DualTextEncoder`) runs two towers, as
+diffusers' ``StableDiffusionXLPipeline.encode_prompt`` does: CLIP ViT-L/14
+(``text_encoder``) and OpenCLIP ViT-bigG/14 (``text_encoder_2``: 1280 wide,
+32 layers, 20 heads, an MLP of 5120, exact GELU, and a bias-free
+``text_projection`` to 1280).  The context is each tower's penultimate
+hidden state (the input of its last layer, before the final LayerNorm),
+concatenated to [77, 768 + 1280]; the pooled embedding is bigG's
+``text_projection`` of its final-LayerNorm state at the first EOS.  An
+empty negative prompt gives zeros for both (``force_zeros_for_empty_prompt``,
+the base pipeline's default with no negative prompt).  Each tower has its
+tokenizer (``tokenizer/``, ``tokenizer_2/``); both pad with EOS, where
+diffusers' ``tokenizer_2`` pads with "!" (id 0): the deviation stated for
+2.x, which changes the context at the padded positions only (the causal
+mask keeps every earlier position, the EOS state among them, as it is).
+
 Tokenizer: the real CLIP BPE (``guidance/bpe.py``) when a ``tokenizer/`` dir
 exists under ``--sd_weights``, else :class:`HashTokenizer`, which gives the
 JAX package's ids (md5 word buckets).  Both pad to 77 with EOS, as the JAX
@@ -25,7 +40,7 @@ from __future__ import annotations
 import hashlib
 import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -156,10 +171,12 @@ class CLIPEncoder(nn.Module):
         self.layers = nn.ModuleList(
             [CLIPEncoderLayer(dim, inner, heads, eps, act) for _ in range(n_layers)])
 
-    def forward(self, x, bias=None):
-        for layer in self.layers:
+    def forward(self, x, bias=None, penultimate=False):
+        """The last layer's output; with ``penultimate`` also its input."""
+        for layer in self.layers[:-1]:
             x = layer(x, bias)
-        return x
+        out = self.layers[-1](x, bias)
+        return (out, x) if penultimate else out
 
 
 class CLIPTextEmbeddings(nn.Module):
@@ -191,18 +208,21 @@ class CLIPTextTransformer(nn.Module):
                                    cfg.hidden_act)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, ids, row=None, row_id=None):
+    def forward(self, ids, row=None, row_id=None, penultimate=False):
         """ids [B, L] int → (last_hidden_state [B, L, D], pooled [B, D]: the
-        state at each row's first EOS); ``row``/``row_id`` as in
-        :class:`CLIPTextEmbeddings`."""
+        state at each row's first EOS), and with ``penultimate`` the hidden
+        state before the last layer [B, L, D] third; ``row``/``row_id`` as
+        in :class:`CLIPTextEmbeddings`."""
         x = self.embeddings(ids, row, row_id)
         L = ids.shape[1]
         causal = torch.ones(L, L, dtype=torch.bool, device=ids.device).tril()
         bias = torch.zeros(L, L, device=ids.device, dtype=x.dtype).masked_fill(
             ~causal, torch.finfo(x.dtype).min)
-        h = self.final_layer_norm(self.encoder(x, bias))
+        h, pen = self.encoder(x, bias, penultimate=True)
+        h = self.final_layer_norm(h)
         eos = (ids == self.cfg.eos_token_id).int().argmax(dim=-1)
-        return h, h[torch.arange(h.shape[0], device=h.device), eos]
+        out = (h, h[torch.arange(h.shape[0], device=h.device), eos])
+        return out + (pen,) if penultimate else out
 
 
 class CLIPTextModel(nn.Module):
@@ -217,14 +237,53 @@ class CLIPTextModel(nn.Module):
         return self.text_model(ids)[0]
 
 
+class CLIPTextModelWithProjection(nn.Module):
+    """Hugging Face's ``CLIPTextModelWithProjection`` layout: the tower
+    under ``text_model`` and a bias-free ``text_projection`` of its pooled
+    state (SDXL's ``text_encoder_2``)."""
+
+    def __init__(self, cfg: CLIPTextConfig, projection_dim: int):
+        super().__init__()
+        self.text_model = CLIPTextTransformer(cfg)
+        self.text_projection = nn.Linear(cfg.hidden_size, projection_dim, bias=False)
+
+
 def text_config(sd_version: str) -> CLIPTextConfig:
     """The JAX package's text tower for ``sd_version``: OpenCLIP ViT-H for
-    2.x, CLIP ViT-L/14 otherwise."""
+    2.x, CLIP ViT-L/14 otherwise (SDXL's first tower too)."""
     if str(sd_version).startswith("2"):
         return CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
                               num_hidden_layers=23, num_attention_heads=16,
                               hidden_act="gelu")
     return CLIPTextConfig()
+
+
+# SDXL's second tower, OpenCLIP ViT-bigG/14 (text_encoder_2/config.json)
+BIGG = CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                      num_attention_heads=20, hidden_act="gelu")
+BIGG_PROJECTION = 1280
+
+
+def make_text_encoder(sd_version: str, weights_dir: Optional[str] = None, device=None,
+                      generator=None):
+    """The text encoder ``--sd_version`` takes: :class:`DualTextEncoder`
+    for xl, else :class:`TextEncoder`."""
+    if str(sd_version).lower() == "xl":
+        return DualTextEncoder(weights_dir=weights_dir, device=device, generator=generator)
+    return TextEncoder(sd_version, weights_dir=weights_dir, device=device,
+                       generator=generator)
+
+
+def _tokenizer(weights_dir: Optional[str], sub: str):
+    """The CLIP BPE of ``weights_dir/sub`` where it loads, else
+    :class:`HashTokenizer`."""
+    tok_dir = os.path.join(weights_dir, sub) if weights_dir else None
+    if tok_dir and os.path.isdir(tok_dir):
+        try:
+            return ClipBPETokenizer.from_dir(tok_dir)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"[WARN] tokenizer load failed ({e}); hash fallback.")
+    return HashTokenizer()
 
 
 class TextEncoder:
@@ -233,19 +292,15 @@ class TextEncoder:
 
     def __init__(self, sd_version: str = "1.5", weights_dir: Optional[str] = None,
                  device=None, generator=None, model: nn.Module | None = None):
-        self.tokenizer = None
-        if weights_dir:
-            tok_dir = os.path.join(weights_dir, "tokenizer")
-            if os.path.isdir(tok_dir):
-                try:
-                    self.tokenizer = ClipBPETokenizer.from_dir(tok_dir)
-                except (OSError, ValueError, KeyError) as e:
-                    print(f"[WARN] tokenizer load failed ({e}); hash fallback.")
-        if self.tokenizer is None:
-            self.tokenizer = HashTokenizer()
+        self.tokenizer = _tokenizer(weights_dir, "tokenizer")
         self.model = model if model is not None else build(
             CLIPTextModel, text_config(sd_version), device=device,
             generator=generator)
+
+    @property
+    def width(self) -> int:
+        """The context's width."""
+        return self.model.text_model.cfg.hidden_size
 
     def tokenize(self, prompts: List[str]) -> np.ndarray:
         return np.asarray(self.tokenizer(prompts, max_length=MAX_LEN),
@@ -260,6 +315,68 @@ class TextEncoder:
 
     def get_text_embeds(self, prompt: List[str], negative_prompt: List[str]):
         return torch.cat([self.encode(negative_prompt), self.encode(prompt)])
+
+
+class PooledText(NamedTuple):
+    """SDXL's embedding of prompts: the context [n, 77, 2048] and the
+    pooled embedding [n, 1280], which travel together."""
+    context: torch.Tensor
+    pooled: torch.Tensor
+
+
+class SDXLTextTowers(nn.Module):
+    """The two towers under diffusers' directory names."""
+
+    def __init__(self, cfg_1: CLIPTextConfig = CLIPTextConfig(),
+                 cfg_2: CLIPTextConfig = BIGG, projection_dim: int = BIGG_PROJECTION):
+        super().__init__()
+        self.text_encoder = CLIPTextModel(cfg_1)
+        self.text_encoder_2 = CLIPTextModelWithProjection(cfg_2, projection_dim)
+
+
+class DualTextEncoder:
+    """SDXL's two tokenizers and towers (module docstring); ``get_text_embeds``
+    gives a :class:`PooledText` of ``[uncond; cond]``.  ``model``: an
+    :class:`SDXLTextTowers` (reduced widths in tests), else the full-width
+    towers built on ``device`` from ``generator``."""
+
+    def __init__(self, weights_dir: Optional[str] = None, device=None, generator=None,
+                 model: SDXLTextTowers | None = None):
+        self.tokenizer = _tokenizer(weights_dir, "tokenizer")
+        self.tokenizer_2 = _tokenizer(weights_dir, "tokenizer_2")
+        self.model = model if model is not None else build(
+            SDXLTextTowers, device=device, generator=generator)
+
+    @property
+    def width(self) -> int:
+        """The context's width: the two towers' together."""
+        return sum(m.text_model.cfg.hidden_size for m in
+                   (self.model.text_encoder, self.model.text_encoder_2))
+
+    @torch.no_grad()
+    def encode(self, prompts: List[str]) -> PooledText:
+        """[n] prompts → (the penultimate states of both towers side by side
+        [n, 77, width], bigG's projected pooled state [n, projection])."""
+        dev = next(self.model.parameters()).device
+
+        def ids(tok):
+            return torch.from_numpy(np.asarray(tok(prompts, max_length=MAX_LEN),
+                                               dtype=np.int64)).to(dev)
+        _, _, pen_1 = self.model.text_encoder.text_model(ids(self.tokenizer),
+                                                         penultimate=True)
+        tower_2 = self.model.text_encoder_2
+        _, pooled, pen_2 = tower_2.text_model(ids(self.tokenizer_2), penultimate=True)
+        return PooledText(torch.cat([pen_1, pen_2], dim=-1), tower_2.text_projection(pooled))
+
+    def get_text_embeds(self, prompt: List[str], negative_prompt: List[str]) -> PooledText:
+        """[uncond; cond]: an empty negative prompt's context and pooled
+        embedding are zeros."""
+        cond, neg = self.encode(prompt), self.encode(negative_prompt)
+        empty = torch.tensor([not n for n in negative_prompt], device=cond.context.device)
+        neg = PooledText(neg.context.masked_fill(empty[:, None, None], 0.0),
+                         neg.pooled.masked_fill(empty[:, None], 0.0))
+        return PooledText(torch.cat([neg.context, cond.context]),
+                          torch.cat([neg.pooled, cond.pooled]))
 
 
 @torch.no_grad()

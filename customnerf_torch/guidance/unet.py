@@ -6,7 +6,15 @@ Module names are diffusers' state-dict keys (``down_blocks.0.resnets.1``,
 loads with ``load_state_dict`` as is.  SD 1.x layout: 1×1-conv
 ``proj_in``/``proj_out``, exact-erf GEGLU, cross-attention without q/k/v
 biases; SD 2.x (:func:`sd2_unet_config`) is the same layout with a wider
-context and per-level head counts.  Attention is computed as the JAX
+context and per-level head counts.  SDXL base 1.0 (:func:`sdxl_unet_config`)
+is that layout at three levels, with diffusers' block types deciding which
+levels attend (``DownBlock2D`` / ``UpBlock2D`` have no attention), stacks
+of ``transformer_layers_per_block`` transformer blocks (1, 2, 10; the mid
+block takes the deepest level's) and its "text_time" conditioning: six
+time ids, each embedded sinusoidally at ``addition_time_embed_dim``
+(flip_sin_to_cos, shift 0), concatenated after the pooled text embedding
+and mapped by ``add_embedding`` (linear, SiLU, linear) onto the timestep
+embedding, to which it is added.  Attention is computed as the JAX
 package computes it: matmul → softmax → matmul in plain PyTorch, which at
 64×64 latents and batch 2 materialises 2×heads×4096×4096 f32 scores per
 self-attention call of the first level (8 heads, 1.07 GB, for 1.x; 5 for
@@ -34,12 +42,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from customnerf_torch.engine import spans
 from customnerf_torch.guidance.layers import (Conv2d, Downsample2D, GroupNorm,
                                               LayerNorm, Linear, ResnetBlock2D,
                                               Upsample2D, compute_dtype)
@@ -56,7 +65,30 @@ class UNetConfig:
     # level (SD 1.5: 8) or one per level
     attention_head_dim: Union[int, Tuple[int, ...]] = 8
     norm_num_groups: int = 32
+    # diffusers' block types, one a level; None: SD 1.x/2.x's, attention at
+    # every level but the deepest
+    down_block_types: Optional[Tuple[str, ...]] = None
+    up_block_types: Optional[Tuple[str, ...]] = None
+    # transformer blocks in each Transformer2DModel: an int for every level
+    # or one per level; the mid block takes the deepest level's
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # SDXL's added conditioning: None, or "text_time" with the width of a
+    # time id's embedding and add_embedding's input width (pooled + 6 ids)
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: Optional[int] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
     dtype: str = "float32"      # the compute dtype: "float32" | "bfloat16"
+
+    def __post_init__(self):
+        n = len(self.block_out_channels)
+        for name, kinds in (("down_block_types", _DOWN), ("up_block_types", _UP)):
+            types = getattr(self, name)
+            if types is not None and (len(types) != n or not set(types) <= set(kinds)):
+                raise ValueError(f"{name} must give one of {kinds} for each of the "
+                                 f"{n} levels, got {types}")
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type must be None or 'text_time', "
+                             f"got {self.addition_embed_type!r}")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -65,6 +97,29 @@ class UNetConfig:
     def heads_at(self, level: int) -> int:
         hd = self.attention_head_dim
         return int(hd[level]) if isinstance(hd, (tuple, list)) else int(hd)
+
+    def depth_at(self, level: int) -> int:
+        d = self.transformer_layers_per_block
+        return int(d[level]) if isinstance(d, (tuple, list)) else int(d)
+
+    def attends(self, kind: str, i: int) -> bool:
+        """Whether the ``kind`` ("down" | "up") block ``i`` has attention."""
+        n = len(self.block_out_channels)
+        types = self.down_block_types if kind == "down" else self.up_block_types
+        if types is None:
+            return i < n - 1 if kind == "down" else i > 0
+        return types[i].startswith("CrossAttn")
+
+    @property
+    def text_embeds_dim(self) -> Optional[int]:
+        """The pooled text embedding's width the "text_time" branch takes."""
+        if self.addition_embed_type is None:
+            return None
+        return self.projection_class_embeddings_input_dim - 6 * self.addition_time_embed_dim
+
+
+_DOWN = ("CrossAttnDownBlock2D", "DownBlock2D")
+_UP = ("CrossAttnUpBlock2D", "UpBlock2D")
 
 
 def sd2_unet_config(dtype: str = "float32") -> UNetConfig:
@@ -75,6 +130,24 @@ def sd2_unet_config(dtype: str = "float32") -> UNetConfig:
     ``weights.py`` reshapes them."""
     return UNetConfig(cross_attention_dim=1024, attention_head_dim=(5, 10, 20, 20),
                       dtype=dtype)
+
+
+def sdxl_unet_config(dtype: str = "float32") -> UNetConfig:
+    """SDXL base 1.0 (``unet/config.json``): widths (320, 640, 1280), no
+    attention at the first level, (1, 2, 10) transformer blocks a level,
+    64-wide heads, a 2048-wide context and the "text_time" conditioning
+    (256-wide time-id embeddings, 2816 = 1280 pooled + 6 × 256).  diffusers
+    stores ``proj_in``/``proj_out`` as linear layers; they are the 1×1
+    convs here, as for 2.x."""
+    return UNetConfig(block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+                      attention_head_dim=(5, 10, 20),
+                      down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                        "CrossAttnDownBlock2D"),
+                      up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                                      "UpBlock2D"),
+                      transformer_layers_per_block=(1, 2, 10),
+                      addition_embed_type="text_time", addition_time_embed_dim=256,
+                      projection_class_embeddings_input_dim=2816, dtype=dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000):
@@ -183,14 +256,17 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """GroupNorm → 1×1 conv → one transformer block → 1×1 conv, residual."""
+    """GroupNorm → 1×1 conv → ``depth`` transformer blocks → 1×1 conv,
+    residual."""
 
-    def __init__(self, channels: int, heads: int, ctx_dim: int, groups: int):
+    def __init__(self, channels: int, heads: int, ctx_dim: int, groups: int,
+                 depth: int = 1):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, heads, channels // heads, ctx_dim)])
+            [BasicTransformerBlock(channels, heads, channels // heads, ctx_dim)
+             for _ in range(depth)])
         self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x, context, cd_kv=None):
@@ -198,25 +274,25 @@ class Transformer2DModel(nn.Module):
         res = x
         x = self.proj_in(self.norm(x))
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        x = self.transformer_blocks[0](x, context, cd_kv)
+        for block in self.transformer_blocks:
+            x = block(x, context, cd_kv)
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(x) + res
 
 
 class _Block(nn.Module):
-    """A down or up level: ``resnets``, optional ``attentions`` and
+    """A down or up level: ``resnets``, ``n_attn`` ``attentions`` of
+    ``depth`` transformer blocks (none without attention) and
     ``downsamplers``/``upsamplers`` (diffusers' names)."""
 
     def __init__(self, in_chs, out_ch, temb_ch, groups, heads, ctx_dim,
-                 has_attn, sampler=None):
+                 n_attn, depth=1, sampler=None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [ResnetBlock2D(c, out_ch, temb_ch, groups) for c in in_chs])
-        if has_attn:
-            # one a resnet; the mid block (has_attn=1) has one for two
-            n_attn = len(in_chs) if has_attn is True else int(has_attn)
+        if n_attn:
             self.attentions = nn.ModuleList(
-                [Transformer2DModel(out_ch, heads, ctx_dim, groups)
+                [Transformer2DModel(out_ch, heads, ctx_dim, groups, depth)
                  for _ in range(n_attn)])
         if sampler == "down":
             self.downsamplers = nn.ModuleList([Downsample2D(out_ch)])
@@ -226,7 +302,12 @@ class _Block(nn.Module):
 
 class UNet2DCondition(nn.Module):
     """``forward(sample [B, 4, h, w], timesteps [B] or scalar,
-    context [B, 77, D], cd_kv=None) → ε [B, 4, h, w]``."""
+    context [B, 77, D], cd_kv=None, added_cond=None) → ε [B, 4, h, w]``.
+
+    The tracer's device spans (``engine/spans.py``): ``unet.level<i>``
+    around each down and each up block of level i (both summed under one
+    name), ``unet.mid``, and, with "text_time", ``unet.text_time`` around
+    the added embedding."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
@@ -238,6 +319,9 @@ class UNet2DCondition(nn.Module):
 
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_ch)
 
         self.down_blocks = nn.ModuleList()
         skips = [ch[0]]
@@ -246,11 +330,13 @@ class UNet2DCondition(nn.Module):
             in_chs = [ch[max(i - 1, 0)]] + [ch[i]] * (L - 1)
             self.down_blocks.append(_Block(
                 in_chs, ch[i], temb_ch, groups, cfg.heads_at(i), ctx,
-                has_attn=not last, sampler=None if last else "down"))
+                n_attn=L if cfg.attends("down", i) else 0, depth=cfg.depth_at(i),
+                sampler=None if last else "down"))
             skips += [ch[i]] * (L if last else L + 1)
 
         self.mid_block = _Block([ch[-1], ch[-1]], ch[-1], temb_ch, groups,
-                                cfg.heads_at(n - 1), ctx, has_attn=1)
+                                cfg.heads_at(n - 1), ctx, n_attn=1,
+                                depth=cfg.depth_at(n - 1))
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
@@ -260,13 +346,18 @@ class UNet2DCondition(nn.Module):
             in_chs = [(prev if j == 0 else rev[i]) + skip[j] for j in range(L + 1)]
             self.up_blocks.append(_Block(
                 in_chs, rev[i], temb_ch, groups, cfg.heads_at(n - 1 - i), ctx,
-                has_attn=i > 0, sampler="up" if i < n - 1 else None))
+                n_attn=L + 1 if cfg.attends("up", i) else 0,
+                depth=cfg.depth_at(n - 1 - i), sampler="up" if i < n - 1 else None))
             prev = rev[i]
+        self._level_spans = [f"unet.level{i}" for i in range(n)]
 
         self.conv_norm_out = GroupNorm(groups, ch[0], eps=1e-5)
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1, f32=True)
 
-    def forward(self, sample, timesteps, context, cd_kv=None):
+    def forward(self, sample, timesteps, context, cd_kv=None, added_cond=None):
+        """``added_cond`` (diffusers' ``added_cond_kwargs``): with
+        "text_time", ``{"text_embeds": [B, P], "time_ids": [B, 6]}``, the
+        pooled text embedding and the time ids; refused without it."""
         cd_kv = cd_kv or {}
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
@@ -274,33 +365,53 @@ class UNet2DCondition(nn.Module):
         dt = self.cfg.compute_dtype
         temb = self.time_embedding(
             timestep_embedding(timesteps, self.cfg.block_out_channels[0]).to(dt))
+        if hasattr(self, "add_embedding"):
+            if added_cond is None:
+                raise ValueError("the text-time UNet needs added_cond "
+                                 "(text_embeds and time_ids)")
+            with spans.device("unet.text_time"):
+                temb = temb + self._text_time(added_cond, dt)
+        elif added_cond is not None:
+            raise ValueError("added_cond given to a UNet without addition_embed_type")
         temb = temb.expand(sample.shape[0], -1)
         context = context.to(dt)
+        levels = self._level_spans
 
         h = self.conv_in(sample.to(dt))
         skips = [h]
         for i, blk in enumerate(self.down_blocks):
-            for j, resnet in enumerate(blk.resnets):
-                h = resnet(h, temb)
-                if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context,
-                                          cd_kv.get(f"down_blocks.{i}.attentions.{j}"))
-                skips.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h)
-                skips.append(h)
+            with spans.device(levels[i]):
+                for j, resnet in enumerate(blk.resnets):
+                    h = resnet(h, temb)
+                    if hasattr(blk, "attentions"):
+                        h = blk.attentions[j](h, context,
+                                              cd_kv.get(f"down_blocks.{i}.attentions.{j}"))
+                    skips.append(h)
+                if hasattr(blk, "downsamplers"):
+                    h = blk.downsamplers[0](h)
+                    skips.append(h)
 
-        mid = self.mid_block
-        h = mid.attentions[0](mid.resnets[0](h, temb), context,
-                              cd_kv.get("mid_block.attentions.0"))
-        h = mid.resnets[1](h, temb)
+        with spans.device("unet.mid"):
+            mid = self.mid_block
+            h = mid.attentions[0](mid.resnets[0](h, temb), context,
+                                  cd_kv.get("mid_block.attentions.0"))
+            h = mid.resnets[1](h, temb)
 
         for i, blk in enumerate(self.up_blocks):
-            for j, resnet in enumerate(blk.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
-                if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context,
-                                          cd_kv.get(f"up_blocks.{i}.attentions.{j}"))
-            if hasattr(blk, "upsamplers"):
-                h = blk.upsamplers[0](h)
+            with spans.device(levels[len(levels) - 1 - i]):
+                for j, resnet in enumerate(blk.resnets):
+                    h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                    if hasattr(blk, "attentions"):
+                        h = blk.attentions[j](h, context,
+                                              cd_kv.get(f"up_blocks.{i}.attentions.{j}"))
+                if hasattr(blk, "upsamplers"):
+                    h = blk.upsamplers[0](h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+    def _text_time(self, added_cond, dt):
+        """``add_embedding([text_embeds | sinusoids of the time ids])``: each
+        id embedded at ``addition_time_embed_dim`` in f32, then cast."""
+        text, ids = added_cond["text_embeds"], added_cond["time_ids"]
+        ids = timestep_embedding(ids.reshape(-1), self.cfg.addition_time_embed_dim)
+        cond = torch.cat([text.float(), ids.reshape(text.shape[0], -1)], dim=-1)
+        return self.add_embedding(cond.to(dt))

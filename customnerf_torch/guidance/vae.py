@@ -3,8 +3,11 @@
 
 Module names are diffusers' (``encoder.down_blocks.0.resnets.1``,
 ``encoder.mid_block.attentions.0.to_q``, ``quant_conv``).  SDS uses
-``encode``: images in [-1, 1] → posterior sample × 0.18215
-(reference ``nerf/sd.py:97-105``); ``decode`` inverts it.
+``encode``: images in [-1, 1] → posterior sample × ``scaling_factor``
+(0.18215 for SD 1.x/2.x, reference ``nerf/sd.py:97-105``; 0.13025 for
+SDXL, whose VAE has the same layout); ``decode`` inverts it.
+``sample_size`` is the side of the square image the model encodes (512,
+SDXL's 1024): the editing step resizes its frame to it.
 
 ``VAEConfig.dtype`` is the compute dtype (flax's policy, ``layers.py``):
 the encoder and decoder cast their input to it, the mid-block attention
@@ -37,6 +40,7 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
     norm_num_groups: int = 32
+    sample_size: int = 512
     scaling_factor: float = 0.18215
     dtype: str = "float32"      # the compute dtype: "float32" | "bfloat16"
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from customnerf_torch.guidance.sds import StableDiffusionGuidance
+from customnerf_torch.guidance.text import PooledText
 
 
 def _module_stats(module) -> dict:
@@ -62,7 +63,9 @@ def validate_weights(opt, guidance=None, clip_matcher=None, device=None) -> dict
               f"checksum {r['checksum']:.6e}, dtypes {r['dtypes']}")
 
     prompt = opt.text or "a photo of a corgi"
-    text_z = guidance.get_text_embeds([prompt], [""])
+    text_z, pooled = guidance.get_text_embeds([prompt], [""]), None
+    if isinstance(text_z, PooledText):          # xl: the context and the pooled
+        text_z, pooled = text_z
     report["text_embed"] = {"shape": list(text_z.shape),
                             "checksum": float(text_z.double().abs().sum())}
     print(f"[validate] text embed '{prompt}': shape {report['text_embed']['shape']}, "
@@ -71,7 +74,8 @@ def validate_weights(opt, guidance=None, clip_matcher=None, device=None) -> dict
     # 8×8 latents: divisible by the UNet's 3 downsamples, cheap everywhere
     lat = torch.zeros(2, 4, 8, 8, device=dev)
     eps = guidance.unet(lat, torch.full((2,), 500, device=dev), text_z,
-                        cd_kv=getattr(guidance, "cd_kv", None)).double().cpu().numpy()
+                        cd_kv=getattr(guidance, "cd_kv", None),
+                        added_cond=guidance.added_cond(pooled)).double().cpu().numpy()
     report["eps_prediction"] = {"shape": list(eps.shape),
                                 "finite": bool(np.isfinite(eps).all()),
                                 "checksum": float(np.abs(eps).sum()),

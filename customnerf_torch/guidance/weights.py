@@ -12,7 +12,10 @@ UNet's ``proj_in``/``proj_out`` as ``[C, C]`` linear weights
 ``weights.py:87-93``).  The VAE's older attention names
 (``query/key/value/proj_attn``, some stored as 1×1 convs) are renamed.  The
 2.x text encoder (OpenCLIP ViT-H, 23 layers) loads through the same keys
-as 1.x's.
+as 1.x's.  An SDXL base directory (``--sd_version xl``) adds
+``text_encoder_2/`` (OpenCLIP ViT-bigG with its ``text_projection``) and
+``tokenizer_2/``; its UNet's ``proj_in``/``proj_out`` are linear, reshaped
+as 2.x's, and each tower loads into its slot of ``text.SDXLTextTowers``.
 ``.safetensors`` files need the ``safetensors`` package and are refused
 without it.  A sub-model without a file keeps its random weights, with a
 warning, as in the JAX package.  The files are read as f32 and each tensor
@@ -99,8 +102,8 @@ def _keep_added_rows(model, state: dict):
 
 
 def load_sd_weights(guidance, weights_dir: str):
-    """Fill ``guidance.unet``, ``guidance.vae`` and the text encoder from
-    ``weights_dir``."""
+    """Fill ``guidance.unet``, ``guidance.vae`` and the text encoder (for
+    SDXL both towers) from ``weights_dir``."""
     names = ("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors")
     unet_path = _find(os.path.join(weights_dir, "unet"), *names)
     if unet_path:
@@ -114,13 +117,19 @@ def load_sd_weights(guidance, weights_dir: str):
                    vae_path)
     else:
         print(f"[WARN] no VAE weights under {weights_dir}/vae — random init.")
-    te_path = _find(os.path.join(weights_dir, "text_encoder"),
-                    "pytorch_model.bin", "model.safetensors")
-    if te_path:
-        state = {k: v for k, v in load_torch_state(te_path).items()
-                 if not k.endswith("position_ids")}
-        _keep_added_rows(guidance.text_encoder.model, state)
-        _load_into(guidance.text_encoder.model, state, "text encoder", te_path)
+    towers = guidance.text_encoder.model
+    if hasattr(towers, "text_encoder_2"):           # SDXL: two towers
+        slots = [("text_encoder", towers.text_encoder),
+                 ("text_encoder_2", towers.text_encoder_2)]
     else:
-        print(f"[WARN] no text encoder under {weights_dir}/text_encoder — "
-              f"random init.")
+        slots = [("text_encoder", towers)]
+    for sub, model in slots:
+        te_path = _find(os.path.join(weights_dir, sub), "pytorch_model.bin",
+                        "model.safetensors")
+        if te_path:
+            state = {k: v for k, v in load_torch_state(te_path).items()
+                     if not k.endswith("position_ids")}
+            _keep_added_rows(model, state)
+            _load_into(model, state, sub.replace("_", " "), te_path)
+        else:
+            print(f"[WARN] no text encoder under {weights_dir}/{sub} — random init.")

@@ -13,7 +13,7 @@ port's own single steps and the JAX package's scanned paths.
   ``train_step`` calls bit for bit — parameters, Adam state, occupancy
   state, losses, ``global_step`` — for ``-O`` and ``-O2``, with and without
   ``--batch_rays``; so does ``editing_steps_many`` at K = 2 against two
-  ``editing_step`` calls (tiny SD stack, ``RESIZE`` 64).
+  ``editing_step`` calls (tiny SD stack, its VAE at 64²).
 * Against JAX's scan: the port's 3-step dispatch against the JAX
   ``train_many`` (K = 3) with the JAX march jitter handed to the port
   (``torch.rand`` patched, as ``tests/test_torch_dense.py`` does), and the
@@ -340,7 +340,6 @@ def _edit_trainer(w):
 
 
 def test_editing_steps_many_equals_single_steps_bitwise(edit_world, monkeypatch):
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     w = edit_world
     a, b = _edit_trainer(w), _edit_trainer(w)
     la = []
@@ -361,7 +360,6 @@ def test_editing_steps_many_matches_jax(edit_world, monkeypatch, tmp_path):
     ``tests/test_editing_scan.py`` does) against the port's with every JAX
     draw handed over: bg colour, t, march jitter, VAE and SDS noise."""
     w = edit_world
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     orig_resize = jax.image.resize
 
     def small_resize(x, shape, method="bilinear", **kw):

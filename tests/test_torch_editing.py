@@ -6,7 +6,7 @@ bg colour and noises; march jitter off on both sides.
 The JAX step is composed here from the JAX package's own pieces, as its
 ``_build_editing_step`` composes them: ``render_rays_fast``, the bilinear
 ``jax.image.resize`` (to 64² instead of 512², as ``tests/test_editing.py``
-shrinks it; the port reads the size from ``engine/editing.py::RESIZE``), the
+shrinks it; the port's tiny VAE has ``sample_size`` 64), the
 guidance's ``encode_imgs_fn`` and ``sds_loss_fn`` on a tiny UNet/VAE, and
 the surrogate ``sum(latents · sg(cotangent)) + keep_bg · L1``.
 
@@ -87,7 +87,8 @@ def tiny_guidance(opt, unet=UNET, text=TEXT):
     text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(**text),
                                    generator=torch.Generator().manual_seed(0)))
     return StableDiffusionGuidance(opt, device="cpu", unet_cfg=UNetConfig(**unet),
-                                   vae_cfg=VAEConfig(**VAE), text_encoder=text)
+                                   vae_cfg=VAEConfig(**VAE, sample_size=SIDE),
+                                   text_encoder=text)
 
 
 @pytest.fixture(scope="module")
@@ -213,7 +214,6 @@ def check_editing_step(w, monkeypatch, branch, ori_bg):
     tr.pt_dict[batch.img_path] = dict(pt_rgb_bg=torch.tensor(np.asarray(pt_bg)),
                                       pt_mask=torch.tensor(np.asarray(pt_mask)),
                                       match_probs=None)
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     loss, aux, stats = editing.editing_step(
         tr, batch, perturb=False,
         draws=dict(bg_color=torch.tensor(np.asarray(bg)), t=T, noise=nchw(noise),
@@ -265,7 +265,6 @@ def test_pt_cache_fill_and_frozen_field(world, tmp_path, monkeypatch):
     torch.testing.assert_close(white["image"], none["image"] + (1 - ws)[:, None])
     torch.testing.assert_close(white["bg"]["image"], none["bg"]["image"])
 
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     before = [p.detach().clone() for p in tr.field.parameters()]
     for _ in range(2):
         loss, aux, _ = tr.train_step(batch)

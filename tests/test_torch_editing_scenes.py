@@ -61,7 +61,6 @@ from test_editing_mesh import _patched  # noqa: E402
 from test_torch_mesh import run_two_ranks  # noqa: E402
 
 FLAGS = dict(worker.EDIT, cuda_ray=True, occ_grid_size=worker.G, h=12, w=10)
-SIDE = 64
 LOSS_REL, LEAF_REL = 1e-4, 1e-3
 
 
@@ -181,7 +180,6 @@ def test_editing_step_scenes_matches_jax(jax_world, tmp_path, monkeypatch, per_s
     jp1, jo1, jlosses, jaux = jed.editing_step_scenes(
         jtr, jbatches, jparams_s, jopt_s, key, scenes=jscenes, occ_s=jocc_s)
 
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     tr = port_trainer(jtr, str(tmp_path))
     tr.occ_state = tocc.state_from_grid(torch.tensor(dens[0]), 1.0,
                                         tr.opt.density_thresh, grid_size=worker.G)
@@ -247,7 +245,6 @@ def test_adam_state_round_trip(jax_world):
 def test_two_scenes_equal_two_single_scene_steps(tmp_path, monkeypatch):
     """One S = 2 step (one UNet call of batch 4) against two single-scene
     steps, each on its scene's state, draws, generator and gate."""
-    monkeypatch.setattr(editing, "RESIZE", SIDE)
     tr = worker.edit_trainer("", str(tmp_path / "s"), h=12, w=10, cuda_ray=True)
     loader = NeRFDataset(tr.opt, "train", device="cpu").dataloader()
     batches = [loader.item(0), loader.item(1)]
@@ -293,10 +290,7 @@ def test_two_scenes_equal_two_single_scene_steps(tmp_path, monkeypatch):
 def mesh_runs(tmp_path_factory):
     torch.set_num_threads(2)
     ws = tmp_path_factory.mktemp("edit_single")
-    mp = pytest.MonkeyPatch()
-    mp.setattr(editing, "RESIZE", SIDE)
     single = worker.editing_cases("", str(ws))
-    mp.undo()
     return run_two_ranks("editing", tmp_path_factory.mktemp("edit_mesh")), single
 
 

@@ -188,7 +188,7 @@ def tiny_stack():
                                     cross_attention_dim=32, attention_head_dim=4,
                                     norm_num_groups=8),
                 vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
-                                  norm_num_groups=8))
+                                  norm_num_groups=8, sample_size=64))
 
 
 def build_tiny_guidance(opt, stack):
@@ -256,7 +256,6 @@ def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     --editing_from, and take LGIE/SDS editing steps with a tiny SD stack."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine import editing
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.clip_view import (CLIPModel, CLIPViewMatcher,
                                                      CLIPVisionConfig)
@@ -289,7 +288,7 @@ def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
                             cross_attention_dim=32, attention_head_dim=4,
                             norm_num_groups=8),
         vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
-                          norm_num_groups=8))
+                          norm_num_groups=8, sample_size=64))
     tiny_clip = build(CLIPModel, CLIPTextConfig(hidden_size=32, intermediate_size=64,
                                                 num_hidden_layers=2, num_attention_heads=4),
                       CLIPVisionConfig(hidden_size=32, intermediate_size=64,
@@ -298,7 +297,6 @@ def test_tiny_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
     edit.clip_matcher = CLIPViewMatcher(model=tiny_clip)
     assert torch.equal(edit.occ_state.bitfield, recon.occ_state.bitfield)
-    monkeypatch.setattr(editing, "RESIZE", 64)
     edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=2)
     assert edit.global_step == 12 and edit.n_updates == 12
     assert all(math.isfinite(v) for v in edit.stats["loss"])
@@ -350,7 +348,6 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     field."""
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine import editing
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance.layers import build
     from customnerf_torch.guidance.sds import StableDiffusionGuidance
@@ -381,7 +378,7 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
                             cross_attention_dim=32, attention_head_dim=4,
                             norm_num_groups=8),
         vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
-                          norm_num_groups=8))
+                          norm_num_groups=8, sample_size=64))
     edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
     assert edit.occ_state is None
     view = NeRFDataset(p2, "val", device="cpu").dataloader().item(0)
@@ -389,7 +386,6 @@ def test_tiny_o2_phase1_checkpoint_phase2_on_cpu(tmp_path, monkeypatch):
     b = edit.render_image(view.rays_o, view.rays_d, field=edit.field_pretrained)
     assert torch.equal(a["image"], b["image"])
     before = edit.field.grid_table.detach().clone()
-    monkeypatch.setattr(editing, "RESIZE", 64)
     edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=2)
     assert edit.global_step == 12 and edit.n_updates == 12
     assert all(math.isfinite(v) for v in edit.stats["loss"]) and edit.pt_dict
@@ -484,7 +480,6 @@ def test_tiny_tune_then_use_cd_editing_on_cpu(tmp_path, monkeypatch):
     from customnerf_torch import tune_custom_diffusion
     from customnerf_torch.config import parse_args
     from customnerf_torch.data.base import NeRFDataset
-    from customnerf_torch.engine import editing
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.utils.jpeg import write_jpeg
     quiet = lambda *_: None                                     # noqa: E731
@@ -523,6 +518,5 @@ def test_tiny_tune_then_use_cd_editing_on_cpu(tmp_path, monkeypatch):
         without = guidance.unet(x, torch.tensor([500, 500]), ctx)
     assert not torch.equal(with_cd, without)
     edit = Trainer(p2, device="cpu", log=quiet, guidance=guidance, use_checkpoint=p2.ckpt)
-    monkeypatch.setattr(editing, "RESIZE", 64)
     edit.train(NeRFDataset(p2, "train", device="cpu").dataloader(), max_epochs=1)
     assert edit.global_step == 6 and all(math.isfinite(v) for v in edit.stats["loss"])

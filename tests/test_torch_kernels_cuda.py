@@ -427,9 +427,8 @@ def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
                             cross_attention_dim=32, attention_head_dim=4,
                             norm_num_groups=8),
         vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
-                          norm_num_groups=8))
+                          norm_num_groups=8, sample_size=64))
     tr = Trainer(opt, guidance=guidance, use_checkpoint="scratch", log=lambda *_: None)
-    monkeypatch.setattr(editing, "RESIZE", 64)
     before = [p.detach().clone() for p in tr.field.parameters()]
     batch = NeRFDataset(opt, "train").dataloader().item(0)
     # -O: the bf16 heads and dT's bf16 operands (the JAX package's policy)
@@ -470,7 +469,7 @@ def _tiny_guidance(opt, device, seed=0, dtype=None, unet=TINY_UNET, text=TINY_TE
     return StableDiffusionGuidance(
         opt, device=device, text_encoder=text, unet_cfg=UNetConfig(**unet),
         vae_cfg=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
-                          norm_num_groups=8), dtype=dtype)
+                          norm_num_groups=8, sample_size=64), dtype=dtype)
 
 
 def _jpeg_concepts(d, n=2, size=48):
@@ -574,7 +573,6 @@ def test_use_cd_editing_step_on_card(cuda, tmp_path, monkeypatch):
         assert not torch.equal(guidance.unet(x, t, ctx, cd_kv=guidance.cd_kv),
                                guidance.unet(x, t, ctx))
     tr = Trainer(opt, guidance=guidance, use_checkpoint="scratch", log=lambda *_: None)
-    monkeypatch.setattr(editing, "RESIZE", 64)
     batch = NeRFDataset(opt, "train").dataloader().item(0)
     # -O: the bf16 heads and dT's bf16 operands (the JAX package's policy)
     n_mlp = fused_mlp.fused_mlp_forward.launches_bf16
@@ -727,7 +725,6 @@ def _graphed_editing_check(cuda, tmp_path, monkeypatch, flags=(), **stack):
         *flags])
     guidance = _tiny_guidance(opt, cuda, **stack)
     assert guidance.dtype == "bfloat16"
-    monkeypatch.setattr(editing, "RESIZE", 64)
     eager, again, graphed = (Trainer(opt, guidance=guidance, use_checkpoint="scratch",
                                      log=lambda *_: None) for _ in range(3))
     loader = NeRFDataset(opt, "train").dataloader()
@@ -1004,7 +1001,6 @@ def test_graphed_editing_step_splits_its_backward(cuda, tmp_path, monkeypatch,
         str(tmp_path / "r" / "checkpoints" / "df_ep0001.pth"), "--text", "a corgi",
         "--text_fg", "a dog", "--lambda_sd", "0.01", "--keep_bg", "100",
         "--random_bg_c", "--detach_bg", "--allow_random_guidance"])
-    monkeypatch.setattr(editing, "RESIZE", 64)
     tr = Trainer(opt, guidance=_tiny_guidance(opt, cuda), use_checkpoint="scratch",
                  log=lambda *_: None)
     loader = NeRFDataset(opt, "train").dataloader()

@@ -200,8 +200,6 @@ def test_editing_step_stages_and_the_backward_split(tmp_path, tracer, monkeypatc
     UNet, loss, backward (› the VAE's, the resize's and the render's
     backward, split by gradient hooks; the K1 backward inside the render's)
     and Adam, with a pt-cache miss counted once a view."""
-    from customnerf_torch.engine import editing
-    monkeypatch.setattr(editing, "RESIZE", 64)
     flags = ["--pretrained", "--text", "a corgi", "--text_fg", "a dog",
              "--lambda_sd", "0.01", "--keep_bg", "100", "--random_bg_c", "--detach_bg",
              "--allow_random_guidance"]

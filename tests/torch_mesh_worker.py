@@ -38,7 +38,7 @@ RECON_FLAGS = ("-O --grid_type tiled --grid_levels 4 --grid_level_dim 2 "
                "--use_ckpt scratch").split()
 N_RAYS = 64
 G = 16
-RESIZE = 64
+SIDE = 64          # the tiny VAE's sample_size
 
 # tests/test_editing_mesh.py's editing setting, on the port's flags
 EDIT = dict(data_type="synthetic", iters=100, lr=5e-3, num_steps=8,
@@ -165,7 +165,8 @@ def tiny_guidance(opt):
     text = TextEncoder(model=build(CLIPTextModel, CLIPTextConfig(**TEXT),
                                    generator=torch.Generator().manual_seed(0)))
     return StableDiffusionGuidance(opt, device="cpu", unet_cfg=UNetConfig(**UNET),
-                                   vae_cfg=VAEConfig(**VAE), text_encoder=text)
+                                   vae_cfg=VAEConfig(**VAE, sample_size=SIDE),
+                                   text_encoder=text)
 
 
 def edit_trainer(mesh_shape, ws, **kw):
@@ -198,7 +199,6 @@ def editing_cases(mesh_shape: str, ws: str) -> dict:
     path; a 13×11 frame, whose 143 rays do not divide the axis, on ``-O``
     with compaction), a K = 2 ``editing_steps_many`` group, and the S = 2
     multi-scene step."""
-    editing.RESIZE = RESIZE
     out = {}
     data = mesh_shape.replace("scene", "data")      # the data-axis runs
     for name, kw in (("square", dict(h=16, w=16)),

@@ -45,16 +45,30 @@ import sys
 import time
 
 STEP_SPANS = ("edit.step", "recon.step")
-# per-layer readings of the split, by span: (device spans summed, host spans summed)
+EDIT = {
+    "unet_graphed_ms": (("unet",), ()),
+    "vae_encode_graphed_ms": (("vae_encode",), ()),
+    "vae_backward_graphed_ms": (("vae_encode.bwd",), ()),
+    "render_graphed_ms": (("render",), ()),
+    "render_backward_graphed_ms": (("render.bwd",), ()),
+    "host_ms": ((), ("pre_pass", "replay.copy", "replay")),
+}
+
+
+def unet_parts(levels: int, text_time: bool = False) -> dict:
+    """The UNet's levels (each level's down and up block), its mid block
+    and, for SDXL, its text-time embedding."""
+    out = {f"unet_level{i}_graphed_ms": ((f"unet.level{i}",), ()) for i in range(levels)}
+    out["unet_mid_graphed_ms"] = (("unet.mid",), ())
+    if text_time:
+        out["unet_text_time_graphed_ms"] = (("unet.text_time",), ())
+    return out
+
+
+# per-layer readings of the split, by job: (device spans summed, host spans summed)
 READINGS = {
-    "edit": {
-        "unet_graphed_ms": (("unet",), ()),
-        "vae_encode_graphed_ms": (("vae_encode",), ()),
-        "vae_backward_graphed_ms": (("vae_encode.bwd",), ()),
-        "render_graphed_ms": (("render",), ()),
-        "render_backward_graphed_ms": (("render.bwd",), ()),
-        "host_ms": ((), ("pre_pass", "replay.copy", "replay")),
-    },
+    "edit": {**EDIT, **unet_parts(4)},
+    "edit_xl": {**EDIT, **unet_parts(3, text_time=True)},
     "recon": {
         "grid_encode_graphed_ms": (("grid_encode", "grid_encode.bwd"), ()),
         "grid_encode_backward_graphed_ms": (("grid_encode.bwd",), ()),
