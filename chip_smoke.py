@@ -80,9 +80,20 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    must have changed.  Prints the step's median ms and its split (render to
    latents, UNet, backward + Adam), its peak memory, the SD stack's init
    seconds and the frozen pt render's ms.
+   Every UNet call of the steps launches the attention kernel once an
+   attention module (32 in SD 1.5, as it counts on the card) and none
+   takes the plain path (the ``attention_plain`` counter stays); that
+   count is the ``launches`` of the attention rows at SD 1.5's shapes.
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
-   versions, with the live-sample share.
+   versions, with the live-sample share; the UNet's attention kernel
+   (``csrc/attention.cu``) against the plain ``attention`` at each shape of
+   the main path (SD 1.5's four levels and SDXL's two attending levels,
+   each as self-attention and against 77 context keys; a ragged n; batch 4
+   of two scenes) on N(0, 1) bf16 inputs: the kernel's ms, its bound (the
+   larger of 4·b·h·n·m·d FLOPs at 989 TFLOP/s and q, k, v and the output
+   once at 3.35 TB/s), the plain ms and ``F.scaled_dot_product_attention``'s
+   ms on the same bf16 heads as a yardstick (the port never calls it).
 7a. multi-scene editing (N scenes × M prompts,
    ``engine/editing.py::editing_step_scenes``), on the editing trainer of
    phase 6 (phase 4's checkpoint, the full-width SD 1.5 stack in bf16):
@@ -300,6 +311,8 @@ K1, K1_BF16, DT, DT_BF16 = ("fused_field_mlp", "fused_field_mlp_bf16",
 GRID, GRID_BWD = "grid_encode", "grid_encode_bwd"
 # the grid field's paths (--parity): K1's bf16 mode and both grid kernels
 GRID_PATH = (K1_BF16, GRID, GRID_BWD)
+# the UNet's attention kernel, counted on the editing paths
+ATTENTION = "attention"
 
 
 def zero_counts():
@@ -1275,19 +1288,24 @@ def profile_editing_step(trainer, batch, n_top: int = 12):
 def editing_steps(trainer, opt, n_steps):
     """``n_steps`` editing steps through ``Trainer.train_step``, the launch
     counters zeroed just before and read just after, with the tracer's stage
-    times (:func:`editing_stages`).  Returns (steps, launches, peak and
-    resident bytes, the last step's K1 and dT inputs, the field's largest
-    change, the train loader)."""
+    times (:func:`editing_stages`); each step's UNet call must launch the
+    attention kernel once an attention module, and none run plain.  Returns
+    (steps, launches (the attention kernel's under ATTENTION, both of its
+    counts summed), peak and resident bytes, the last step's K1 and dT
+    inputs, the field's largest change, the train loader)."""
     import torch
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.measure import captured_calls
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance.unet import Attention
     from customnerf_torch.models import field
-    from customnerf_torch.ops import triplane
+    from customnerf_torch.ops import kernels, triplane
 
     dev = trainer.device
     train = NeRFDataset(opt, "train", device=dev).dataloader()
     before = [p.detach().clone() for p in trainer.field.parameters()]
     steps = []
+    plain0 = spans.counters["attention_plain"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
@@ -1311,7 +1329,11 @@ def editing_steps(trainer, opt, n_steps):
                               local=bool(stats["local"]), t=int(stats["t"]),
                               pt_cached=len(trainer.pt_dict)))
         launches = read_counts()
+        launches[ATTENTION] = sum(kernels.device_launches(ATTENTION))
     peak = torch.cuda.max_memory_allocated()
+    per_call = sum(isinstance(m, Attention) for m in trainer.guidance.unet.modules())
+    assert launches[ATTENTION] == n_steps * per_call, (launches, n_steps, per_call)
+    assert spans.counters["attention_plain"] == plain0, "a UNet attention call ran plain"
     assert all(math.isfinite(s[k]) for s in steps
                for k in ("loss", "loss_sds", "loss_bg")), steps
     assert all(e["match_probs"] is not None for e in trainer.pt_dict.values()), \
@@ -1348,7 +1370,7 @@ def run_editing(trainer, opt, label="editing"):
 
     steps, launches, peak, base_mem, mlp_input, dt_calls, moved, train = editing_steps(
         trainer, opt, EDIT_STEPS)
-    check_launched(launches, (K1_BF16, DT_BF16), "editing")
+    check_launched(launches, (K1_BF16, DT_BF16, ATTENTION), "editing")
     assert {s["local"] for s in steps} == {True, False}, "an LGIE branch never ran"
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
 
@@ -1833,7 +1855,7 @@ def cd_editing(guidance, clip_matcher, flags, n_steps, path):
     trainer.clip_matcher = clip_matcher
     steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
         trainer, eopt, n_steps)
-    check_launched(launches, (K1_BF16, DT_BF16), path)
+    check_launched(launches, (K1_BF16, DT_BF16, ATTENTION), path)
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
     assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
     edit = {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -2250,6 +2272,80 @@ def grid_rows(coarse_x, fine_x, table, spec, launches):
     return rows
 
 
+# (name, b, n, heads, d) of the UNet's attention calls on the main path
+ATTENTION_SHAPES = [
+    ("SD 1.5 level 0", 2, 4096, 8, 40), ("SD 1.5 level 1", 2, 1024, 8, 80),
+    ("SD 1.5 level 2", 2, 256, 8, 160), ("SD 1.5 level 3", 2, 64, 8, 160),
+    ("SDXL level 1", 2, 4096, 10, 64), ("SDXL level 2", 2, 1024, 20, 64),
+    ("ragged n", 2, 1000, 8, 40), ("two scenes, SD 1.5 level 0", 4, 4096, 8, 40),
+]
+
+
+def attention_rows():
+    """The attention kernel (``csrc/attention.cu``) against the plain
+    ``guidance/unet.py::attention`` at each shape of ``ATTENTION_SHAPES``,
+    as self-attention and against 77 context keys, on N(0, 1) bf16 inputs.
+    Tolerance, per output: 2^-7 of it (its own bf16 rounding) + 2^-8 of the
+    largest |v| (a probability that lands one bf16 ulp apart: both sides
+    round the normalised probabilities, their f32 sums run in other
+    orders); ``max_abs_err`` is the largest error over that allowance
+    (``tolerance`` 1), ``max_diff`` the largest difference.  ``launches``
+    is left to the caller: the count of the path that runs the shape.
+    Library: ``F.scaled_dot_product_attention`` on the [b, h, n, d] views
+    of the same bf16 tensors, a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from customnerf_torch.engine.measure import device_ms
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for label, b, n, heads, d in ATTENTION_SHAPES:
+        for m in (n, 77):
+            q, k = (torch.randn(b, r, heads * d, device="cuda", generator=g).bfloat16()
+                    for r in (n, m))
+            v = torch.randn(b, m, heads * d, device="cuda", generator=g).bfloat16()
+            n0 = sum(kernels.device_launches(ATTENTION))
+            with torch.no_grad():
+                got = unet.attend(q, k, v, heads)
+                want = unet.attention(q, k, v, heads)
+            assert sum(kernels.device_launches(ATTENTION)) == n0 + 1, \
+                "attend took the plain path"
+            diff = (got.float() - want.float()).abs()
+            allow = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * float(v.float().abs().max())
+            err = float((diff / allow).max())
+            share = float((diff > 0).float().mean())
+            if not (err <= 1.0 and share < 1e-2):
+                raise AssertionError(f"attention {label} m={m}: {err} of the allowance, "
+                                     f"{share} of the outputs differ")
+            heads_view = [t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v)]
+            b_ms, b_by = bound(4.0 * b * heads * n * m * d,
+                               2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                               PEAK_BF16_FLOPS)
+            with torch.no_grad():
+                k_ms = device_ms(lambda: unet.attention_kernel(q, k, v, heads), 20)
+                p_ms = device_ms(lambda: unet.attention(q, k, v, heads), 5)
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(*heads_view), 20)
+            rows.append({
+                "name": ATTENTION,
+                "path": ("editing" if label.startswith("SD 1.5") else
+                         "UNet attention: shape check, no path of this script runs it"),
+                "shape": f"{label}, b={b} n={n} m={m} heads={heads} d={d}",
+                "route": "cuda", "source": "customnerf_torch/csrc/attention.cu",
+                "replaces": "none (the JAX attention is plain XLA); the plain "
+                            "attention of customnerf_torch/guidance/unet.py",
+                "max_abs_err": err, "tolerance": 1.0, "max_diff": float(diff.max()),
+                "share_differing": share,
+                "ms": k_ms, "kernel_ms": k_ms, "call_ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_peak": "bf16 989 TFLOP/s; HBM3 3.35 TB/s",
+                "library_ms": lib_ms, "other_mode_ms": None, "launches": None})
+            del q, k, v, got, want, diff, allow, heads_view
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_reference_checkpoint(trainer, opt):
     """Export the parity field as a reference-format (tcnn) checkpoint,
     load it through ``Trainer(..., use_checkpoint=<file>)`` and render the
@@ -2298,7 +2394,7 @@ def run_parity_editing(recon, guidance, clip_matcher):
     assert trainer.occ_state is None
     steps, launches, peak, base_mem, mlp_input, _, moved, _ = editing_steps(
         trainer, opt, PARITY_EDIT_STEPS)
-    check_launched(launches, GRID_PATH, "parity editing")
+    check_launched(launches, GRID_PATH + (ATTENTION,), "parity editing")
     assert mlp_input[0][0].shape[0] == PARITY_SAMPLES, mlp_input[0][0].shape
     del trainer
     return {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -3171,6 +3267,12 @@ def run_all(card, procs) -> int:
         r["launches"] = ed["launches"][r["name"]]
         r["path"] = "editing"
     rows += edit_rows + ed.pop("dispatch_rows")
+    attn_rows = attention_rows()
+    for r in attn_rows:             # in the log even if a later phase fails
+        if r["path"] == "editing":
+            r["launches"] = ed["launches"][ATTENTION]
+        log_row(r)
+    rows += attn_rows
     scenes, scene_rows = run_multi_scene(editor, edit_opt)
     log(f"[multi-scene] {card} | S = 2 scenes x 2 prompt pairs, {SCENE_STEPS} steps of "
         f"2 x {STEP_RAYS} rays, per-scene occupancy | {scenes['ms_s2']:.1f} ms/step at "
@@ -3265,7 +3367,7 @@ def run_all(card, procs) -> int:
             "max_abs_err", "tolerance", "ms", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_peak", "library_ms", "other_mode_ms",
             "live_share")
-    missing = {K1, K1_BF16, DT, DT_BF16, GRID, GRID_BWD} - {r["name"] for r in rows}
+    missing = {K1, K1_BF16, DT, DT_BF16, GRID, GRID_BWD, ATTENTION} - {r["name"] for r in rows}
     assert not missing, f"no row for {missing}"
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {

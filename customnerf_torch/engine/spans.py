@@ -28,7 +28,9 @@ pretrained renders of a pt-cache miss (``pt_render``), occupancy refreshes
 (``refresh``), the time ``AsyncSaver`` holds the training thread
 (``saver_block``: its snapshots, saves and waits) and its worker's writes
 (``saver_write``), the SD guidance's build, weights (drawn or loaded) and
-storage cast (``guidance_build``); a read of the ring sets
+storage cast (``guidance_build``), the UNet's attention calls on the card
+that took the plain path (``attention_plain``: f32 or differentiated
+inputs, ``guidance/unet.py::attend``); a read of the ring sets
 ``dropped_stamps``.
 
 :func:`collect` reads the ring (after a synchronize, one copy from the
@@ -70,7 +72,7 @@ _anchors: dict = {}                 # host span name -> ns of its first begin si
 counters = {"capture": 0, "capture_s": 0.0, "pt_render": 0, "pt_render_s": 0.0,
             "refresh": 0, "refresh_s": 0.0, "saver_block": 0, "saver_block_s": 0.0,
             "saver_write": 0, "saver_write_s": 0.0, "guidance_build": 0,
-            "guidance_build_s": 0.0, "dropped_stamps": 0}
+            "guidance_build_s": 0.0, "attention_plain": 0, "dropped_stamps": 0}
 
 
 def enable(on: bool = True, device=None) -> None:
@@ -318,6 +320,7 @@ def counters_line(since: dict) -> str:
             f"training thread {c['saver_block_s']:.3f} s over {c['saver_block']} calls "
             f"and wrote {c['saver_write_s']:.3f} s in {c['saver_write']} writes, "
             f"{c['guidance_build']} guidance builds ({c['guidance_build_s']:.3f} s), "
+            f"{c['attention_plain']} plain attention calls on the card, "
             f"{c['dropped_stamps']} stamps dropped")
 
 

@@ -15,10 +15,12 @@ time ids, each embedded sinusoidally at ``addition_time_embed_dim``
 (flip_sin_to_cos, shift 0), concatenated after the pooled text embedding
 and mapped by ``add_embedding`` (linear, SiLU, linear) onto the timestep
 embedding, to which it is added.  Attention is computed as the JAX
-package computes it: matmul → softmax → matmul in plain PyTorch, which at
-64×64 latents and batch 2 materialises 2×heads×4096×4096 f32 scores per
-self-attention call of the first level (8 heads, 1.07 GB, for 1.x; 5 for
-2.x).
+package computes it (:func:`attention`: matmul → softmax → matmul in plain
+PyTorch, which at 64×64 latents and batch 2 materialises 2×heads×4096×4096
+f32 scores per self-attention call of the first level, 1.07 GB for 1.x).
+On the card, bf16 inputs that need no gradient take one hand-written kernel
+(:func:`attend`, ``csrc/attention.cu``) that rounds where :func:`attention`
+rounds and stores no score.
 
 ``UNetConfig.dtype`` is the compute dtype (flax's policy, ``layers.py``):
 the sample and context are cast to it at entry, the timestep features are
@@ -52,6 +54,11 @@ from customnerf_torch.engine import spans
 from customnerf_torch.guidance.layers import (Conv2d, Downsample2D, GroupNorm,
                                               LayerNorm, Linear, ResnetBlock2D,
                                               Upsample2D, compute_dtype)
+from customnerf_torch.ops import kernels
+
+KERNEL_MAX_HEAD = 160        # the kernel's widest head (csrc/attention.cu)
+KERNEL_MAX_BLOCKS = 65535    # batch × heads: the launch grid's y extent
+KERNEL_MAX_ROW_STRIDE = 1 << 24   # k's and v's rows, in elements (int32 offsets)
 
 
 @dataclass(frozen=True)
@@ -186,6 +193,89 @@ def attention(q, k, v, heads: int):
     return out.transpose(1, 2).reshape(b, n, inner)
 
 
+def attend(q, k, v, heads: int):
+    """:func:`attention` on the route its inputs call for.  On the card,
+    bf16 inputs that need no gradient (:func:`takes_kernel`) launch the
+    kernel (:func:`attention_kernel`); any other input on the card (the f32
+    UNet, or a graph that autograd differentiates: Custom Diffusion tuning)
+    takes the plain function and adds one to the tracer's
+    ``attention_plain`` counter; CPU inputs take the plain function."""
+    if _on_card(q):
+        if takes_kernel(q, k, v):
+            return attention_kernel(q, k, v, heads)
+        spans.count("attention_plain")
+    return attention(q, k, v, heads)
+
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def takes_kernel(q, k, v) -> bool:
+    """Whether inputs on the card go to the kernel: all bf16, and no
+    autograd history wanted (grad mode off, or no input requiring grad)."""
+    ts = (q, k, v)
+    return (all(t.dtype == torch.bfloat16 for t in ts)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
+
+
+def check_kernel(q, k, v, heads: int) -> None:
+    """Raise on what the kernel does not take: q [b, n, h·d] and k, v
+    [b, m, h·d] bf16 on one device, m ≥ 1, d a multiple of 8 up to
+    KERNEL_MAX_HEAD, b·h ≤ KERNEL_MAX_BLOCKS, each with unit column stride,
+    its other strides multiples of 8 and its base 16-byte aligned (the
+    kernel copies 16-byte chunks of a head's row), k's and v's row strides
+    below KERNEL_MAX_ROW_STRIDE."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"attention: the kernel takes [b, n, h·d] tensors, not "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, n, inner = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != inner or k.shape[1] < 1:
+        raise ValueError(f"attention: keys and values [{b}, m ≥ 1, {inner}] for "
+                         f"queries {tuple(q.shape)}, not {tuple(k.shape)}, {tuple(v.shape)}")
+    if heads < 1 or inner % heads:
+        raise ValueError(f"attention: {inner} channels do not split into {heads} heads")
+    d = inner // heads
+    if d % 8 or not 8 <= d <= KERNEL_MAX_HEAD:
+        raise ValueError(f"attention: the kernel takes head widths that are multiples "
+                         f"of 8 up to {KERNEL_MAX_HEAD}, not {d}")
+    if b * heads > KERNEL_MAX_BLOCKS:
+        raise ValueError(f"attention: the kernel takes batch × heads ≤ "
+                         f"{KERNEL_MAX_BLOCKS}, not {b * heads}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"attention: the kernel takes bfloat16, not {name} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"attention: {name} on {t.device}, q on {q.device}")
+        if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"attention: the kernel reads 16-byte chunks of {name}'s "
+                             f"rows: unit column stride, strides multiples of 8 and a "
+                             f"16-byte aligned base, not strides {t.stride()}")
+        if name != "q" and t.stride(1) >= KERNEL_MAX_ROW_STRIDE:
+            raise ValueError(f"attention: the kernel takes {name}'s row stride below "
+                             f"{KERNEL_MAX_ROW_STRIDE}, not {t.stride(1)}")
+
+
+def attention_kernel(q, k, v, heads: int):
+    """:func:`attention` by the kernel (``csrc/attention.cu``) on CUDA bf16
+    tensors, the output written as [b, n, h·d] bf16.  The kernel counts its
+    launches, graph replays included: ``kernels.device_launches("attention")``."""
+    check_kernel(q, k, v, heads)
+    b, n, inner = q.shape
+    m, d = k.shape[1], inner // heads
+    out = torch.empty(b, n, inner, dtype=q.dtype, device=q.device)
+    if n:
+        with torch.cuda.device(q.device):
+            err = kernels.library().cn_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                b, heads, n, m, d, 1.0 / math.sqrt(d),
+                torch.cuda.current_stream().cuda_stream)
+        kernels.check(err, "attention")
+    return out
+
+
 class Attention(nn.Module):
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: int | None = None):
@@ -210,8 +300,8 @@ class Attention(nn.Module):
                 return F.linear(inp, kv[name].to(inp.dtype))
             return getattr(self, name)(inp)
 
-        out = attention(proj("to_q", x), proj("to_k", context), proj("to_v", context),
-                        self.heads)
+        out = attend(proj("to_q", x), proj("to_k", context), proj("to_v", context),
+                     self.heads)
         if "to_out" in kv:
             return F.linear(out, kv["to_out"].to(out.dtype),
                             kv["to_out_bias"].to(out.dtype))

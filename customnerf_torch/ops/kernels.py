@@ -64,13 +64,20 @@ _SIGNATURES = {
         _i64, _i32, _i32, ctypes.c_float,          # B, n_levels, C, shift
         _vp, _vp,                                  # packed levels (host), stream
     ],
+    "cn_attention_forward": [
+        _vp, _vp, _vp, _vp,                        # q, k, v, out
+        _i64, _i64, _i64, _i64,                    # q, k batch and row strides
+        _i64, _i64, _i64, _i64,                    # v, out batch and row strides
+        _i32, _i32, _i32, _i32, _i32,              # batch, heads, n, m, d
+        ctypes.c_float, _vp,                       # scale, stream
+    ],
 }
 # the bf16 modes take the f32 modes' arguments (K1's scratch holds bf16)
 _SIGNATURES["cn_fused_mlp_bf16_forward"] = _SIGNATURES["cn_fused_mlp_forward"]
 _SIGNATURES["cn_fused_mlp_bf16_packed_elems"] = _SIGNATURES["cn_fused_mlp_packed_floats"]
 _SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
 # each kernel's launches as it counts them on the card (see device_launches)
-COUNTED = ("fused_mlp", "plane_dtable", "grid_encode")
+COUNTED = ("fused_mlp", "plane_dtable", "grid_encode", "attention")
 for _k in COUNTED:
     _SIGNATURES[f"cn_{_k}_launch_counts"] = [_vp]       # out: 2 × uint64
     _SIGNATURES[f"cn_{_k}_reset_launch_counts"] = []
@@ -163,7 +170,8 @@ def device_launches(kernel: str) -> tuple:
     """Launches of ``kernel`` since :func:`reset_device_launches`, as the
     kernel counts them itself on the card: a replayed CUDA graph's launches
     included, which no wrapper sees.  ``"fused_mlp"`` and ``"plane_dtable"``:
-    (f32 mode, bf16 mode); ``"grid_encode"``: (forward, backward).  (0, 0)
+    (f32 mode, bf16 mode); ``"grid_encode"``: (forward, backward);
+    ``"attention"``: (whole key tiles, a masked last key tile).  (0, 0)
     before the library is loaded: nothing has launched then."""
     if _lib is None:
         return (0, 0)

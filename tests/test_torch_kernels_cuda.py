@@ -252,6 +252,209 @@ def test_grid_encode_kernel_rejects_what_it_does_not_take(cuda, bad):
         grid_encode(x, table, spec)
 
 
+# ---------------------------------------------------------------- attention
+# (b, n, heads, d, sharpness) of the UNet's attention calls on the main path:
+# SD 1.5's four levels, SDXL's two attending levels (the mid block is level
+# 2's shape), a ragged n, multi-scene editing's batch 2S at S = 2, peaked
+# rows (logits ~ N(0, 9)), and every head width the kernel takes
+ATTENTION_CASES = {
+    "sd15_l0": (2, 4096, 8, 40, 1.0), "sd15_l1": (2, 1024, 8, 80, 1.0),
+    "sd15_l2": (2, 256, 8, 160, 1.0), "sd15_l3": (2, 64, 8, 160, 1.0),
+    "sdxl_l1": (2, 4096, 10, 64, 1.0), "sdxl_l2": (2, 1024, 20, 64, 1.0),
+    "ragged_n": (2, 1000, 8, 40, 1.0), "scenes2": (4, 4096, 8, 40, 1.0),
+    "peaked": (2, 1024, 8, 40, 3.0),
+    **{f"d{d}": (1, 200, 2, d, 1.0) for d in range(8, 161, 8)},
+}
+
+
+def _attention_inputs(b, n, m, heads, d, device, sharp=1.0, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k = (sharp * torch.randn(b, r, heads * d, device=device, generator=g)
+            for r in (n, m))
+    v = torch.randn(b, m, heads * d, device=device, generator=g)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def _attention_close(got, want, v):
+    """Kernel against the plain path, both in bf16.  Both round the
+    normalised probabilities to bf16 and the f32 output once; the logits'
+    and the sums' f32 orders differ (tensor cores against SIMT GEMMs, an
+    online sum), so a probability near a rounding boundary may land one ulp
+    (≤ 2^-8) apart, moving an output by ≤ 2^-8 of the largest |v|, and the
+    output's own rounding then by one ulp (2^-7 of it); such flips are
+    rare: fewer than 1 % of the outputs may differ at all."""
+    diff = (got.float() - want.float()).abs()
+    bound = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * float(v.float().abs().max())
+    share = float((diff > 0).float().mean())
+    assert bool((diff <= bound).all()), f"max error {float(diff.max())}"
+    assert share < 1e-2, f"{share:.4f} of the outputs differ"
+
+
+@pytest.mark.parametrize("keys", ["self", "cross"])
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernel_matches_plain(cuda, case, keys):
+    """The kernel against the plain ``attention`` in bf16 at each shape of
+    the main path, as self-attention (m = n) and against 77 context keys;
+    written straight into [b, n, h·d], one launch counted by the kernel
+    (a masked last key tile where m is not a multiple of 64)."""
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+    b, n, heads, d, sharp = ATTENTION_CASES[case]
+    m = n if keys == "self" else 77
+    q, k, v = _attention_inputs(b, n, m, heads, d, cuda, sharp)
+    d0 = kernels.device_launches("attention")
+    with torch.no_grad():
+        got = unet.attend(q, k, v, heads)
+        want = unet.attention(q, k, v, heads)
+    d1 = kernels.device_launches("attention")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == ((0, 1) if m % 64 else (1, 0))
+    assert got.shape == (b, n, heads * d) and got.dtype == torch.bfloat16
+    assert got.is_contiguous()
+    _attention_close(got, want, v)
+
+
+def test_attention_kernel_graph_replay_takes_new_inputs(cuda):
+    """attend captured in a CUDA graph: a replay on new inputs copied in
+    gives the eager kernel's output bit for bit, and the kernel counts the
+    replay's launch."""
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+    q, k, v = _attention_inputs(2, 1024, 77, 8, 40, cuda, seed=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        for _ in range(2):
+            unet.attend(q, k, v, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = unet.attend(q, k, v, 8)
+    for t, new in zip((q, k, v), _attention_inputs(2, 1024, 77, 8, 40, cuda, seed=2)):
+        t.copy_(new)
+    d0 = kernels.device_launches("attention")
+    graph.replay()
+    d1 = kernels.device_launches("attention")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (0, 1)
+    assert torch.equal(out, unet.attention_kernel(q, k, v, 8))
+
+
+def test_attention_kernel_under_cd_kv(cuda):
+    """``--use_cd`` editing: cross-attention whose K and V come from the
+    Custom Diffusion adapters (f32 master weights that require grad, cast at
+    use) takes the kernel under no_grad, as the SDS call runs it; with grad
+    mode on (tuning) the same call takes the plain path and is counted."""
+    import torch.nn.functional as F
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+    attn = unet.Attention(320, 8, 40, context_dim=768).to(cuda, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 4096, 320, device=cuda, generator=g).bfloat16()
+    ctx = torch.randn(2, 77, 768, device=cuda, generator=g).bfloat16()
+    cd_kv = {name: (torch.randn(320, 768, device=cuda, generator=g) / 768 ** 0.5)
+             .requires_grad_(True) for name in ("to_k", "to_v")}
+    n0, plain0 = sum(kernels.device_launches("attention")), spans.counters["attention_plain"]
+    with torch.no_grad():
+        got = attn(x, ctx, cd_kv)
+        q = attn.to_q(x)
+        k, v = (F.linear(ctx, cd_kv[n].to(torch.bfloat16)) for n in ("to_k", "to_v"))
+        fused = unet.attention_kernel(q, k, v, 8)
+        assert torch.equal(got, attn.to_out[0](fused))
+        _attention_close(fused, unet.attention(q, k, v, 8), v)
+    assert sum(kernels.device_launches("attention")) == n0 + 2
+    tuned = attn(x, ctx, cd_kv)
+    assert tuned.requires_grad and spans.counters["attention_plain"] == plain0 + 1
+    assert sum(kernels.device_launches("attention")) == n0 + 2
+
+
+def test_attention_plain_route_for_f32_and_grad_inputs(cuda):
+    """f32 inputs (the f32 UNet) and bf16 inputs that autograd must
+    differentiate take the unchanged plain function: no kernel launch, one
+    ``attention_plain`` count each, the plain output bit for bit; the f32
+    UNet's forward launches no kernel and counts each of its calls."""
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+    q, k, v = _attention_inputs(2, 256, 77, 8, 40, cuda)
+    d0, plain0 = kernels.device_launches("attention"), spans.counters["attention_plain"]
+    f32 = [t.float() for t in (q, k, v)]
+    with torch.no_grad():
+        assert torch.equal(unet.attend(*f32, 8), unet.attention(*f32, 8))
+    kg = k.clone().requires_grad_(True)
+    out = unet.attend(q, kg, v, 8)
+    out.float().sum().backward()
+    assert kg.grad is not None and torch.equal(out.detach(), unet.attention(q, k, v, 8))
+    assert spans.counters["attention_plain"] == plain0 + 2
+    f32_unet = unet.UNet2DCondition(unet.UNetConfig(**TINY_UNET)).to(cuda)
+    with torch.no_grad():
+        f32_unet(torch.randn(2, 4, 16, 16, device=cuda), torch.tensor([10, 20], device=cuda),
+                 torch.randn(2, 77, 32, device=cuda))
+    calls = sum(isinstance(m, unet.Attention) for m in f32_unet.modules())
+    assert calls == 20 and spans.counters["attention_plain"] == plain0 + 2 + calls
+    assert kernels.device_launches("attention") == d0
+
+
+@pytest.mark.parametrize("bad", ["head_12", "head_168", "misaligned"])
+def test_attention_kernel_rejects_what_it_does_not_take(cuda, bad):
+    """A CUDA bf16 input that needs no gradient launches the kernel or
+    raises: never the plain path."""
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.ops import kernels
+    d = {"head_12": 12, "head_168": 168}.get(bad, 40)
+    q, k, v = _attention_inputs(2, 128, 77, 2, d, cuda)
+    if bad == "misaligned":
+        q = torch.zeros(2 * 128 * 80 + 8, dtype=torch.bfloat16, device=cuda)[4:4 + 2 * 128 * 80]
+        q = q.view(2, 128, 80)
+    d0 = kernels.device_launches("attention")
+    with torch.no_grad(), pytest.raises(ValueError, match="attention"):
+        unet.attend(q, k, v, 2)
+    assert kernels.device_launches("attention") == d0
+
+
+@pytest.mark.parametrize("version,latent,per_call", [("1.5", 64, 32), ("xl", 128, 140)])
+def test_graphed_unet_call_launches_the_kernel_for_every_attention(cuda, version, latent,
+                                                                   per_call):
+    """The bf16 UNet at published widths (SD 1.5, SDXL base) on the SDS
+    call's CFG batch 2, captured in a CUDA graph and replayed: every
+    attention call is a kernel launch (16 transformer blocks × 2 in SD 1.5,
+    70 in SDXL), half of them against 77 context keys, none plain."""
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import unet
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.ops import kernels
+    cfg = (unet.UNetConfig(dtype="bfloat16") if version == "1.5"
+           else unet.sdxl_unet_config("bfloat16"))
+    model = build(unet.UNet2DCondition, cfg, device=cuda,
+                  generator=torch.Generator(device=cuda).manual_seed(0))
+    model = model.to(torch.bfloat16).eval().requires_grad_(False)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 4, latent, latent, device=cuda, generator=g)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, device=cuda, generator=g)
+    t = torch.tensor([500, 500], device=cuda)
+    kw = {}
+    if cfg.addition_embed_type:
+        kw["added_cond"] = {"text_embeds": torch.randn(2, cfg.text_embeds_dim, device=cuda,
+                                                       generator=g),
+                            "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2,
+                                                     device=cuda)}
+    plain0 = spans.counters["attention_plain"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        eager = model(x, t, ctx, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = model(x, t, ctx, **kw)
+    d0 = kernels.device_launches("attention")
+    for _ in range(3):
+        graph.replay()
+    d1 = kernels.device_launches("attention")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (3 * per_call // 2, 3 * per_call // 2)
+    assert spans.counters["attention_plain"] == plain0
+    assert torch.equal(out, eager) and bool(torch.isfinite(out).all())
+
+
 def _dtable_inputs(rng, B, R, C, device, ld=None):
     u0 = torch.tensor(rng.randint(0, R - 1, B).astype(np.int32), device=device)
     v0 = torch.tensor(rng.randint(0, R - 1, B).astype(np.int32), device=device)
