@@ -45,10 +45,10 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    within 8 times the spread's RMS (floor 1e-4·lr_g a step; the card's
    atomic sums run in another order, and Adam's ±lr steps flip where a
    gradient is near zero); each kernel mode launched, as the kernels count
-   on the card, exactly (steps + warm-up)/steps times as often, the
-   wrappers counting the warm-up steps only, and the replays-only run
-   exactly as often; median ms a step of both, the capture's ms, peaks and the
-   tracer's graphed split of a dispatch (``engine/step_profile.py::graphed_split``);
+   on the card, exactly (steps + warm-up)/steps times as often, and the
+   replays-only run exactly as often; median ms a step of both, the
+   capture's ms, peaks and the tracer's graphed split of a dispatch
+   (``engine/step_profile.py::graphed_split``);
    K1-bf16 and dT-bf16 held against their plain versions on the inputs the
    captured step holds after its last replay.  The same check runs on the
    parity step (8b: 16 steps, 2 dispatches), the editing step and the
@@ -79,7 +79,9 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    prompt selection must have run, every loss must be finite and the field
    must have changed.  Prints the step's median ms and its split (render to
    latents, UNet, backward + Adam), its peak memory, the SD stack's init
-   seconds and the frozen pt render's ms.
+   seconds, the frozen pt render's ms and the least time of the UNet's
+   forward and of the VAE encoder's forward and backward
+   (``benchmark/lib/counts.py::sd_counts``, bf16 weights).
    Every UNet call of the steps launches the attention kernel once an
    attention module (32 in SD 1.5, as it counts on the card) and none
    takes the plain path (the ``attention_plain`` counter stays); that
@@ -165,10 +167,9 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    full-width 2.1 stack on the card (UNet 865,910,724 and OpenCLIP ViT-H
    text 340,387,840 parameters, ``FULL_WIDTH_PARAMS["2.x"]``; UNet and VAE
    bf16, text tower and CLIP view matcher f32); phase 6 again under 2.1
-   from phase 4's checkpoint (8 LGIE steps with stage times, the profiled
-   step, ``sd_bounds`` at the 1024-wide context, K1 and dT on its inputs,
-   one dispatch of K = 8 against eager steps under ``dispatch_check``'s
-   rule); then 4 concept frames written as progressive JPEGs by cv2 (a
+   from phase 4's checkpoint (8 LGIE steps with stage times, the SD bounds
+   at the 1024-wide context, K1 and dT on its inputs, one dispatch of K = 8
+   against eager steps under ``dispatch_check``'s rule); then 4 concept frames written as progressive JPEGs by cv2 (a
    witness: the port does not use it) whose decode must equal
    ``cv2.imread`` bit for bit, one DDIM class image, the decoder's seconds
    a megapixel on baseline and progressive copies of it, 4 tuning steps
@@ -231,6 +232,10 @@ Every phase but the 40-step reconstruction runs the JAX package's default
 precision for its flags: bf16 heads through K1's bf16 mode, dT's bf16
 operands, the SD stack in bf16.
 
+Every bound is ``benchmark/lib/counts.py``'s least time at its H100 peaks
+(:func:`bound_ms`), from its counts where it has one (K1, dT, the grid
+forward, the SD parts); launches are the kernels' own counts on the card.
+
 Imports nothing of JAX and nothing of the JAX package.  Exits nonzero, with
 no result, when no CUDA device is available.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -246,13 +251,6 @@ import statistics
 import sys
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 on the
-# tensor cores, f32 outside them, and HBM3 bandwidth.  bound_ms =
-# max(operations / the peak of the unit that runs them, bytes / HBM).
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 TF32_PASSES = 3               # K1 runs each f32 product as three TF32 products
 
 SMOKE_FLAGS = ("--data_type synthetic --h 128 --w 128 "
@@ -298,10 +296,14 @@ def log(msg):
     print(msg, flush=True)
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_ms(flops: float, nbytes: float, peak: float):
+    """The least time in ms (``benchmark/lib/counts.py::least_s``: ``peak``
+    the FLOP/s of the unit that runs the operations, one of ``counts``'
+    peaks) and which of "operations" or "bytes" sets it."""
+    from benchmark.lib import counts
+    ms = counts.least_s(flops, nbytes, peak) * 1e3
+    return ms, ("operations" if flops / peak >= nbytes / counts.PEAK_HBM_BYTES
+                else "bytes")
 
 
 # the four kernel modes and the grid encode's two kernels, by the names of
@@ -316,44 +318,22 @@ ATTENTION = "attention"
 
 
 def zero_counts():
-    """Set every launch count to 0 (just before a path is driven): the
-    wrappers' and the kernels' own counts on the card."""
-    from customnerf_torch.ops import fused_mlp, grid, kernels, triplane_kernels
-    for fn in (fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable):
-        fn.launches = fn.launches_bf16 = 0
-    grid.grid_encode.launches = grid.grid_encode.launches_bwd = 0
+    """Set every kernel's launch count on the card to 0 (just before a path
+    is driven)."""
+    from customnerf_torch.ops import kernels
     kernels.reset_device_launches()
 
 
-def read_wrapper_counts():
-    """Each kernel mode's launches since :func:`zero_counts` as its wrapper
-    counted them: eager launches only (a replayed graph runs no wrapper)."""
-    from customnerf_torch.ops import fused_mlp, grid, triplane_kernels
-    mlp, dt = fused_mlp.fused_mlp_forward, triplane_kernels.plane_dtable
-    enc = grid.grid_encode
-    return {K1: mlp.launches, K1_BF16: mlp.launches_bf16,
-            DT: dt.launches, DT_BF16: dt.launches_bf16,
-            GRID: enc.launches, GRID_BWD: enc.launches_bwd}
-
-
-def read_counts(graphed=False):
+def read_counts():
     """Each kernel mode's launches since :func:`zero_counts`, as the kernel
     counted them on the card (``ops/kernels.py::device_launches``), a
-    replayed graph's included.  On an eager path they must equal the
-    wrappers' counts; on a ``graphed`` one the wrappers counted only the
-    eager launches (warm-up steps, evaluation renders): no more than the
-    kernels."""
+    replayed graph's included."""
     from customnerf_torch.ops import kernels
     k1, k1_bf16 = kernels.device_launches("fused_mlp")
     dt, dt_bf16 = kernels.device_launches("plane_dtable")
     fwd, bwd = kernels.device_launches("grid_encode")
-    device = {K1: k1, K1_BF16: k1_bf16, DT: dt, DT_BF16: dt_bf16, GRID: fwd,
-              GRID_BWD: bwd}
-    wrappers = read_wrapper_counts()
-    for name, n in device.items():
-        assert (wrappers[name] <= n) if graphed else (wrappers[name] == n), \
-            f"{name}: the wrapper counted {wrappers[name]}, the kernel {n} launches"
-    return device
+    return {K1: k1, K1_BF16: k1_bf16, DT: dt, DT_BF16: dt_bf16, GRID: fwd,
+            GRID_BWD: bwd}
 
 
 def check_launched(launches, kernels, path):
@@ -613,7 +593,7 @@ def run_flagship_orbax(ckpt_path):
         lb = b.train_many(batches[GRAPH_K:])[0]
         torch.cuda.synchronize()
         resumed_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts(graphed=True)
+    launches = read_counts()
     check_launched(launches, (K1_BF16, DT_BF16), "flagship .orbax resume")
     la = a.train_many(batches[GRAPH_K:])[0]
     loss_rel = float(((la - lb).abs() / la.abs()).max())
@@ -751,11 +731,11 @@ def dispatch_check(tr, batches, kind, path):
     the second or the side-stream eager run (or SPREAD_FLOOR; the second
     graphed run's distance from the first is recorded), each kernel mode launched, as
     the kernels counted on the card, (steps + warm-up steps)/steps times as
-    often as eager (the wrappers counting the warm-up steps only), and the
-    replays-only run exactly as often.  The summary holds the median ms a
-    step of both, the capture's ms, peaks and the tracer's split of one
-    graphed dispatch (``engine/step_profile.py::graphed_split``: each device
-    span in ms a step).  Returns (summary, K1's and dT's inputs as the graph
+    often as eager, and the replays-only run exactly as often.  The summary
+    holds the median ms a step of both, the capture's ms, peaks and the
+    tracer's split of one graphed dispatch
+    (``engine/step_profile.py::graphed_split``: each device span in ms a
+    step).  Returns (summary, K1's and dT's inputs as the graph
     holds them)."""
     import contextlib
     import torch
@@ -782,7 +762,7 @@ def dispatch_check(tr, batches, kind, path):
 
     def run(graphed, stream=None):
         """One run from the saved state: per-call ms, losses, the kernels'
-        and the wrappers' launch counts, the peak, parameters and moments."""
+        launch counts, the peak, parameters and moments."""
         zero_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -804,8 +784,7 @@ def dispatch_check(tr, batches, kind, path):
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
         out = {"ms": ms, "losses": torch.stack(losses),
-               "launches": read_counts(graphed=graphed),
-               "wrapper_launches": read_wrapper_counts(),
+               "launches": read_counts(),
                "peak": torch.cuda.max_memory_allocated(),
                "params": [p.detach().clone() for p in tr.field.parameters()],
                "moments": [v.detach().clone() for st in tr.optimizer.state.values()
@@ -830,9 +809,7 @@ def dispatch_check(tr, batches, kind, path):
     eager_counts, graph_counts = eager["launches"], graph["launches"]
     for name, e in eager_counts.items():
         assert graph_counts[name] * n == e * (n + WARMUP_STEPS), (path, name, eager_counts, graph)
-        assert graph["wrapper_launches"][name] * n == e * WARMUP_STEPS, (path, name, graph)
         assert spread["graph_again"]["launches"][name] == e, (path, name, spread)
-        assert spread["graph_again"]["wrapper_launches"][name] == 0, (path, name, spread)
     steady = [ms / len(batches[i * GRAPH_K:(i + 1) * GRAPH_K]) for i, ms in enumerate(graph["ms"])]
     steady[0] = (graph["ms"][0] - captures[0]) / min(GRAPH_K, n)
     a, b = eager["losses"], graph["losses"]
@@ -883,7 +860,6 @@ def dispatch_check(tr, batches, kind, path):
         "median_graph_ms": statistics.median(steady),
         "eager_peak_gb": eager["peak"] / 1e9, "graph_peak_gb": graph["peak"] / 1e9,
         "eager_launches": eager_counts, "graph_launches": graph_counts,
-        "graph_wrapper_launches": graph["wrapper_launches"],
         "replay_only_launches": spread["graph_again"]["launches"],
         "loss_max_rel": loss_rel, "moments_max_rel": mom_rel, "params": params,
         "eager_losses": a.tolist(), "graph_losses": b.tolist(),
@@ -896,8 +872,8 @@ def dispatch_check(tr, batches, kind, path):
         f"{summary['graph_peak_gb']:.2f} GB | losses within {loss_rel:.2g} rel, "
         f"moments {mom_rel:.2g} rel, params max {max(q['max_over_lr_steps'] for q in params):.3g}"
         f" lr·steps, RMS {max(q['rms_over_lr_steps'] for q in params):.3g} lr·steps | "
-        f"launches counted on the card {graph_counts} (wrappers: "
-        f"{graph['wrapper_launches']}; replays only {spread['graph_again']['launches']})")
+        f"launches counted on the card {graph_counts} (replays only "
+        f"{spread['graph_again']['launches']})")
     return summary, mlp[-1], list(dt)
 
 
@@ -998,6 +974,7 @@ def check_fused_mlp(x, v, ws, with_rgb=True, bf16=False):
     head's cuBLAS bf16 GEMMs), with the other mode's kernel time on the same
     inputs beside it."""
     import torch
+    from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import fused_mlp as fm
 
@@ -1037,17 +1014,14 @@ def check_fused_mlp(x, v, ws, with_rgb=True, bf16=False):
                         host_ahead=False)
     p_ms = device_ms(lambda: fm.reference_forward(x, v, ws, with_rgb, dtype), reps)
     other_ms = device_ms(lambda: fm.fused_mlp_forward(x, v, ws, with_rgb, not bf16), reps)
-    used = ws if with_rgb else ws[:5]
-    macs = sum(w.shape[0] * w.shape[1] for w in used)
-    nbytes = (B * (in_dim + 1 + (dir_dim + n_out if with_rgb else 0)) * 4
-              + macs * 4)
+    flops, nbytes = counts.k1_call(B, in_dim, dir_dim, n_out, with_rgb)
     if bf16:
-        b_ms, b_by = bound(2.0 * macs * B, nbytes, PEAK_BF16_FLOPS)
+        b_ms, b_by = bound_ms(flops, nbytes, counts.PEAK_BF16_FLOPS)
         peak = "one pass at the dense bf16 tensor rate 989 TFLOP/s; HBM3 3.35 TB/s"
     else:
-        b_ms, b_by = bound(TF32_PASSES * 2.0 * macs * B, nbytes, PEAK_TF32_FLOPS)
+        b_ms, b_by = bound_ms(TF32_PASSES * flops, nbytes, counts.PEAK_TF32_FLOPS)
         peak = "3 passes at the dense TF32 tensor rate 495 TFLOP/s; HBM3 3.35 TB/s"
-    f32_ms, _ = bound(2.0 * macs * B, nbytes)
+    f32_ms, _ = bound_ms(flops, nbytes, counts.PEAK_F32_FLOPS)
     return {"name": K1_BF16 if bf16 else K1,
             "shape": f"B={B} in={in_dim} dir={dir_dim} hidden={hid} out={n_out}"
                      + ("" if with_rgb else " density-only"),
@@ -1065,6 +1039,7 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
     (index_add_ of the same, rounded, corner contributions) and a single
     index_add_ call (the library yardstick), on one plane of a step."""
     import torch
+    from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import triplane_kernels as tk
 
@@ -1101,10 +1076,7 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
     n_live = int(live.sum())
     sel = [t[live].contiguous() for t in (u0, v0, fu, fv, g)]
     live_ms = device_ms(lambda: tk.plane_dtable(*sel, R, C, out=into, bf16=bf16), 20)
-    # every g is read (to find the zeros); corners and fractions of the live
-    # samples; the plane written once
-    nbytes = B * 4 * C + n_live * 16 + R * R * C * 4
-    b_ms, b_by = bound(8.0 * C * n_live, nbytes)
+    b_ms, b_by = bound_ms(*counts.dt_call(B, n_live, R, C), counts.PEAK_F32_FLOPS)
     return {"name": DT_BF16 if bf16 else DT, "shape": f"R={R} C={C} B={B}",
             "route": "cuda", "source": "customnerf_torch/csrc/triplane_dtable.cu",
             "replaces": "customnerf_tpu/ops/triplane_pallas.py:57, "
@@ -1184,51 +1156,6 @@ def run_checkpoint(recon):
                           "bytes": os.path.getsize(path), "bitwise": True}
 
 
-def sd_bounds(guidance):
-    """The least time the card could take for the SD parts of an editing
-    step, from FLOPs counted by ``torch.utils.flop_counter`` on the meta
-    device (matmuls and convolutions; elementwise work is not counted) at
-    the peak of the stack's dtype (bf16 on the card), and the bytes of each
-    part's weights (in that dtype) and f32 inputs/outputs at the HBM peak:
-    the UNet's forward on [2, 4, 64, 64], and the VAE encoder's forward and
-    its backward to the image at 512², with the UNet's own context width."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    from customnerf_torch.guidance.layers import build, n_params
-    from customnerf_torch.guidance.unet import UNet2DCondition
-    from customnerf_torch.guidance.vae import AutoencoderKL
-
-    meta = torch.device("meta")
-    unet = build(UNet2DCondition, guidance.unet.cfg, device=meta).requires_grad_(False)
-    vae = build(AutoencoderKL, guidance.vae.cfg, device=meta).requires_grad_(False)
-    lat = torch.empty(2, 4, 64, 64, device=meta)
-    ctx = unet.cfg.cross_attention_dim          # 768 for SD 1.5, 1024 for 2.x
-    with FlopCounterMode(display=False) as fc:
-        unet(lat, torch.zeros(2, dtype=torch.long, device=meta),
-             torch.empty(2, 77, ctx, device=meta))
-    unet_flops = fc.get_total_flops()
-    img = torch.empty(1, 3, 512, 512, device=meta, requires_grad=True)
-    with FlopCounterMode(display=False) as fc:
-        z = vae.encode(img, noise=torch.empty(1, 4, 64, 64, device=meta))
-    enc_flops = fc.get_total_flops()
-    with FlopCounterMode(display=False) as fc:
-        z.sum().backward()
-    bwd_flops = fc.get_total_flops()
-    w = guidance.unet.conv_in.weight.element_size()
-    peak = PEAK_BF16_FLOPS if w == 2 else PEAK_F32_FLOPS
-    enc_bytes = (w * (n_params(vae.encoder) + n_params(vae.quant_conv))
-                 + 4 * (img.numel() + 2 * z.numel()))
-    unet_bytes = w * n_params(unet) + 4 * (2 * 2 * lat.numel() + 2 * 77 * ctx)
-    out = {}
-    for name, flops, nbytes in (("unet_forward", unet_flops, unet_bytes),
-                                ("vae_encoder_forward", enc_flops, enc_bytes),
-                                ("vae_encoder_backward", bwd_flops, 2 * enc_bytes)):
-        ms, by = bound(flops, nbytes, peak)
-        out[name] = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by,
-                     "peak_flops": peak}
-    return out
-
-
 def traced(fn):
     """``fn()`` with the tracer on (``customnerf_torch/engine/spans.py``):
     (its result, its wall ms to a synchronize, each span's device ms, each
@@ -1256,33 +1183,6 @@ def editing_stages(ms, host) -> dict:
     return {"total": pt + ms["edit.step"], "pt_and_draws": pt,
             "render_to_latents": ms["render"] + ms["resize"] + ms["vae_encode"],
             "unet": ms["unet"], "backward_adam": ms["loss"] + ms["backward"] + ms["adam"]}
-
-
-def profile_editing_step(trainer, batch, n_top: int = 12):
-    """One more editing step under ``torch.profiler``: device time by
-    kernel name (kernels only), the busy share of the step's window."""
-    import collections
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.global_step += 1
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-    window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name][0] += 1
-            kernels[e.name][1] += e.time_range.elapsed_us() / 1e3
-    busy = sum(ms for _, ms in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:n_top]
-    return {"window_ms": window_ms, "kernel_ms": busy,
-            "busy_share": busy / window_ms if window_ms else None,
-            "n_kernels": sum(n for n, _ in kernels.values()),
-            "top": [{"name": k[:120], "launches": n, "ms": ms} for k, (n, ms) in top]}
 
 
 def editing_steps(trainer, opt, n_steps):
@@ -1350,16 +1250,18 @@ def run_editing(trainer, opt, label="editing"):
     ``Trainer.train_step``.  Returns its summary and the kernels' inputs of
     the last step."""
     import torch
+    from benchmark.lib import counts
+    from benchmark.reference import sd
     from customnerf_torch.engine import editing
     from customnerf_torch.guidance.layers import n_params
     from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS, sd_family
 
     guidance = trainer.guidance
     editing.prepare_text_embeddings(trainer)
-    counts = dict(guidance.param_counts(),
-                  clip_view=n_params(trainer.clip_matcher.model))
+    param_counts = dict(guidance.param_counts(),
+                        clip_view=n_params(trainer.clip_matcher.model))
     want = FULL_WIDTH_PARAMS[sd_family(opt.sd_version)]
-    assert counts == want, (opt.sd_version, counts, want)
+    assert param_counts == want, (opt.sd_version, param_counts, want)
     # the JAX package's rule: UNet and VAE stored (and run) in bf16 on the
     # card, the text tower and the CLIP view matcher in f32
     for models, dtype in (((guidance.unet, guidance.vae), torch.bfloat16),
@@ -1385,8 +1287,19 @@ def run_editing(trainer, opt, label="editing"):
         torch.cuda.synchronize()
         t_pt.append(a.elapsed_time(b))
     cached = [s for s in steps if s["pt_and_draws"] < 0.5 * statistics.median(t_pt)]
+    # the SD parts' least times: the reference's modules of this stack,
+    # weights in bf16 as on the card, at the bf16 peak
+    unet_cfg = {"1.x": sd.UNetConfig, "2.x": sd.sd2_unet_config}[sd_family(opt.sd_version)]()
+    sd_work = counts.sd_counts(unet_cfg, sd.VAEConfig(), 64, 512, weight_bytes=2)
+    sd_bounds = {}
+    for name, key in (("unet_forward", "unet"), ("vae_encoder_forward", "vae_forward"),
+                      ("vae_encoder_backward", "vae_backward")):
+        ms, by = bound_ms(*sd_work[key], counts.PEAK_BF16_FLOPS)
+        sd_bounds[name] = {"flops": sd_work[key][0], "bytes": sd_work[key][1],
+                           "bound_ms": ms, "bound_by": by,
+                           "peak_flops": counts.PEAK_BF16_FLOPS}
     summary = {
-        "steps": steps, "launches": launches, "param_counts": counts,
+        "steps": steps, "launches": launches, "param_counts": param_counts,
         "sd_dtype": guidance.dtype, "sd_init_s": guidance.init_seconds,
         "peak_gb": peak / 1e9, "resident_before_steps_gb": base_mem / 1e9,
         "pt_render_ms": statistics.median(t_pt),
@@ -1396,8 +1309,7 @@ def run_editing(trainer, opt, label="editing"):
                                 if cached else None),
         "field_max_change": moved,
         "local_steps": sum(s["local"] for s in steps),
-        "sd_bounds": sd_bounds(guidance),
-        "profile": profile_editing_step(trainer, view),
+        "sd_bounds": sd_bounds,
     }
     summary["dispatch"], summary["dispatch_rows"] = editing_dispatch(
         trainer, train, f"{label} dispatch (graph)")
@@ -1927,9 +1839,8 @@ def _decode_against_cv2(path):
 def run_sd2(recon_ckpt):
     """The SD 2.x phase (after the SD 1.5 stack is freed): the full-width
     2.1 stack on the card (its counts and dtypes), EDIT_STEPS text editing
-    steps with stage times, the profiled step, the bounds and one dispatch
-    of K = 8 against eager steps (``run_editing``), K1 and dT on that path's
-    inputs; then image-driven editing under 2.1 (``run_sd2_image_driven``)
+    steps with stage times, the bounds and one dispatch of K = 8 against
+    eager steps (``run_editing``), K1 and dT on that path's inputs; then image-driven editing under 2.1 (``run_sd2_image_driven``)
     and the weights drill under 2.1.  Returns the summary and the kernel
     rows."""
     import gc
@@ -2219,7 +2130,7 @@ def grid_rows(coarse_x, fine_x, table, spec, launches):
             tol = 1e-5
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max_abs_err {err} > tol {tol}")
-        b_ms, b_by = bound(*work)
+        b_ms, b_by = bound_ms(*work, counts.PEAK_F32_FLOPS)
         return {"name": name, "shape": shape, "route": "cuda",
                 "source": "customnerf_torch/csrc/grid_encode.cu",
                 "replaces": "none (the JAX encoder is plain XLA); the plain "
@@ -2267,6 +2178,7 @@ def grid_rows(coarse_x, fine_x, table, spec, launches):
                   host_ahead=False),
         device_ms(lambda: grid._plain_backward(x, table, g, spec, L, False, True), 3),
         device_ms(lambda: into.index_add_(0, idx, vals), 3),
+        # coordinates and cotangent in, the gradient written once
         (2.0 * B * L * 8 * C, 4.0 * (B * 3 + B * L * C + n_rows * C)),
         launches[GRID_BWD], mass))
     return rows
@@ -2295,6 +2207,7 @@ def attention_rows():
     of the same bf16 tensors, a yardstick the port never calls."""
     import torch
     import torch.nn.functional as F
+    from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.guidance import unet
     from customnerf_torch.ops import kernels
@@ -2320,9 +2233,10 @@ def attention_rows():
                 raise AssertionError(f"attention {label} m={m}: {err} of the allowance, "
                                      f"{share} of the outputs differ")
             heads_view = [t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v)]
-            b_ms, b_by = bound(4.0 * b * heads * n * m * d,
-                               2.0 * (2 * q.numel() + k.numel() + v.numel()),
-                               PEAK_BF16_FLOPS)
+            # q·kᵀ and p·v; q, k, v read and the output written once, bf16
+            b_ms, b_by = bound_ms(4.0 * b * heads * n * m * d,
+                                  2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                                  counts.PEAK_BF16_FLOPS)
             with torch.no_grad():
                 k_ms = device_ms(lambda: unet.attention_kernel(q, k, v, heads), 20)
                 p_ms = device_ms(lambda: unet.attention(q, k, v, heads), 5)
@@ -2547,7 +2461,7 @@ def run_quality(run, data_path, capture_k1=False, capture_dt=False,
         trainer = cli(flags, log=quiet)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
-        launches = read_counts(graphed=True)
+        launches = read_counts()
 
     results = trainer.stats["results"]
     final, best = -results[-1], -trainer.stats["best_result"]
@@ -3059,7 +2973,7 @@ def run_host_orbax():
         losses = tr.train_many(batches)[0]
         torch.cuda.synchronize()
         dispatch_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts(graphed=True)
+    launches = read_counts()
     tr.global_step += len(batches)
     check_launched(launches, (K1_BF16, DT_BF16), ".orbax resume (graph)")
     losses = losses.tolist()
@@ -3256,11 +3170,6 @@ def run_all(card, procs) -> int:
         log(f"[editing bound] {name}: {b['flops'] / 1e12:.3f} TFLOP, "
             f"{b['bytes'] / 1e9:.3f} GB -> {b['bound_ms']:.2f} ms ({b['bound_by']}; "
             f"{b['peak_flops'] / 1e12:.0f} TFLOP/s, HBM3 3.35 TB/s)")
-    prof = ed["profile"]
-    log(f"[editing profile] one step: {prof['kernel_ms']:.1f} ms of kernels in a "
-        f"{prof['window_ms']:.1f} ms window ({prof['n_kernels']} launches); top: "
-        + "; ".join(f"{t['name'][:60]} {t['ms']:.1f} ms x{t['launches']}"
-                    for t in prof["top"][:5]))
     edit_rows = [check_fused_mlp(*edit_mlp[0], **edit_mlp[1])]
     edit_rows += dtable_rows(edit_dt)
     for r in edit_rows:

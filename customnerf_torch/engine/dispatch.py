@@ -26,10 +26,9 @@ and with the values an eager step would draw at that point of the stream.
 A capture that fails raises :class:`CaptureError`, naming the operation of
 the port that broke it; nothing falls back to eager steps.
 
-The kernels' wrappers count the warm-up steps' launches; a capture only
-records launches, and the wrappers do not count it.  A replay runs no
-wrapper: its launches are counted by the kernels themselves on the card
-(``ops/kernels.py::device_launches``).
+The hand-written kernels count their launches themselves on the card
+(``ops/kernels.py::device_launches``): the warm-up steps' and every
+replay's, though a replay runs no wrapper; a capture launches nothing.
 
 The tracer (``engine/spans.py``) sees a replay as the host spans
 ``replay.copy`` and ``replay``; the device spans of a step captured with

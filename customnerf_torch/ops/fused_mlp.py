@@ -94,10 +94,9 @@ def fused_mlp_forward(x_en, view_en, weights, with_rgb: bool = True,
     """Forward only.  x_en [B, in] f32, view_en [B, dir] f32, contiguous
     (``view_en`` is not read, and may be None, when ``with_rgb`` is False:
     rgb_raw is then None); ``bf16`` picks the bf16 mode.  CUDA tensors
-    launch the kernel (``launches`` counts the f32 mode's launches,
-    ``launches_bf16`` the bf16 mode's, none while a CUDA graph is captured;
-    the kernel counts its own, a graph's replays included:
-    ``kernels.device_launches``); CPU tensors take the plain version."""
+    launch the kernel (it counts its launches on the card, a graph's replays
+    included: ``kernels.device_launches``); CPU tensors take the plain
+    version."""
     weights = tuple(weights)
     _check(x_en, view_en, weights, with_rgb)
     if x_en.device.type == "cpu":
@@ -132,17 +131,7 @@ def fused_mlp_forward(x_en, view_en, weights, with_rgb: bool = True,
             B, in_dim, dir_dim, n_out, int(with_rgb),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "fused_mlp_forward")
-    # a launch (a capture only records one; B = 0 launches nothing)
-    if B > 0 and not torch.cuda.is_current_stream_capturing():
-        if bf16:
-            fused_mlp_forward.launches_bf16 += 1
-        else:
-            fused_mlp_forward.launches += 1
     return sigma, rgb
-
-
-fused_mlp_forward.launches = 0
-fused_mlp_forward.launches_bf16 = 0
 
 
 class _FusedFieldMLP(torch.autograd.Function):

@@ -331,8 +331,6 @@ def _kernel_forward(x, table, spec: GridSpec, n_levels: int):
                 kernel_levels(spec, n_levels).ctypes.data,
                 torch.cuda.current_stream().cuda_stream)
         kernels.check(err, "grid_encode")
-        if not torch.cuda.is_current_stream_capturing():  # a capture only records one
-            grid_encode.launches += 1
     return out
 
 
@@ -354,8 +352,6 @@ def _kernel_backward(x, table, g, spec: GridSpec, n_levels: int, need_dx: bool,
                 _shift(spec), kernel_levels(spec, n_levels).ctypes.data,
                 torch.cuda.current_stream().cuda_stream)
         kernels.check(err, "grid_encode.bwd")
-        if not torch.cuda.is_current_stream_capturing():
-            grid_encode.launches_bwd += 1
     return dx, dtable
 
 
@@ -382,11 +378,9 @@ def grid_encode(x01: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                 max_level: int | None = None) -> torch.Tensor:
     """x01 [..., D] in [0, 1] → [..., L·C] features; levels ≥ ``max_level``
     output zeros (the reference's progressive-level option).  CUDA tensors
-    launch the kernels (``launches`` counts the forward's launches,
-    ``launches_bwd`` the backward's, none while a CUDA graph is captured;
-    the kernels count their own, a graph's replays included:
-    ``kernels.device_launches("grid_encode")``); CPU tensors take the plain
-    version."""
+    launch the kernels (they count their launches on the card, a graph's
+    replays included: ``kernels.device_launches("grid_encode")``); CPU
+    tensors take the plain version."""
     L = spec.num_levels
     n_levels = L if max_level is None else min(max_level, L)
     prefix = x01.shape[:-1]
@@ -394,7 +388,3 @@ def grid_encode(x01: torch.Tensor, table: torch.Tensor, spec: GridSpec,
     with spans.device("grid_encode"):
         out = _GridEncode.apply(x, table, spec, n_levels)
     return out.reshape(*prefix, spec.output_dim)
-
-
-grid_encode.launches = 0
-grid_encode.launches_bwd = 0

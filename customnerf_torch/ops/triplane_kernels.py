@@ -104,11 +104,9 @@ def plane_dtable(u0, v0, fu, fv, g, R: int, C: int, out=None,
 
     u0, v0: [B] int32 corners (0 ≤ · ≤ R−2); fu, fv: [B] f32 fractions;
     g: [B, C] f32 cotangent (a column slice is fine); ``bf16`` picks the
-    bf16-operand mode.  CUDA tensors launch the kernel (``launches`` counts
-    the f32 mode's launches, ``launches_bf16`` the bf16 mode's, none while a
-    CUDA graph is captured; the kernel counts its own, a graph's replays
-    included: ``kernels.device_launches``); CPU tensors take the plain
-    version."""
+    bf16-operand mode.  CUDA tensors launch the kernel (it counts its
+    launches on the card, a graph's replays included:
+    ``kernels.device_launches``); CPU tensors take the plain version."""
     _check(u0, v0, fu, fv, g, R, C, out)
     if g.device.type == "cpu":
         return plane_dtable_reference(u0, v0, fu, fv, g, R, C, out, bf16)
@@ -125,14 +123,4 @@ def plane_dtable(u0, v0, fu, fv, g, R: int, C: int, out=None,
             g.data_ptr(), g.stride(0), out.data_ptr(), out.stride(0),
             u0.shape[0], R, C, torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "plane_dtable")
-    # a launch (a capture only records one; B = 0 launches nothing)
-    if u0.shape[0] > 0 and not torch.cuda.is_current_stream_capturing():
-        if bf16:
-            plane_dtable.launches_bf16 += 1
-        else:
-            plane_dtable.launches += 1
     return out
-
-
-plane_dtable.launches = 0
-plane_dtable.launches_bf16 = 0

@@ -7,8 +7,11 @@ port's own single steps and the JAX package's scanned paths.
   equal those of the JAX ``Trainer.train_one_epoch`` (observed through spies
   on its ``update_extra_state``, ``train_many`` and ``train_step``; a spy
   advances the JAX optax state by a unit gradient and reads the lr it
-  applies).  The lrs agree to 1e-5 relative: JAX computes them, and the
-  Adam direction it scales, in f32.
+  applies).  The port's epoch, grouping, dispatch loop and refresh rule run
+  as they are; like the JAX side's, its refresh is only recorded, and its
+  steps render nothing and take a zero loss over the field's parameters,
+  so Adam runs at the lr the trainer set.  The lrs agree to 1e-5 relative:
+  JAX computes them, and the Adam direction it scales, in f32.
 * K steps against one step: ``train_many`` at K = 3 equals three
   ``train_step`` calls bit for bit — parameters, Adam state, occupancy
   state, losses, ``global_step`` — for ``-O`` and ``-O2``, with and without
@@ -129,12 +132,21 @@ def test_schedule_matches_jax(jax_trainer, n, k):
                                        "--steps_per_dispatch", str(k)])
     tr = Trainer(topt, device="cpu", log=quiet)
     batch = _ray_batch(64, 0)
+    # the work stubbed, as the JAX side stubs it: no refresh and no render,
+    # and a zero loss over the field's parameters, whose backward and Adam
+    # update (at the lr the trainer sets) stay real
+    params = list(tr.field.parameters())
+
+    def zero_loss(out, rgbs, mask):
+        loss = sum(p.sum() for p in params) * 0.0
+        return loss, {"loss_c": loss}
+
+    tr.render, tr.loss = (lambda *a, **kw: {"stats": {}}), zero_loss
     refreshes, groups, lrs = [], [], []
-    refresh, many, step = tr.update_extra_state, tr.train_many, tr.train_step
+    many, step = tr.train_many, tr.train_step
 
     def spy_refresh():
         refreshes.append(tr.global_step)
-        refresh()
 
     def spy_many(batches):
         groups.append(len(batches))

@@ -183,7 +183,6 @@ def test_kernel_level_argument_gives_the_plain_rows(kind, max_level, monkeypatch
     xt = torch.tensor(x[:512], requires_grad=True)
     tgrid.grid_encode(xt, table, ts, max_level=max_level).sum().backward()
     assert table.grad is not None and xt.grad is not None
-    assert (tgrid.grid_encode.launches, tgrid.grid_encode.launches_bwd) == (0, 0)
 
 
 @pytest.mark.parametrize("bad", ["level_dim", "input_dim", "levels", "dtype", "strided", "shape"])

@@ -41,12 +41,14 @@ def _mlp_problem(B, device, seed):
                                BLOCK_POINTS, BLOCK_POINTS + 1, 5000, 2 ** 20])
 def test_fused_mlp_kernel_matches_plain(cuda, B, with_rgb):
     from customnerf_torch.ops import fused_mlp as fm
+    from customnerf_torch.ops import kernels
     x, v, ws = _mlp_problem(B, cuda, B)
-    n0 = fm.fused_mlp_forward.launches
+    d0 = kernels.device_launches("fused_mlp")
     sk, rk = fm.fused_mlp_forward(x, v, ws, with_rgb=with_rgb)
     sp, rp = fm.reference_forward(x, v, ws, with_rgb=with_rgb)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches == n0 + 1
+    d1 = kernels.device_launches("fused_mlp")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 0)
     # split-TF32 against f32, another summation order: ≤ 1e-4 of O(1) outputs
     torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-4)
     if with_rgb:
@@ -70,17 +72,19 @@ def test_fused_mlp_kernel_on_grid_features(cuda, B, with_rgb):
     """K1 at in_dim 32: the reference grid's 16 levels × 2 channels
     (``bear.sh --parity``), full head and density-only, ragged B."""
     from customnerf_torch.ops import fused_mlp as fm
+    from customnerf_torch.ops import kernels
     rng = np.random.RandomState(B)
     shapes = [(32, 64)] + SHAPES[1:]
     ws = [torch.tensor((rng.randn(*s) / np.sqrt(s[0])).astype(np.float32),
                        device=cuda) for s in shapes]
     x = torch.tensor(rng.randn(B, 32).astype(np.float32), device=cuda)
     v = torch.tensor(rng.randn(B, 27).astype(np.float32), device=cuda)
-    n0 = fm.fused_mlp_forward.launches
+    d0 = kernels.device_launches("fused_mlp")
     sk, rk = fm.fused_mlp_forward(x, v, ws, with_rgb=with_rgb)
     sp, rp = fm.reference_forward(x, v, ws, with_rgb=with_rgb)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches == n0 + 1
+    d1 = kernels.device_launches("fused_mlp")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 0)
     torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-4)
     if with_rgb:
         torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-4)
@@ -105,14 +109,11 @@ def test_fused_mlp_bf16_kernel_matches_plain(cuda, B, in_dim, with_rgb):
     x = torch.tensor(rng.randn(B, in_dim).astype(np.float32), device=cuda)
     v = torch.tensor(rng.randn(B, 27).astype(np.float32), device=cuda)
     from customnerf_torch.ops import kernels
-    n0, n32 = fm.fused_mlp_forward.launches_bf16, fm.fused_mlp_forward.launches
     d0 = kernels.device_launches("fused_mlp")
     sk, rk = fm.fused_mlp_forward(x, v, ws, with_rgb=with_rgb, bf16=True)
     sp, rp = fm.reference_forward(x, v, ws, with_rgb=with_rgb, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches_bf16 == n0 + 1
-    assert fm.fused_mlp_forward.launches == n32
-    d1 = kernels.device_launches("fused_mlp")      # the kernel's own count
+    d1 = kernels.device_launches("fused_mlp")
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (0, 1)
     outs = [(sk, sp)] + ([(rk, rp)] if with_rgb else [])
     scale = max(float(p.abs().max()) for _, p in outs)
@@ -160,7 +161,7 @@ def _grid_points(rng, along_rays):
 def test_grid_encode_on_card_matches_cpu(cuda, case):
     """The kernels (``csrc/grid_encode.cu``) against the plain encoder on the
     CPU: the output, the table gradient and dx, with points outside [0, 1];
-    the wrapper's and the card's launch counts equal.  Tolerance: forward
+    one forward and one backward launch, as the kernels count them.  Tolerance: forward
     rtol 1e-5 (the same products, summed in the same order, on another
     machine); gradients 1e-5 of the largest entry (atomics add in an order
     that varies; merged runs sum in another order)."""
@@ -180,12 +181,9 @@ def test_grid_encode_on_card_matches_cpu(cuda, case):
         (out * g.to(dev)).sum().backward()
         return out.detach().cpu(), t.grad.cpu(), xx.grad.cpu()
 
-    n0 = (grid_encode.launches, grid_encode.launches_bwd)
     d0 = kernels.device_launches("grid_encode")
     card = run(cuda)
     d1 = kernels.device_launches("grid_encode")
-    n1 = (grid_encode.launches, grid_encode.launches_bwd)
-    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 1)
     want = run("cpu")
     outside = ((x < 0) | (x > 1)).any(-1)
@@ -222,12 +220,10 @@ def test_grid_encode_graph_replay_matches_eager(cuda):
     with torch.cuda.graph(graph):
         out = grid_encode(x, t, spec)
         out.backward(g)
-    n0 = (grid_encode.launches, grid_encode.launches_bwd)
     d0 = kernels.device_launches("grid_encode")
     graph.replay()
     d1 = kernels.device_launches("grid_encode")
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 1)
-    assert (grid_encode.launches, grid_encode.launches_bwd) == n0
     got_out, got_dt = out.clone(), t.grad.clone()
     e = table.clone().requires_grad_(True)
     want = grid_encode(x, e, spec)
@@ -546,14 +542,12 @@ def test_dtable_bf16_kernel_matches_plain(cuda, R, C):
     g = gfull[:, 4:C + 4]
     flat = torch.zeros(4 + R * R, 16, device=cuda)
     from customnerf_torch.ops import kernels
-    n0, n32 = tk.plane_dtable.launches_bf16, tk.plane_dtable.launches
     d0 = kernels.device_launches("plane_dtable")
     got = tk.plane_dtable(u0, v0, fu, fv, g, R, C, out=flat[4:4 + R * R], bf16=True)
     want = tk.plane_dtable_reference(u0, v0, fu, fv, g.contiguous(), R, C, bf16=True)
     f32 = tk.plane_dtable_reference(u0, v0, fu, fv, g.contiguous(), R, C)
     torch.cuda.synchronize()
-    assert tk.plane_dtable.launches_bf16 == n0 + 1 and tk.plane_dtable.launches == n32
-    d1 = kernels.device_launches("plane_dtable")   # the kernel's own count
+    d1 = kernels.device_launches("plane_dtable")
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (0, 1)
     scale = float(want.abs().max())
     torch.testing.assert_close(got[:, :C], want, rtol=0, atol=1e-5 * scale)
@@ -604,7 +598,7 @@ def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
                                                 TextEncoder)
     from customnerf_torch.guidance.unet import UNetConfig
     from customnerf_torch.guidance.vae import VAEConfig
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    from customnerf_torch.ops import kernels
 
     field = ("-O --grid_type triplane --triplane_res 8 16 --triplane_channels 4 8 "
              "--num_steps 8 --upsample_steps 0 --compact_frac 0.35 "
@@ -635,12 +629,12 @@ def test_tiny_editing_step_on_card(cuda, tmp_path, monkeypatch):
     before = [p.detach().clone() for p in tr.field.parameters()]
     batch = NeRFDataset(opt, "train").dataloader().item(0)
     # -O: the bf16 heads and dT's bf16 operands (the JAX package's policy)
-    n_mlp = fused_mlp.fused_mlp_forward.launches_bf16
-    n_dt = triplane_kernels.plane_dtable.launches_bf16
+    n_mlp = kernels.device_launches("fused_mlp")[1]
+    n_dt = kernels.device_launches("plane_dtable")[1]
     loss, aux, _ = tr.train_step(batch)
     torch.cuda.synchronize()
-    assert fused_mlp.fused_mlp_forward.launches_bf16 > n_mlp
-    assert triplane_kernels.plane_dtable.launches_bf16 > n_dt
+    assert kernels.device_launches("fused_mlp")[1] > n_mlp
+    assert kernels.device_launches("plane_dtable")[1] > n_dt
     assert set(aux) == {"loss_sds", "loss_bg"}
     assert all(bool(torch.isfinite(v)) for v in aux.values())
     assert any(bool((p.detach() != b).any()) for p, b in zip(tr.field.parameters(), before))
@@ -743,7 +737,7 @@ def test_use_cd_editing_step_on_card(cuda, tmp_path, monkeypatch):
     from customnerf_torch.engine import editing
     from customnerf_torch.engine.trainer import Trainer
     from customnerf_torch.guidance import custom_diffusion as cd
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    from customnerf_torch.ops import kernels
 
     inst = _jpeg_concepts(str(tmp_path / "inst"))
     cd_dir = cd.train_custom_diffusion(
@@ -778,12 +772,12 @@ def test_use_cd_editing_step_on_card(cuda, tmp_path, monkeypatch):
     tr = Trainer(opt, guidance=guidance, use_checkpoint="scratch", log=lambda *_: None)
     batch = NeRFDataset(opt, "train").dataloader().item(0)
     # -O: the bf16 heads and dT's bf16 operands (the JAX package's policy)
-    n_mlp = fused_mlp.fused_mlp_forward.launches_bf16
-    n_dt = triplane_kernels.plane_dtable.launches_bf16
+    n_mlp = kernels.device_launches("fused_mlp")[1]
+    n_dt = kernels.device_launches("plane_dtable")[1]
     loss, aux, _ = tr.train_step(batch)
     torch.cuda.synchronize()
-    assert fused_mlp.fused_mlp_forward.launches_bf16 > n_mlp
-    assert triplane_kernels.plane_dtable.launches_bf16 > n_dt
+    assert kernels.device_launches("fused_mlp")[1] > n_mlp
+    assert kernels.device_launches("plane_dtable")[1] > n_dt
     assert all(bool(torch.isfinite(v)) for v in aux.values())
 
 
@@ -797,7 +791,7 @@ def test_nerfstudio_fixture_run_on_card(cuda, tmp_path):
     from customnerf_torch.data import fixtures
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.trainer import Trainer
-    from customnerf_torch.ops import fused_mlp, triplane_kernels
+    from customnerf_torch.ops import kernels
 
     data = fixtures.write("nerfstudio", str(tmp_path / "data"), 8, 200, 150)
     opt = parse_args(FLAGSHIP_ARGS + [
@@ -816,15 +810,15 @@ def test_nerfstudio_fixture_run_on_card(cuda, tmp_path):
         return float(tr.loss(out, fixed.rgbs.reshape(-1, 3), fixed.mask.reshape(-1))[0])
 
     # -O: the bf16 heads and dT's bf16 operands (the JAX package's policy)
-    n_mlp = fused_mlp.fused_mlp_forward.launches_bf16
-    n_dt = triplane_kernels.plane_dtable.launches_bf16
+    n_mlp = kernels.device_launches("fused_mlp")[1]
+    n_dt = kernels.device_launches("plane_dtable")[1]
     before = fixed_loss()
     tr.train(train, max_epochs=2, valid_loader=val)
     after = fixed_loss()
     torch.cuda.synchronize()
     assert tr.global_step == 30
-    assert fused_mlp.fused_mlp_forward.launches_bf16 > n_mlp
-    assert triplane_kernels.plane_dtable.launches_bf16 > n_dt
+    assert kernels.device_launches("fused_mlp")[1] > n_mlp
+    assert kernels.device_launches("plane_dtable")[1] > n_dt
     assert math.isfinite(after) and after < before, (before, after)
     psnrs = [-r for r in tr.stats["results"]]
     assert len(psnrs) == 2 and all(math.isfinite(p) for p in psnrs)
@@ -980,17 +974,12 @@ def test_failed_capture_raises_and_never_runs_eager(cuda, tmp_path, monkeypatch)
 
 
 def test_launch_counters_count_replays(cuda, tmp_path):
-    """The kernels count their own launches on the card, a replay's
-    included; the wrappers count the warm-up steps' launches, not the
-    capture's (which launches nothing) and not a replay's (which runs no
-    wrapper)."""
+    """The kernels count their own launches on the card: an eager step's,
+    the warm-up steps' of a dispatch and a replay's (which runs no wrapper),
+    not the capture's (which launches nothing)."""
     from customnerf_torch.data.base import NeRFDataset
     from customnerf_torch.engine.dispatch import WARMUP_STEPS
-    from customnerf_torch.ops import fused_mlp, kernels, triplane_kernels
-
-    def wrappers():
-        return (fused_mlp.fused_mlp_forward.launches_bf16,
-                triplane_kernels.plane_dtable.launches_bf16)
+    from customnerf_torch.ops import kernels
 
     def device():
         return (kernels.device_launches("fused_mlp")[1],
@@ -1001,17 +990,15 @@ def test_launch_counters_count_replays(cuda, tmp_path):
 
     tr = _tiny_trainer(["-O"] + TINY_FIELD, tmp_path)
     b = NeRFDataset(tr.opt, "train").dataloader().item(0)
-    w0, d0 = wrappers(), device()
+    d0 = device()
     tr.train_step(b)
-    one = since(wrappers(), w0)
-    assert all(n > 0 for n in one) and since(device(), d0) == one
-    w1, d1 = wrappers(), device()
+    one = since(device(), d0)
+    assert all(n > 0 for n in one)
+    d1 = device()
     tr.train_many([b])                       # warm-up (eager steps), capture, 1 replay
-    assert since(wrappers(), w1) == tuple(WARMUP_STEPS * n for n in one)
     assert since(device(), d1) == tuple((WARMUP_STEPS + 1) * n for n in one)
-    w2, d2 = wrappers(), device()
+    d2 = device()
     tr.train_many([b] * 4)                   # replays only
-    assert since(wrappers(), w2) == (0, 0)
     assert since(device(), d2) == tuple(4 * n for n in one)
 
 
