@@ -86,6 +86,10 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    attention module (32 in SD 1.5, as it counts on the card) and none
    takes the plain path (the ``attention_plain`` counter stays); that
    count is the ``launches`` of the attention rows at SD 1.5's shapes.
+   Every step launches the group-norm kernel's forward once a GroupNorm of
+   the UNet and the VAE encoder (61 + 22 in SD 1.5) and its backward once a
+   GroupNorm of the encoder (22), none on the plain chain (the
+   ``group_norm_plain`` counter stays).
 7. kernels on the editing inputs: K1 on the last editing step's render and
    dT at (128, 16) and (512, 8) on its backward, against their plain
    versions, with the live-sample share; the UNet's attention kernel
@@ -96,6 +100,14 @@ Phases, each of which fails the run (nonzero exit) if anything is wrong:
    larger of 4·b·h·n·m·d FLOPs at 989 TFLOP/s and q, k, v and the output
    once at 3.35 TB/s), the plain ms and ``F.scaled_dot_product_attention``'s
    ms on the same bf16 heads as a yardstick (the port never calls it).
+   The group-norm kernels (``csrc/group_norm.cu``) against the plain chain
+   (``guidance/layers.py::group_norm``) at each GroupNorm shape of the SD
+   1.5 and SDXL UNets (CFG batch 2) and VAE encoders (one image), forward
+   with the call's SiLU and backward (dx against autograd of the chain), on
+   bf16 inputs: the kernel's ms, its bound at 3.35 TB/s (the function's
+   least traffic, 4 bytes an element forward and 6 backward; this design's,
+   6 and 10, beside it), the chain's ms and, without the SiLU, one
+   ``F.group_norm`` call's on the same bf16 input as a yardstick.
 7a. multi-scene editing (N scenes × M prompts,
    ``engine/editing.py::editing_step_scenes``), on the editing trainer of
    phase 6 (phase 4's checkpoint, the full-width SD 1.5 stack in bf16):
@@ -315,6 +327,19 @@ GRID, GRID_BWD = "grid_encode", "grid_encode_bwd"
 GRID_PATH = (K1_BF16, GRID, GRID_BWD)
 # the UNet's attention kernel, counted on the editing paths
 ATTENTION = "attention"
+# the SD stack's group-norm kernels (forward, backward), on the editing paths
+GROUP_NORM, GROUP_NORM_BWD = "group_norm", "group_norm_bwd"
+# what every editing step launches of the SD stack's kernels
+SD_PATH = (ATTENTION, GROUP_NORM, GROUP_NORM_BWD)
+
+
+def group_norm_counts(guidance) -> dict:
+    """GroupNorm modules of the guidance's UNet and VAE encoder: the kernel
+    forwards a step runs (UNet and encoder) and its backwards (encoder)."""
+    from customnerf_torch.guidance.layers import GroupNorm
+    return {name: sum(isinstance(m, GroupNorm) for m in model.modules())
+            for name, model in (("unet", guidance.unet),
+                                ("vae_encoder", guidance.vae.encoder))}
 
 
 def zero_counts():
@@ -974,6 +999,7 @@ def check_fused_mlp(x, v, ws, with_rgb=True, bf16=False):
     head's cuBLAS bf16 GEMMs), with the other mode's kernel time on the same
     inputs beside it."""
     import torch
+    import torch.nn.functional as F
     from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import fused_mlp as fm
@@ -1039,6 +1065,7 @@ def check_dtable(u0, v0, fu, fv, g, R: int, C: int, bf16: bool = False):
     (index_add_ of the same, rounded, corner contributions) and a single
     index_add_ call (the library yardstick), on one plane of a step."""
     import torch
+    import torch.nn.functional as F
     from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import triplane_kernels as tk
@@ -1096,6 +1123,7 @@ def log_row(r):
            if r["other_mode_ms"] is not None else "")
         + f" plain {r['plain_ms']:.4f} ms (a wrapper call with the host in the loop "
         f"{r['call_ms']:.4f} ms) bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+        + (f" (this design's {r['design_bound_ms']:.4f} ms)" if "design_bound_ms" in r else "")
         + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
         + (f" | live rows {r['live_share']:.3f}: {r['live_rows_ms']:.4f} ms"
            if "live_rows_ms" in r else
@@ -1191,7 +1219,8 @@ def editing_steps(trainer, opt, n_steps):
     times (:func:`editing_stages`); each step's UNet call must launch the
     attention kernel once an attention module, and none run plain.  Returns
     (steps, launches (the attention kernel's under ATTENTION, both of its
-    counts summed), peak and resident bytes, the last step's K1 and dT
+    counts summed; the group-norm kernels' under GROUP_NORM and
+    GROUP_NORM_BWD), peak and resident bytes, the last step's K1 and dT
     inputs, the field's largest change, the train loader)."""
     import torch
     from customnerf_torch.data.base import NeRFDataset
@@ -1206,6 +1235,7 @@ def editing_steps(trainer, opt, n_steps):
     before = [p.detach().clone() for p in trainer.field.parameters()]
     steps = []
     plain0 = spans.counters["attention_plain"]
+    norm_plain0 = spans.counters["group_norm_plain"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
@@ -1230,10 +1260,16 @@ def editing_steps(trainer, opt, n_steps):
                               pt_cached=len(trainer.pt_dict)))
         launches = read_counts()
         launches[ATTENTION] = sum(kernels.device_launches(ATTENTION))
+        launches[GROUP_NORM], launches[GROUP_NORM_BWD] = kernels.device_launches(GROUP_NORM)
     peak = torch.cuda.max_memory_allocated()
     per_call = sum(isinstance(m, Attention) for m in trainer.guidance.unet.modules())
     assert launches[ATTENTION] == n_steps * per_call, (launches, n_steps, per_call)
     assert spans.counters["attention_plain"] == plain0, "a UNet attention call ran plain"
+    norms = group_norm_counts(trainer.guidance)
+    assert (launches[GROUP_NORM], launches[GROUP_NORM_BWD]) == \
+        (n_steps * (norms["unet"] + norms["vae_encoder"]), n_steps * norms["vae_encoder"]), \
+        (launches, n_steps, norms)
+    assert spans.counters["group_norm_plain"] == norm_plain0, "a GroupNorm ran the plain chain"
     assert all(math.isfinite(s[k]) for s in steps
                for k in ("loss", "loss_sds", "loss_bg")), steps
     assert all(e["match_probs"] is not None for e in trainer.pt_dict.values()), \
@@ -1272,7 +1308,7 @@ def run_editing(trainer, opt, label="editing"):
 
     steps, launches, peak, base_mem, mlp_input, dt_calls, moved, train = editing_steps(
         trainer, opt, EDIT_STEPS)
-    check_launched(launches, (K1_BF16, DT_BF16, ATTENTION), "editing")
+    check_launched(launches, (K1_BF16, DT_BF16) + SD_PATH, "editing")
     assert {s["local"] for s in steps} == {True, False}, "an LGIE branch never ran"
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
 
@@ -1767,7 +1803,7 @@ def cd_editing(guidance, clip_matcher, flags, n_steps, path):
     trainer.clip_matcher = clip_matcher
     steps, launches, peak, base_mem, mlp_input, dt_calls, field_moved, _ = editing_steps(
         trainer, eopt, n_steps)
-    check_launched(launches, (K1_BF16, DT_BF16, ATTENTION), path)
+    check_launched(launches, (K1_BF16, DT_BF16) + SD_PATH, path)
     assert mlp_input[0][0].shape[0] == STEP_SAMPLES, mlp_input[0][0].shape
     assert guidance.text_encoder.tokenize(["a <new1> bear"])[0][2] == 49408
     edit = {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -2115,6 +2151,7 @@ def grid_rows(coarse_x, fine_x, table, spec, launches):
     terms of either sign, so its sum is far smaller than the mass its
     rounding scales with; a row of one term must be exact."""
     import torch
+    import torch.nn.functional as F
     from benchmark.lib import counts
     from customnerf_torch.engine.measure import device_ms
     from customnerf_torch.ops import grid
@@ -2260,6 +2297,189 @@ def attention_rows():
     return rows
 
 
+# the SD stacks whose GroupNorms the kernels take, at published widths:
+# (model, --sd_version, batch, side of its input); the UNets at the SDS
+# call's CFG batch 2 on their latents, the VAE encoders on one image
+GROUP_NORM_STACKS = {
+    "SD 1.5 UNet": ("unet", "1.5", 2, 64), "SD 1.5 VAE encoder": ("vae", "1.5", 1, 512),
+    "SDXL UNet": ("unet", "xl", 2, 128), "SDXL VAE encoder": ("vae", "xl", 1, 1024),
+}
+
+
+def group_norm_calls(stack: str) -> list:
+    """(shape, groups, eps, silu) of each GroupNorm call of one bf16 forward
+    of ``stack`` (a ``GROUP_NORM_STACKS`` key), in call order, recorded on
+    the meta device (no weights, no card)."""
+    import torch
+    from customnerf_torch.guidance import sds
+    from customnerf_torch.guidance.layers import GroupNorm, build
+    from customnerf_torch.guidance.unet import UNet2DCondition
+    from customnerf_torch.guidance.vae import AutoencoderKL
+    kind, version, batch, side = GROUP_NORM_STACKS[stack]
+    meta = torch.device("meta")
+    if kind == "vae":
+        model = build(AutoencoderKL, sds.vae_config(version), device=meta)
+        call = lambda: model.moments(torch.empty(batch, 3, side, side, device=meta))  # noqa: E731
+    else:
+        cfg = sds.unet_config(version)
+        model = build(UNet2DCondition, cfg, device=meta)
+        kw = {}
+        if cfg.addition_embed_type:
+            kw["added_cond"] = {"text_embeds": torch.empty(batch, cfg.text_embeds_dim,
+                                                           device=meta),
+                                "time_ids": torch.empty(batch, 6, device=meta)}
+        call = lambda: model(  # noqa: E731
+            torch.empty(batch, 4, side, side, device=meta), torch.zeros(batch, device=meta),
+            torch.empty(batch, 77, cfg.cross_attention_dim, device=meta), **kw)
+    seen = []
+
+    def record(mod, args, kwargs, out):
+        seen.append((tuple(args[0].shape), mod.num_groups, mod.eps, kwargs.get("silu", False)))
+
+    hooks = [m.register_forward_hook(record, with_kwargs=True)
+             for m in model.modules() if isinstance(m, GroupNorm)]
+    try:
+        with torch.no_grad():
+            call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def group_norm_inputs(shape, seed=0):
+    """x ~ 0.5 + 1.5·N(0, 1), γ ~ 1 + N(0, 0.1²), β ~ N(0, 0.1²), dy ~ N(0, 1),
+    bf16 on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = (0.5 + 1.5 * torch.randn(shape, device="cuda", generator=g)).bfloat16()
+    gamma = (1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    beta = (0.1 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    dy = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    return x, gamma, beta, dy
+
+
+def group_norm_error(got, want, backward: bool, silu: bool) -> dict:
+    """Kernel against the chain, both bf16 from f32 statistics summed in
+    other orders.  Allowance per element: one bf16 ulp of the chain's value
+    (2^-7 of it) + 2^-14 of the largest |value| forward (a normalised value
+    that cancels to near 0 keeps the statistics' f32 error), 2^-12 backward
+    (c2·x + c3 cancels where x is near the mean).  With the SiLU, and in the
+    backward, fewer than 1 in 1,000 elements may exceed that by up to 2^-7
+    of the largest |value|: where the two normalised values landed one bf16
+    ulp apart, the SiLU of them (its slope up to 1.1), or the recomputed
+    SiLU cotangent, moves by up to an ulp of the normalised value, which
+    can be far larger than the SiLU's own.  ``err``: the largest error over
+    the allowance with those flips (pass ≤ 1); ``rare``: the share over the
+    allowance without them; ``share``: the share differing by more than the
+    cancellation floor (2^-14 or 2^-12 of the largest |value|), which
+    leaves out outputs that cancel to near 0, as every dx of a two-element
+    group does."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    floor = (2.0 ** -12 if backward else 2.0 ** -14) * scale
+    bound = 2.0 ** -7 * want.abs() + floor
+    flips = 2.0 ** -7 * scale if backward or silu else 0.0
+    return {"err": float((diff / (bound + flips)).max()),
+            "rare": float((diff > bound).float().mean()),
+            "share": float((diff > floor).float().mean()), "max_diff": float(diff.max())}
+
+
+def group_norm_ok(e: dict) -> bool:
+    """``group_norm_error``'s pass: within the allowance, fewer than 1 in
+    1,000 over it without the flips, fewer than 2 % differing above the
+    floor."""
+    return e["err"] <= 1.0 and e["rare"] < 1e-3 and e["share"] < 2e-2
+
+
+def group_norm_rows():
+    """The group-norm kernels (``csrc/group_norm.cu``) against the plain
+    chain at each distinct GroupNorm shape of ``GROUP_NORM_STACKS``: the
+    forward with the call's SiLU, and the backward (dx against autograd of
+    the chain; the SiLU as the call has it).  Bound at 3.35 TB/s
+    (``bound_ms``): the function's least traffic, 4 bytes an element
+    forward (x read, y written) and 6 backward (x and dy read, dx written);
+    ``design_bound_ms``: this design's, 6 forward (x read twice) and 10
+    backward (x and dy read twice).  ``library_ms``: one ``F.group_norm``
+    on the bf16 input (f32 statistics, the same function) and its autograd
+    dx, on the rows without SiLU.  ``launches`` is left to the caller."""
+    import torch
+    import torch.nn.functional as F
+    from benchmark.lib import counts
+    from customnerf_torch.engine.measure import device_ms
+    from customnerf_torch.guidance import layers
+    from customnerf_torch.ops import kernels
+
+    rows = []
+    for stack in GROUP_NORM_STACKS:
+        for shape, groups, eps, silu in sorted(set(group_norm_calls(stack))):
+            x, gamma, beta, dy = group_norm_inputs(shape)
+            fwd = lambda: layers.group_norm_kernel(x, gamma, beta, groups, eps, silu)  # noqa: E731
+            plain = lambda: layers.group_norm(x, groups, gamma, beta, eps, silu)  # noqa: E731
+            xg = x.clone().requires_grad_(True)
+            n0 = kernels.device_launches(GROUP_NORM)
+            with torch.no_grad():
+                got, want = fwd(), plain()
+            e_fwd = group_norm_error(got, want, backward=False, silu=silu)
+            (got_dx,) = torch.autograd.grad(
+                layers.group_norm_kernel(xg, gamma, beta, groups, eps, silu), xg, dy)
+            (want_dx,) = torch.autograd.grad(
+                layers.group_norm(xg, groups, gamma, beta, eps, silu), xg, dy)
+            e_bwd = group_norm_error(got_dx, want_dx, backward=True, silu=silu)
+            n1 = kernels.device_launches(GROUP_NORM)
+            assert (n1[0] - n0[0], n1[1] - n0[1]) == (2, 1), "the norm took the chain"
+            for what, e in (("forward", e_fwd), ("backward", e_bwd)):
+                if not group_norm_ok(e):
+                    raise AssertionError(f"group_norm {stack} {shape} silu={silu} {what}: {e}")
+            _, mean, rstd = layers._kernel_forward(x, gamma, beta, groups, eps, silu)
+            chain_out = layers.group_norm(xg, groups, gamma, beta, eps, silu)
+
+            def bwd():
+                return layers._kernel_backward(x, dy, gamma, beta, mean, rstd, groups, silu)
+
+            def plain_bwd():
+                return torch.autograd.grad(chain_out, xg, dy, retain_graph=True)
+
+            lib = lib_bwd = lib_out = None
+            if not silu:        # the same function: F.group_norm has no SiLU
+                lib_out = F.group_norm(xg, groups, gamma, beta, eps)
+                lib = lambda: F.group_norm(x, groups, gamma, beta, eps)  # noqa: E731
+                lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_out, xg, dy, retain_graph=True)
+
+            n = x.numel()
+            for what, k_fn, p_fn, l_fn, nbytes, design_bytes, e in (
+                    ("forward", fwd, plain, lib, 4.0 * n, 6.0 * n, e_fwd),
+                    ("backward", bwd, plain_bwd, lib_bwd, 6.0 * n, 10.0 * n, e_bwd)):
+                with torch.no_grad():
+                    k_ms = device_ms(k_fn, 20)
+                p_ms = device_ms(p_fn, 5)
+                l_ms = device_ms(l_fn, 5) if l_fn else None
+                b_ms, b_by = bound_ms(0.0, nbytes, counts.PEAK_BF16_FLOPS)
+                d_ms, _ = bound_ms(0.0, design_bytes, counts.PEAK_BF16_FLOPS)
+                rows.append({
+                    "name": GROUP_NORM if what == "forward" else GROUP_NORM_BWD,
+                    "path": "editing" if stack.startswith("SD 1.5") else
+                            "GroupNorm: shape check, no path of this script runs it",
+                    "shape": f"{stack}, {what}, x {list(shape)} groups={groups} "
+                             f"eps={eps:g} silu={silu}",
+                    "route": "cuda", "source": "customnerf_torch/csrc/group_norm.cu",
+                    "replaces": "none (the JAX normalisers are plain XLA); the plain "
+                                "chain of customnerf_torch/guidance/layers.py::group_norm",
+                    "max_abs_err": e["err"], "tolerance": 1.0, "max_diff": e["max_diff"],
+                    "share_differing": e["share"],
+                    "ms": k_ms, "kernel_ms": k_ms, "call_ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "design_bound_ms": d_ms,
+                    "bound_peak": "HBM3 3.35 TB/s", "library_ms": l_ms,
+                    "other_mode_ms": None, "launches": None})
+            del x, xg, gamma, beta, dy, got, want, got_dx, want_dx, mean, rstd, chain_out
+            del lib_out, lib, lib_bwd
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_reference_checkpoint(trainer, opt):
     """Export the parity field as a reference-format (tcnn) checkpoint,
     load it through ``Trainer(..., use_checkpoint=<file>)`` and render the
@@ -2308,7 +2528,7 @@ def run_parity_editing(recon, guidance, clip_matcher):
     assert trainer.occ_state is None
     steps, launches, peak, base_mem, mlp_input, _, moved, _ = editing_steps(
         trainer, opt, PARITY_EDIT_STEPS)
-    check_launched(launches, GRID_PATH + (ATTENTION,), "parity editing")
+    check_launched(launches, GRID_PATH + SD_PATH, "parity editing")
     assert mlp_input[0][0].shape[0] == PARITY_SAMPLES, mlp_input[0][0].shape
     del trainer
     return {"steps": steps, "launches": launches, "peak_gb": peak / 1e9,
@@ -3182,6 +3402,12 @@ def run_all(card, procs) -> int:
             r["launches"] = ed["launches"][ATTENTION]
         log_row(r)
     rows += attn_rows
+    norm_rows = group_norm_rows()
+    for r in norm_rows:             # in the log even if a later phase fails
+        if r["path"] == "editing":
+            r["launches"] = ed["launches"][r["name"]]
+        log_row(r)
+    rows += norm_rows
     scenes, scene_rows = run_multi_scene(editor, edit_opt)
     log(f"[multi-scene] {card} | S = 2 scenes x 2 prompt pairs, {SCENE_STEPS} steps of "
         f"2 x {STEP_RAYS} rays, per-scene occupancy | {scenes['ms_s2']:.1f} ms/step at "
@@ -3274,9 +3500,9 @@ def run_all(card, procs) -> int:
 
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches",
             "max_abs_err", "tolerance", "ms", "kernel_ms", "plain_ms",
-            "bound_ms", "bound_by", "bound_peak", "library_ms", "other_mode_ms",
-            "live_share")
-    missing = {K1, K1_BF16, DT, DT_BF16, GRID, GRID_BWD, ATTENTION} - {r["name"] for r in rows}
+            "bound_ms", "bound_by", "bound_peak", "design_bound_ms", "library_ms",
+            "other_mode_ms", "live_share")
+    missing = {K1, K1_BF16, DT, DT_BF16, GRID, GRID_BWD, *SD_PATH} - {r["name"] for r in rows}
     assert not missing, f"no row for {missing}"
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {

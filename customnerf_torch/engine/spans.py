@@ -30,8 +30,10 @@ pretrained renders of a pt-cache miss (``pt_render``), occupancy refreshes
 (``saver_write``), the SD guidance's build, weights (drawn or loaded) and
 storage cast (``guidance_build``), the UNet's attention calls on the card
 that took the plain path (``attention_plain``: f32 or differentiated
-inputs, ``guidance/unet.py::attend``); a read of the ring sets
-``dropped_stamps``.
+inputs, ``guidance/unet.py::attend``), the SD stack's group norms on the card
+that took the plain chain (``group_norm_plain``: f32 inputs or weights, or a
+weight that trains, ``guidance/layers.py::GroupNorm``); a read of the ring
+sets ``dropped_stamps``.
 
 :func:`collect` reads the ring (after a synchronize, one copy from the
 card: never inside a dispatch) and returns, by span name, the device
@@ -72,7 +74,8 @@ _anchors: dict = {}                 # host span name -> ns of its first begin si
 counters = {"capture": 0, "capture_s": 0.0, "pt_render": 0, "pt_render_s": 0.0,
             "refresh": 0, "refresh_s": 0.0, "saver_block": 0, "saver_block_s": 0.0,
             "saver_write": 0, "saver_write_s": 0.0, "guidance_build": 0,
-            "guidance_build_s": 0.0, "attention_plain": 0, "dropped_stamps": 0}
+            "guidance_build_s": 0.0, "attention_plain": 0, "group_norm_plain": 0,
+            "dropped_stamps": 0}
 
 
 def enable(on: bool = True, device=None) -> None:
@@ -321,6 +324,7 @@ def counters_line(since: dict) -> str:
             f"and wrote {c['saver_write_s']:.3f} s in {c['saver_write']} writes, "
             f"{c['guidance_build']} guidance builds ({c['guidance_build_s']:.3f} s), "
             f"{c['attention_plain']} plain attention calls on the card, "
+            f"{c['group_norm_plain']} plain group norms on the card, "
             f"{c['dropped_stamps']} stamps dropped")
 
 

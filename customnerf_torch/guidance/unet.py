@@ -367,7 +367,10 @@ class Transformer2DModel(nn.Module):
         for block in self.transformer_blocks:
             x = block(x, context, cd_kv)
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(x) + res
+        # the residual first: the sum takes its contiguous NCHW layout (the
+        # first operand's), not the channels-last one of proj_out's output,
+        # so the next GroupNorm needs no NCHW copy of it
+        return res + self.proj_out(x)
 
 
 class _Block(nn.Module):
@@ -496,7 +499,7 @@ class UNet2DCondition(nn.Module):
                                               cd_kv.get(f"up_blocks.{i}.attentions.{j}"))
                 if hasattr(blk, "upsamplers"):
                     h = blk.upsamplers[0](h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
     def _text_time(self, added_cond, dt):
         """``add_embedding([text_embeds | sinusoids of the time ids])``: each

@@ -25,7 +25,6 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from customnerf_torch.guidance.layers import (Conv2d, Downsample2D, GroupNorm,
@@ -67,7 +66,9 @@ class VAEAttention(nn.Module):
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(c))
         x = self.to_out[0](torch.matmul(scores.softmax(dim=-1).to(v.dtype), v))
-        return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + res
+        # the residual first: the sum keeps its contiguous NCHW layout (the
+        # first operand's), so the next GroupNorm needs no NCHW copy of it
+        return res + x.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class _Level(nn.Module):
@@ -117,11 +118,14 @@ class Encoder(nn.Module):
         self.compute_dtype = cfg.compute_dtype
 
     def forward(self, x):
-        h = self.conv_in(x.to(self.compute_dtype))
+        # contiguous NCHW from the cast on (a rendered image may come in
+        # channels-last, and the convs would keep it so): the layout the
+        # GroupNorms' kernel reads, so none of them copies its input
+        h = self.conv_in(x.to(self.compute_dtype, memory_format=torch.contiguous_format))
         for blk in self.down_blocks:
             h = blk(h)
         h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -142,7 +146,7 @@ class Decoder(nn.Module):
         h = self.mid_block(self.conv_in(z.to(self.compute_dtype)))
         for blk in self.up_blocks:
             h = blk(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 class AutoencoderKL(nn.Module):

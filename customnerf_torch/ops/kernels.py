@@ -71,13 +71,27 @@ _SIGNATURES = {
         _i32, _i32, _i32, _i32, _i32,              # batch, heads, n, m, d
         ctypes.c_float, _vp,                       # scale, stream
     ],
+    "cn_group_norm_forward": [
+        _vp, _vp, _vp,                             # x, gamma, beta
+        _vp, _vp, _vp, _vp,                        # y, partials, mean, rstd
+        _i32, _i32, _i32, _i32,                    # rows, groups, cpg, hw
+        _i32, _i32, ctypes.c_float, _i32,          # chunk, splits, eps, silu
+        _vp,                                       # stream
+    ],
+    "cn_group_norm_backward": [
+        _vp, _vp, _vp, _vp,                        # x, dy, gamma, beta
+        _vp, _vp, _vp, _vp,                        # mean, rstd, dx, partials
+        _i32, _i32, _i32, _i32,                    # rows, groups, cpg, hw
+        _i32, _i32, _i32,                          # chunk, splits, silu
+        _vp,                                       # stream
+    ],
 }
 # the bf16 modes take the f32 modes' arguments (K1's scratch holds bf16)
 _SIGNATURES["cn_fused_mlp_bf16_forward"] = _SIGNATURES["cn_fused_mlp_forward"]
 _SIGNATURES["cn_fused_mlp_bf16_packed_elems"] = _SIGNATURES["cn_fused_mlp_packed_floats"]
 _SIGNATURES["cn_plane_dtable_bf16"] = _SIGNATURES["cn_plane_dtable"]
 # each kernel's launches as it counts them on the card (see device_launches)
-COUNTED = ("fused_mlp", "plane_dtable", "grid_encode", "attention")
+COUNTED = ("fused_mlp", "plane_dtable", "grid_encode", "attention", "group_norm")
 for _k in COUNTED:
     _SIGNATURES[f"cn_{_k}_launch_counts"] = [_vp]       # out: 2 × uint64
     _SIGNATURES[f"cn_{_k}_reset_launch_counts"] = []
@@ -171,7 +185,8 @@ def device_launches(kernel: str) -> tuple:
     kernel counts them itself on the card: a replayed CUDA graph's launches
     included, which no wrapper sees.  ``"fused_mlp"`` and ``"plane_dtable"``:
     (f32 mode, bf16 mode); ``"grid_encode"``: (forward, backward);
-    ``"attention"``: (whole key tiles, a masked last key tile).  (0, 0)
+    ``"attention"``: (whole key tiles, a masked last key tile);
+    ``"group_norm"``: (forward, backward).  (0, 0)
     before the library is loaded: nothing has launched then."""
     if _lib is None:
         return (0, 0)

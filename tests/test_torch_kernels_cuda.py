@@ -7,6 +7,7 @@ them on the card with
 machine has no JAX, which ``tests/conftest.py`` imports).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -449,6 +450,227 @@ def test_graphed_unet_call_launches_the_kernel_for_every_attention(cuda, version
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (3 * per_call // 2, 3 * per_call // 2)
     assert spans.counters["attention_plain"] == plain0
     assert torch.equal(out, eager) and bool(torch.isfinite(out).all())
+
+
+# --------------------------------------------------------------- group norm
+GN_STACKS = ["SD 1.5 UNet", "SD 1.5 VAE encoder", "SDXL UNet", "SDXL VAE encoder"]
+
+
+def _gn_shapes(stack, batch):
+    """The distinct (shape at ``batch``, groups, eps) of ``stack``'s
+    GroupNorm calls (``chip_smoke.group_norm_calls``, on the meta device)."""
+    import chip_smoke
+    return sorted({((batch,) + shape[1:], groups, eps)
+                   for shape, groups, eps, _ in chip_smoke.group_norm_calls(stack)})
+
+
+def _gn_check(shape, groups, eps, silu, seed=0):
+    """Forward and backward of the kernels against the chain (forward under
+    no_grad, dx against autograd of the chain), at ``chip_smoke``'s
+    tolerance; one forward and one backward launch counted, none plain."""
+    import chip_smoke
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import layers
+    from customnerf_torch.ops import kernels
+    x, gamma, beta, dy = chip_smoke.group_norm_inputs(shape, seed)
+    d0, plain0 = kernels.device_launches("group_norm"), spans.counters["group_norm_plain"]
+    norm = layers.GroupNorm(groups, shape[1], eps=eps).to(x.device, torch.bfloat16)
+    norm.weight.data.copy_(gamma)
+    norm.bias.data.copy_(beta)
+    norm.requires_grad_(False)
+    with torch.no_grad():
+        got, want = norm(x, silu=silu), layers.group_norm(x, groups, gamma, beta, eps, silu)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape and got.is_contiguous()
+    e = chip_smoke.group_norm_error(got, want, backward=False, silu=silu)
+    assert chip_smoke.group_norm_ok(e), (shape, silu, "forward", e)
+    xg = x.clone().requires_grad_(True)
+    (got_dx,) = torch.autograd.grad(norm(xg, silu=silu), xg, dy)
+    (want_dx,) = torch.autograd.grad(layers.group_norm(xg, groups, gamma, beta, eps, silu),
+                                     xg, dy)
+    e = chip_smoke.group_norm_error(got_dx, want_dx, backward=True, silu=silu)
+    assert chip_smoke.group_norm_ok(e), (shape, silu, "backward", e)
+    d1 = kernels.device_launches("group_norm")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (2, 1)
+    assert spans.counters["group_norm_plain"] == plain0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+@pytest.mark.parametrize("stack", GN_STACKS)
+def test_group_norm_kernel_matches_chain(cuda, stack, batch):
+    """The kernels against the plain chain at every GroupNorm shape of the
+    SD 1.5 and SDXL UNets and VAE encoders at published widths, at batch 1,
+    2 and 4, forward with the SiLU on and off and backward (dx)."""
+    for shape, groups, eps in _gn_shapes(stack, batch):
+        for silu in (False, True):
+            _gn_check(shape, groups, eps, silu)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 320, 7, 9), 32),        # H·W not a multiple of 8: one element at a time
+    ((1, 128, 33, 31), 32),      # a ragged VAE-like span that still splits
+    ((3, 64, 1, 1), 32),         # two elements a row
+    ((2, 2560, 5, 5), 32),       # 80 channels a group, 2,000 elements a row
+    ((1, 96, 512, 3), 3),        # 32 channels a group of 1,536 elements each
+])
+def test_group_norm_kernel_ragged_spans(cuda, shape, groups):
+    for silu in (False, True):
+        _gn_check(shape, groups, 1e-6, silu, seed=3)
+
+
+def test_group_norm_kernel_refuses_f32_weights_and_takes_misaligned_input(cuda):
+    """f32 γ and β are refused (the kernel reads bf16 ones); a bf16 input
+    whose base is 2 bytes off 16 (the element-wise path) gives the chain's
+    result."""
+    import chip_smoke
+    from customnerf_torch.guidance import layers
+    x, gamma, beta, _ = chip_smoke.group_norm_inputs((2, 64, 16, 16), seed=4)
+    with pytest.raises(TypeError, match="group_norm"):
+        layers.group_norm_kernel(x, gamma.float(), beta.float(), 32, 1e-5, True)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    with torch.no_grad():
+        got = layers.group_norm_kernel(shifted, gamma, beta, 32, 1e-5, True)
+    e = chip_smoke.group_norm_error(got, layers.group_norm(shifted, 32, gamma, beta, 1e-5,
+                                                           True),
+                                    backward=False, silu=True)
+    assert chip_smoke.group_norm_ok(e), e
+
+
+def test_group_norm_kernel_graph_replays_are_bit_identical(cuda):
+    """Forward and backward captured in a CUDA graph: three replays give
+    the same bits, equal to an eager call's, with new inputs copied in; the
+    kernels count each replay's launches."""
+    import chip_smoke
+    from customnerf_torch.guidance import layers
+    from customnerf_torch.ops import kernels
+    shape = (1, 128, 256, 256)
+    x, gamma, beta, dy = chip_smoke.group_norm_inputs(shape, seed=5)
+    xg = x.clone().requires_grad_(True)
+
+    def step():
+        y = layers.group_norm_kernel(xg, gamma, beta, 32, 1e-6, True)
+        (dx,) = torch.autograd.grad(y, xg, dy)
+        return y, dx
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, dx = step()
+    new_x, _, _, new_dy = chip_smoke.group_norm_inputs(shape, seed=6)
+    with torch.no_grad():
+        xg.copy_(new_x)
+    dy.copy_(new_dy)
+    d0 = kernels.device_launches("group_norm")
+    outs = []
+    for _ in range(3):
+        graph.replay()
+        outs.append((y.clone(), dx.clone()))
+    d1 = kernels.device_launches("group_norm")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (3, 3)
+    eager = step()
+    for out in outs:
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+def test_group_norm_plain_route_on_the_card(cuda):
+    """f32 inputs and norms whose γ trains take the unchanged chain on the
+    card, one ``group_norm_plain`` count each, no kernel launch; a
+    channels-last bf16 input (the same function in another layout) takes
+    the kernel on a contiguous copy, forward and backward, with no count."""
+    import chip_smoke
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import layers
+    from customnerf_torch.ops import kernels
+    x, _, _, _ = chip_smoke.group_norm_inputs((2, 64, 16, 16), seed=7)
+    frozen = layers.GroupNorm(32, 64).to(cuda, torch.bfloat16).requires_grad_(False)
+    trains = layers.GroupNorm(32, 64).to(cuda, torch.bfloat16)
+    d0, plain0 = kernels.device_launches("group_norm"), spans.counters["group_norm_plain"]
+    with torch.no_grad():
+        f32 = frozen.float()(x.float(), silu=True)
+        assert torch.equal(f32, layers.group_norm(x.float(), 32, frozen.weight, frozen.bias,
+                                                  1e-5, True))
+    out = trains(x, silu=True)
+    out.float().sum().backward()
+    assert trains.weight.grad is not None
+    assert spans.counters["group_norm_plain"] == plain0 + 2
+    assert kernels.device_launches("group_norm") == d0
+    frozen.bfloat16()
+    dy = torch.randn_like(x)
+    xg = x.to(memory_format=torch.channels_last).requires_grad_(True)
+    cl = frozen(xg, silu=True)
+    (got_dx,) = torch.autograd.grad(cl, xg, dy)
+    xw = x.clone().requires_grad_(True)
+    want = layers.group_norm(xw, 32, frozen.weight, frozen.bias, 1e-5, True)
+    (want_dx,) = torch.autograd.grad(want, xw, dy)
+    for got, ref, backward in ((cl, want, False), (got_dx, want_dx, True)):
+        e = chip_smoke.group_norm_error(got, ref, backward=backward, silu=True)
+        assert chip_smoke.group_norm_ok(e), (backward, e)
+    d1 = kernels.device_launches("group_norm")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (1, 1)
+    assert spans.counters["group_norm_plain"] == plain0 + 2
+
+
+@pytest.mark.parametrize("version,latent,per_call", [("1.5", 64, 61), ("xl", 128, 46)])
+def test_graphed_unet_and_vae_launch_the_kernel_for_every_group_norm(cuda, version, latent,
+                                                                     per_call):
+    """The bf16 UNet at published widths on the SDS call's CFG batch 2,
+    captured in a CUDA graph and replayed: one forward launch a GroupNorm
+    (61 in SD 1.5, 46 in SDXL); the bf16 VAE encoder forward and backward at
+    its side on one image: 22 forwards and 22 backwards; none plain."""
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance import sds, unet
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.guidance.vae import AutoencoderKL
+    from customnerf_torch.ops import kernels
+    cfg = dataclasses.replace(sds.unet_config(version), dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = build(unet.UNet2DCondition, cfg, device=cuda, generator=gen)
+    model = model.to(torch.bfloat16).eval().requires_grad_(False)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 4, latent, latent, device=cuda, generator=g)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, device=cuda, generator=g)
+    t = torch.tensor([500, 500], device=cuda)
+    kw = {}
+    if cfg.addition_embed_type:
+        kw["added_cond"] = {"text_embeds": torch.randn(2, cfg.text_embeds_dim, device=cuda,
+                                                       generator=g),
+                            "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2,
+                                                     device=cuda)}
+    plain0 = spans.counters["group_norm_plain"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        eager = model(x, t, ctx, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = model(x, t, ctx, **kw)
+    d0 = kernels.device_launches("group_norm")
+    for _ in range(3):
+        graph.replay()
+    d1 = kernels.device_launches("group_norm")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (3 * per_call, 0)
+    assert torch.equal(out, eager) and bool(torch.isfinite(out).all())
+    del model, graph, out, eager
+    vcfg = dataclasses.replace(sds.vae_config(version), dtype="bfloat16")
+    vae = build(AutoencoderKL, vcfg, device=cuda, generator=gen)
+    vae = vae.to(torch.bfloat16).eval().requires_grad_(False)
+    side_len = vcfg.sample_size
+    image = torch.rand(1, 3, side_len, side_len, device=cuda, generator=g).requires_grad_(True)
+    d0 = kernels.device_launches("group_norm")
+    mean, _ = vae.moments(image)
+    mean.float().square().sum().backward()
+    d1 = kernels.device_launches("group_norm")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (22, 22)
+    assert image.grad is not None and bool(torch.isfinite(image.grad).all())
+    assert spans.counters["group_norm_plain"] == plain0
 
 
 def _dtable_inputs(rng, B, R, C, device, ld=None):
