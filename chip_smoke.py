@@ -299,6 +299,13 @@ SD2_WORKSPACE = os.path.join(os.path.dirname(RECON_WORKSPACE), "smoke_sd2")
 SD2_EDIT_FLAGS = _with(EDIT_FLAGS, sd_version=SD2_VERSION,
                        workspace=os.path.join(SD2_WORKSPACE, "edit"))
 SD2_TUNE_STEPS, SD2_CLASS_IMAGES, SD2_CD_EDIT_STEPS = 4, 1, 4
+# the FLUX.1-dev phase: the editing recipe under --sd_version flux-dev (no
+# --clip_view: one prompt a view is enough for the launch counts)
+FLUX_WORKSPACE = os.path.join(os.path.dirname(RECON_WORKSPACE), "smoke_flux")
+FLUX_EDIT_FLAGS = _with([f for f in EDIT_FLAGS if f != "--clip_view"], sd_version="flux-dev",
+                        workspace=os.path.join(FLUX_WORKSPACE, "edit"))
+FLUX_STEPS = 4
+FLUX_ATTENTION_PER_CALL = 19 + 38      # one joint attention a block
 STEP_RAYS = 128 * 128
 STEP_SAMPLES = 229_376        # 256 blocks × 896 slots
 REFRESH_QUERIES = 2 * 128 ** 3
@@ -2227,6 +2234,7 @@ ATTENTION_SHAPES = [
     ("SD 1.5 level 2", 2, 256, 8, 160), ("SD 1.5 level 3", 2, 64, 8, 160),
     ("SDXL level 1", 2, 4096, 10, 64), ("SDXL level 2", 2, 1024, 20, 64),
     ("ragged n", 2, 1000, 8, 40), ("two scenes, SD 1.5 level 0", 4, 4096, 8, 40),
+    ("FLUX joint", 1, 4608, 24, 128),
 ]
 
 
@@ -2281,7 +2289,8 @@ def attention_rows():
             rows.append({
                 "name": ATTENTION,
                 "path": ("editing" if label.startswith("SD 1.5") else
-                         "UNet attention: shape check, no path of this script runs it"),
+                         "FLUX editing" if label.startswith("FLUX") and m == n else
+                         "attention: shape check, no path of this script runs it"),
                 "shape": f"{label}, b={b} n={n} m={m} heads={heads} d={d}",
                 "route": "cuda", "source": "customnerf_torch/csrc/attention.cu",
                 "replaces": "none (the JAX attention is plain XLA); the plain "
@@ -2894,6 +2903,93 @@ def parity_phase(card, guidance, clip_matcher):
     return {"reconstruction": pa, "reference_checkpoint": ref, "editing": ed}, rows
 
 
+def run_flux(recon_ckpt):
+    """The FLUX.1-dev phase (after the SD 2.x stack is freed): the
+    full-width stack on the card (its counts and dtypes: the transformer,
+    the VAE and T5 in bf16, CLIP-L f32), FLUX_STEPS eager editing steps
+    through ``Trainer.train_step`` with the tracer's spans, then one
+    dispatch of K = 8 replays of the captured step through
+    ``Trainer.train_one_epoch`` (after the dispatch that captures it).
+    Every transformer call must launch the attention kernel once a block
+    (FLUX_ATTENTION_PER_CALL) and none may run plain."""
+    import gc
+    import torch
+    from customnerf_torch.config import FLAGSHIP_ARGS, parse_args
+    from customnerf_torch.data.base import NeRFDataset
+    from customnerf_torch.engine import spans
+    from customnerf_torch.engine.trainer import Trainer
+    from customnerf_torch.guidance.sds import FULL_WIDTH_PARAMS, StableDiffusionGuidance
+    from customnerf_torch.ops import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FLUX_WORKSPACE, ignore_errors=True)
+    opt = parse_args(FLAGSHIP_ARGS + SMOKE_FLAGS + FLUX_EDIT_FLAGS
+                     + ["--editing_from", recon_ckpt])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    guidance = StableDiffusionGuidance(opt)
+    init_s = time.time() - t0
+    counts = guidance.param_counts()
+    want = {k: v for k, v in FULL_WIDTH_PARAMS["flux"].items() if k != "clip_view"}
+    assert counts == want, (counts, want)
+    t5 = guidance.text_encoder.model.text_encoder_2
+    assert {next(m.parameters()).dtype for m in (guidance.unet, guidance.vae, t5)} \
+        == {torch.bfloat16}
+    trainer = Trainer(opt, guidance=guidance, use_checkpoint=opt.ckpt, log=lambda *_: None)
+    train = NeRFDataset(opt, "train", device=trainer.device).dataloader()
+    plain0 = spans.counters["attention_plain"]
+    zero_counts()
+    steps = []
+    for _ in range(FLUX_STEPS):
+        batch = train.item(0)
+        trainer.global_step += 1
+        (loss, aux, stats), wall, ms, _ = traced(lambda: trainer.train_step(batch))
+        steps.append({"wall_ms": wall, "step_ms": ms["edit.step"], "dit_ms": ms["dit"],
+                      "dit_embed_ms": ms["dit.embed"], "dit_double_ms": ms["dit.double"],
+                      "dit_single_ms": ms["dit.single"], "vae_encode_ms": ms["vae_encode"],
+                      "render_ms": ms["render"], "loss": float(loss),
+                      "loss_sds": float(aux["loss_sds"]), "local": bool(stats["local"]),
+                      "t": int(stats["t"])})
+    eager = sum(kernels.device_launches(ATTENTION))
+    assert eager == FLUX_STEPS * FLUX_ATTENTION_PER_CALL, eager
+    k = trainer.steps_per_dispatch()
+    trainer.train_one_epoch([train.item(0) for _ in range(k)])      # captures the step
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph_loss = trainer.train_one_epoch([train.item(0) for _ in range(k)])
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / k
+    graphed = sum(kernels.device_launches(ATTENTION))
+    assert graphed == k * FLUX_ATTENTION_PER_CALL, (graphed, k)
+    assert spans.counters["attention_plain"] == plain0, "a FLUX attention call ran plain"
+    assert all(math.isfinite(st["loss"]) for st in steps) and math.isfinite(graph_loss)
+    out = {"param_counts": counts, "init_s": init_s, "steps": steps,
+           "median_eager_ms": statistics.median(st["wall_ms"] for st in steps),
+           "median_dit_ms": statistics.median(st["dit_ms"] for st in steps),
+           "graph_ms_per_step": graph_ms, "k": k,
+           "attention_launches": {"eager": eager, "graphed": graphed,
+                                  "per_call": FLUX_ATTENTION_PER_CALL},
+           "attention_plain": spans.counters["attention_plain"] - plain0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer, guidance
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FLUX_WORKSPACE, ignore_errors=True)
+    return out
+
+
+def log_flux(card, fx):
+    log(f"[FLUX.1-dev] {card} | full-width stack (transformer, VAE and T5 in bf16, "
+        f"CLIP-L f32), parameters {fx['param_counts']}, built on the card in "
+        f"{fx['init_s']:.1f} s | {FLUX_STEPS} eager steps: median {fx['median_eager_ms']:.1f} "
+        f"ms, transformer {fx['median_dit_ms']:.1f} ms | a dispatch of K = {fx['k']}: "
+        f"{fx['graph_ms_per_step']:.1f} ms/step | attention kernel launches "
+        f"{fx['attention_launches']}, plain {fx['attention_plain']} | peak "
+        f"{fx['peak_gb']:.2f} GB")
+
+
 def log_sd2(card, sd2, ed15, cdp15):
     """The SD 2.x phase's lines, each beside SD 1.5's number of this run."""
     ed, cdp, drill = sd2["editing"], sd2["image_driven"], sd2["validate_weights"]
@@ -3295,7 +3391,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, DATA_AXIS_WORKSPACE,
+        for ws in (QUALITY_ROOT, RECON_WORKSPACE, SD2_WORKSPACE, FLUX_WORKSPACE,
+                   DATA_AXIS_WORKSPACE,
                    ORBAX_WORKSPACE, ORBAX_SAVE_WORKSPACE):
             shutil.rmtree(ws, ignore_errors=True)
 
@@ -3472,12 +3569,17 @@ def run_all(card, procs) -> int:
     rows += parity_rows
     try:
         sd2, sd2_rows = run_sd2(ck["checkpoint"])
+        fx = run_flux(ck["checkpoint"])
     finally:
         # the checkpoint (~180 MB with its Adam state) has served its purpose
         for ws in (SD2_WORKSPACE, RECON_WORKSPACE):
             shutil.rmtree(ws, ignore_errors=True)
     rows += sd2_rows
     log_sd2(card, sd2, ed, cdp)
+    log_flux(card, fx)
+    for r in attn_rows:
+        if r["path"] == "FLUX editing":
+            r["launches"] = fx["attention_launches"]["eager"]
 
     quality, quality_rows = quality_phase(procs)
     rows += quality_rows
@@ -3493,7 +3595,7 @@ def run_all(card, procs) -> int:
                    "ptxas": kernels.ptxas_log, "kernels": rows, "trainer": tr,
                    "checkpoint": ck, "editing": ed, "multi_scene": scenes,
                    "data_axis": data_axis, "image_driven": cdp,
-                   "validate_weights": drill, "parity": parity, "sd2": sd2,
+                   "validate_weights": drill, "parity": parity, "sd2": sd2, "flux": fx,
                    "quality": quality, "host_inputs": host,
                    "host_build_s": host_build["s"]},
                   f, indent=1)

@@ -32,10 +32,12 @@ Kept exact (reference ``nerf/utils_init_nerf.py:243-394``):
     stream; the local branch takes ``text_z_fg`` and ``local_t_ratio``;
   * ``--clip_view``: the prompt of the view CLIP matches the pt render to.
 
-Under ``--sd_version xl`` each prompt's embedding is a ``PooledText`` (the
-context and SDXL's pooled embedding): it goes wherever a ``text_z*`` goes
-(per view under ``--clip_view``, the LGIE gate) and into the device step's
-inputs as ``text_emb`` and ``text_pooled``.  Multi-scene editing refuses xl.
+Under ``--sd_version xl`` and ``flux-dev`` each prompt's embedding is a
+``PooledText`` (the context and SDXL's or FLUX's pooled embedding): it goes
+wherever a ``text_z*`` goes (per view under ``--clip_view``, the LGIE gate)
+and into the device step's inputs as ``text_emb`` and ``text_pooled``.  The
+latents have the guidance VAE's channels (4, FLUX's 16).  Multi-scene
+editing refuses xl and flux-dev.
 
 The bg colour, t and both noises come from the trainer's ``torch.Generator``
 (not ``jax.random``'s streams); ``draws`` hands them in for tests.
@@ -60,7 +62,8 @@ scene:s,data:d`` each rank takes its S/s scenes, their rays sharded over
 The tracer's spans (``engine/spans.py``): the host spans ``pre_pass``
 and, on a pt-cache miss, ``pt_render`` (counted); the device spans of a step
 ``edit.step`` › ``render`` (› the renderer's stages), ``resize``,
-``vae_encode``, ``unet`` (the SDS ε call with its CFG batch), ``loss``,
+``vae_encode``, ``unet`` (the SDS ε call with its CFG batch; under
+flux-dev ``dit``, the transformer's one call), ``loss``,
 ``backward`` › (``vae_encode.bwd``, ``resize.bwd``, ``render.bwd``, stamped
 by gradient hooks where the latents', the resized image's and the frame's
 gradients are complete) and ``adam``.  A multi-scene step has the same
@@ -328,7 +331,7 @@ def editing_body(trainer, inputs, H: int, W: int, perturb: bool = True,
         out, latents, noise = editing_latents(trainer, inputs, H, W, perturb, draws)
         aux, cotangent = {}, None
         if latents is not None:
-            with spans.device("unet"):
+            with spans.device(trainer.guidance.span):
                 cotangent, aux["loss_sds"] = trainer.guidance.sds_grad(
                     latents.detach(), inputs["text_emb"], inputs["t"], noise,
                     pooled=inputs.get("text_pooled"))
@@ -495,9 +498,9 @@ def editing_step_scenes(trainer, batches, params_s, opt_state_s,
     tensors; a loss is Σ latents·cotangent + loss_bg, as the JAX step
     returns it, and ``loss_sds`` is 0.5·Σ grad²."""
     opt, dev = trainer.opt, trainer.device
-    if trainer.guidance is not None and trainer.guidance.family == "xl":
-        from customnerf_torch.guidance.sds import XL_REFUSED
-        raise ValueError(XL_REFUSED.format(what="multi-scene editing"))
+    if trainer.guidance is not None and trainer.guidance.family in ("xl", "flux"):
+        from customnerf_torch.guidance.sds import refused
+        raise refused(trainer.opt.sd_version, "multi-scene editing")
     S = len(batches)
     scenes = scenes if scenes is not None else [{}] * S
     if len(scenes) != S:

@@ -12,7 +12,11 @@ while the tracer is off (:func:`enable`): a graph captured then holds no
 stamp, and the trainer captures again when the tracer is switched
 (``Trainer._graph_key``).  A backward is split where gradients arrive:
 :func:`at_grad` stamps when a tensor's gradient is complete, and an
-``autograd.Function``'s backward opens its own span.
+``autograd.Function``'s backward opens its own span.  The stages are named
+where they are stamped (``engine/editing.py``, the models): an editing
+step's denoiser call is ``unet``, or under FLUX.1-dev ``dit``, inside which
+the transformer stamps ``dit.embed``, ``dit.double`` and ``dit.single``
+(``guidance/flux.py``).
 
 Host spans (:func:`span`) wrap host work: the epoch, the pre-pass, a pt
 render, a replay's copies and its launch, a capture, a refresh, the loss

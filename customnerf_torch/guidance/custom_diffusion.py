@@ -336,12 +336,11 @@ def train_custom_diffusion(
         checkpoint-N dir);
       * ``validation_prompt``: a DDIM sample grid every ``validation_steps``.
     """
-    from customnerf_torch.guidance.sds import (XL_REFUSED, StableDiffusionGuidance,
-                                               sd_family)
+    from customnerf_torch.guidance.sds import StableDiffusionGuidance, refused, sd_family
 
     assert freeze_model in ("crossattn_kv", "crossattn"), freeze_model
-    if sd_family(opt.sd_version) == "xl":
-        raise ValueError(XL_REFUSED.format(what="Custom Diffusion tuning"))
+    if sd_family(opt.sd_version) in ("xl", "flux"):
+        raise refused(opt.sd_version, "Custom Diffusion tuning")
     if guidance is None:
         guidance = StableDiffusionGuidance(opt, device=device)
     dev = guidance.device

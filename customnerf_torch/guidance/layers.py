@@ -278,12 +278,15 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
-def build(cls, *args, device=None, generator=None, **kw):
+def build(cls, *args, device=None, generator=None, dtype=None, **kw):
     """Construct ``cls(*args, **kw)`` without PyTorch's default init, on
-    ``device`` (``"meta"`` gives shapes only), then, unless on ``meta``,
-    initialise it from ``generator`` with :func:`init_random_`."""
+    ``device`` (``"meta"`` gives shapes only), its parameters stored in
+    ``dtype`` (default f32), then, unless on ``meta``, initialise it from
+    ``generator`` with :func:`init_random_`."""
     with torch.device("meta"):
         module = cls(*args, **kw)
+    if dtype is not None:
+        module = module.to(dtype)
     device = torch.device(device or "cpu")
     if device.type == "meta":
         return module
@@ -295,22 +298,28 @@ def build(cls, *args, device=None, generator=None, **kw):
 @torch.no_grad()
 def init_random_(module: nn.Module, generator=None):
     """The flax defaults, drawn in parameter order from one generator:
-    LeCun-normal kernels (std = fan_in^-½), zero biases, unit norm scales,
-    N(0, 0.02) embeddings and CLIP class embeddings."""
+    LeCun-normal kernels (std = fan_in^-½), zero biases, unit norm scales
+    (those of a module with ``unit_init`` too: the RMS norms), N(0, 0.02)
+    embeddings and CLIP class embeddings.  A parameter stored below f32
+    takes the f32 draw rounded, one tensor at a time: the same values as
+    an f32 module's, with no f32 copy of the whole."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
             p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif getattr(owner, "unit_init", False):
+            p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()
-        elif isinstance(owner, nn.Embedding) or p.ndim == 1:
-            p.normal_(0.0, 0.02, generator=generator)
         elif p.ndim == 0:
             p.fill_(2.6592)     # CLIP logit_scale_init_value
         else:
-            fan_in = p[0].numel()
-            p.normal_(0.0, fan_in ** -0.5, generator=generator)
+            std = 0.02 if isinstance(owner, nn.Embedding) or p.ndim == 1 else p[0].numel() ** -0.5
+            draw = p if p.dtype == torch.float32 else torch.empty(p.shape, device=p.device)
+            draw.normal_(0.0, std, generator=generator)
+            if draw is not p:
+                p.copy_(draw)
     return module
 
 

@@ -1,6 +1,6 @@
-"""Score Distillation Sampling guidance with Stable Diffusion 1.5, 2.0, 2.1
-or SDXL base 1.0 (counterpart of ``customnerf_tpu/guidance/sds.py``, which
-has no SDXL).
+"""Score Distillation Sampling guidance with Stable Diffusion 1.5, 2.0, 2.1,
+SDXL base 1.0 or FLUX.1-dev (counterpart of ``customnerf_tpu/guidance/sds.py``,
+which has neither SDXL nor FLUX).
 
 Semantics kept from the reference (``nerf/sd.py:34-154``):
   * t ∈ [0.02·T, max_ratio·T], an inclusive randint; ``--stage_time``
@@ -23,6 +23,24 @@ context and the pooled embedding), and every UNet call adds the
 time ids (S, S, 0, 0, S, S) for the VAE's side S: original size, crop
 corner (0, 0) and target size, the base pipeline's defaults for a 1024²
 target.  ``--use_cd`` and multi-scene editing refuse xl.
+
+``--sd_version flux-dev`` builds FLUX.1-dev: its rectified-flow transformer
+(``flux.FluxTransformer``, 11.9 B parameters), T5 v1.1 XXL's encoder and
+CLIP-L (``text.FluxTextEncoder``: the context and the pooled embedding, no
+negative prompt) and its VAE (16 latent channels, no quant convs, latents
+(z − 0.1159)·0.3611 at 1024²).  The model is guidance-distilled: one call
+at batch S (no CFG batch) with g = :data:`FLUX_GUIDANCE`.  The SDS step on
+rectified flow (:meth:`StableDiffusionGuidance.flow_grad_batch`): the
+port's integer t gives σ₀ = t/1000, shifted for the image's token count
+as FLUX.1-dev's scheduler shifts it (:func:`flow_sigma`: μ = 1.15 at 4,096
+tokens), x_σ = (1 − σ)·x₀ + σ·ε, ε̂ = x_σ + (1 − σ)·v̂ and
+grad = w(σ)·(ε̂ − ε)·λ_sd with w(σ) = σ² / ((1 − σ)² + σ²), the 1 − ᾱ_t of
+the SD step at the same signal-to-noise ratio.  ``--use_cd``, multi-scene
+editing and Custom Diffusion tuning refuse flux-dev, and so does
+``--sd_weights`` until the loader has FLUX's, T5's and CLIP's files.  The
+transformer, the VAE and T5 are stored in bf16 on the card, drawn one
+tensor at a time (an f32 copy of the transformer is 47.6 GB); CLIP-L stays
+f32.
 A caller's ``unet_cfg`` (reduced-width tests) must take the text tower's
 width as its context.
 Precision is the JAX package's rule (``sds.py:60-66,120-128``): on the card
@@ -43,12 +61,14 @@ The build, draw or load and cast is the tracer's counter
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
 
 from customnerf_torch.device import resolve_device
 from customnerf_torch.engine import spans
+from customnerf_torch.guidance.flux import FluxConfig, FluxTransformer
 from customnerf_torch.guidance.layers import build, n_params
 from customnerf_torch.guidance.scheduler import DDPMSchedule
 from customnerf_torch.guidance.text import make_text_encoder
@@ -68,7 +88,18 @@ FULL_WIDTH_PARAMS = {
             "clip_view": 151_277_313},
     "xl": {"unet": 2_567_463_684, "vae": 83_653_863, "text_encoder": 817_720_320,
            "clip_view": 151_277_313},
+    # "unet" is the denoiser, FLUX's transformer; the text encoder CLIP-L
+    # and T5 v1.1 XXL's encoder (4,762,310,656): the plain reference's
+    # counts (tests/test_torch_flux.py)
+    "flux": {"unet": 11_901_408_320, "vae": 83_819_683, "text_encoder": 4_885_371_136,
+             "clip_view": 151_277_313},
 }
+
+# FLUX.1-dev: the pipeline's default guidance, and the scheduler's shift of
+# σ for the image's token count: μ from 0.5 at 256 tokens to 1.15 at 4,096
+# (scheduler_config.json: base_shift, max_shift, base/max_image_seq_len)
+FLUX_GUIDANCE = 3.5
+FLUX_SHIFT = ((256, 0.5), (4096, 1.15))
 
 RANDOM_WEIGHTS_ERROR = (
     "editing requested without --sd_weights: Stable Diffusion would run with "
@@ -83,26 +114,48 @@ def sd_dtype(device) -> str:
 
 
 def sd_family(sd_version) -> str:
-    """"xl" for SDXL, "2.x" for 2.0 and 2.1, "1.x" otherwise: the JAX
-    package's test (``sd_version.startswith("2")``) besides xl."""
-    if str(sd_version).lower() == "xl":
+    """"xl" for SDXL, "flux" for FLUX.1-dev, "2.x" for 2.0 and 2.1, "1.x"
+    otherwise: the JAX package's test (``sd_version.startswith("2")``)
+    besides xl and flux-dev."""
+    version = str(sd_version).lower()
+    if version == "xl":
         return "xl"
-    return "2.x" if str(sd_version).startswith("2") else "1.x"
+    if version == "flux-dev":
+        return "flux"
+    return "2.x" if version.startswith("2") else "1.x"
 
 
-def unet_config(sd_version) -> UNetConfig:
-    """The UNet for ``sd_version`` (the JAX package's for 1.x and 2.x,
-    ``sds.py:62-71``), in f32 until the guidance sets its compute dtype."""
-    return {"2.x": sd2_unet_config, "xl": sdxl_unet_config}.get(
+def unet_config(sd_version):
+    """The denoiser for ``sd_version`` (the JAX package's UNet for 1.x and
+    2.x, ``sds.py:62-71``; FLUX.1-dev's transformer), in f32 until the
+    guidance sets its compute dtype."""
+    return {"2.x": sd2_unet_config, "xl": sdxl_unet_config, "flux": FluxConfig}.get(
         sd_family(sd_version), UNetConfig)()
 
 
 def vae_config(sd_version) -> VAEConfig:
-    """SD's AutoencoderKL: at 512² with scaling 0.18215, or for xl at 1024²
-    with scaling 0.13025 (``vae/config.json``)."""
-    if sd_family(sd_version) == "xl":
+    """SD's AutoencoderKL: at 512² with scaling 0.18215, for xl at 1024²
+    with scaling 0.13025, for flux-dev at 1024² with 16 latent channels, no
+    quant convs and latents (z − 0.1159)·0.3611 (``vae/config.json``)."""
+    family = sd_family(sd_version)
+    if family == "xl":
         return VAEConfig(sample_size=1024, scaling_factor=0.13025)
+    if family == "flux":
+        return VAEConfig(latent_channels=16, sample_size=1024, scaling_factor=0.3611,
+                         shift_factor=0.1159, use_quant_conv=False,
+                         use_post_quant_conv=False)
     return VAEConfig()
+
+
+def flow_sigma(t, tokens: int):
+    """FLUX.1-dev's σ for the port's integer timestep t (any shape, on its
+    device): σ₀ = t/1000 shifted by μ, linear in the image's ``tokens``
+    between :data:`FLUX_SHIFT`'s points (1.15 at 4,096):
+    σ = e^μ / (e^μ + 1/σ₀ − 1), f32."""
+    (n0, mu0), (n1, mu1) = FLUX_SHIFT
+    em = math.exp(mu0 + (mu1 - mu0) * (tokens - n0) / (n1 - n0))
+    s0 = t.float() / 1000.0
+    return em / (em + 1.0 / s0 - 1.0)
 
 
 def time_ids(side: int) -> list:
@@ -111,7 +164,15 @@ def time_ids(side: int) -> list:
     return [side, side, 0, 0, side, side]
 
 
-XL_REFUSED = "--sd_version xl does not support {what}"
+REFUSED = "--sd_version {version} does not support {what}"
+WEIGHTS_WAIT = ("--sd_version flux-dev: --sd_weights cannot load yet; the loader "
+                "waits for FLUX.1-dev's transformer, VAE, T5 and CLIP files (and "
+                "T5's SentencePiece model) in a local directory")
+
+
+def refused(sd_version, what: str) -> ValueError:
+    """The error of a path that SDXL or FLUX does not support."""
+    return ValueError(REFUSED.format(version=sd_version, what=what))
 
 
 class StableDiffusionGuidance:
@@ -132,8 +193,12 @@ class StableDiffusionGuidance:
             raise RuntimeError(RANDOM_WEIGHTS_ERROR)
         self.opt = opt
         self.family = sd_family(opt.sd_version)
-        if self.family == "xl" and opt.use_cd is not None and not opt.test:
-            raise ValueError(XL_REFUSED.format(what="--use_cd (Custom Diffusion)"))
+        if self.family in ("xl", "flux") and opt.use_cd is not None and not opt.test:
+            raise refused(opt.sd_version, "--use_cd (Custom Diffusion)")
+        if self.family == "flux" and opt.sd_weights:
+            raise NotImplementedError(WEIGHTS_WAIT)
+        # the denoiser's device span in the editing step
+        self.span = "dit" if self.family == "flux" else "unet"
         self.device = resolve_device(device)
         self.dtype = dtype or sd_dtype(self.device)
         unet_cfg = dataclasses.replace(unet_cfg or unet_config(opt.sd_version),
@@ -152,7 +217,7 @@ class StableDiffusionGuidance:
         self.alphas = self.scheduler.alphas_cumprod
         # the text-time conditioning's time ids (None without it)
         self.time_ids = None
-        if unet_cfg.addition_embed_type is not None:
+        if getattr(unet_cfg, "addition_embed_type", None) is not None:
             self.time_ids = torch.tensor(time_ids(vae_cfg.sample_size),
                                          dtype=torch.float32, device=self.device)
 
@@ -161,13 +226,20 @@ class StableDiffusionGuidance:
         storage cast."""
         gen = (None if self.device.type == "meta" else
                torch.Generator(device=self.device).manual_seed(int(opt.seed)))
-        self.unet = build(UNet2DCondition, unet_cfg, device=self.device,
-                          generator=gen).eval().requires_grad_(False)
+        flux = self.family == "flux"
+        # FLUX's transformer and T5 are stored in their dtype from the draw
+        # on (no f32 copy of either); SD's models after their weights load
+        store = unet_cfg.compute_dtype if flux else None
+        self.unet = build(FluxTransformer if flux else UNet2DCondition, unet_cfg,
+                          device=self.device, generator=gen,
+                          dtype=store).eval().requires_grad_(False)
         self.vae = build(AutoencoderKL, vae_cfg, device=self.device,
                          generator=gen).eval().requires_grad_(False)
         self.text_encoder = text_encoder or make_text_encoder(
             opt.sd_version, weights_dir=opt.sd_weights, device=self.device,
-            generator=gen)
+            generator=gen, dtype=store)
+        if flux:
+            self.flux_guidance = torch.full((1,), FLUX_GUIDANCE, device=self.device)
         self.text_encoder.model.eval().requires_grad_(False)
         width = self.text_encoder.width
         if width != unet_cfg.cross_attention_dim:
@@ -196,8 +268,8 @@ class StableDiffusionGuidance:
         """``--use_cd``: the artifact pair in ``model_dir`` → ``self.cd_kv``
         (None without adapter weights) and its tokens registered on the text
         encoder; returns {token: embedding}."""
-        if self.family == "xl":
-            raise ValueError(XL_REFUSED.format(what="--use_cd (Custom Diffusion)"))
+        if self.family in ("xl", "flux"):
+            raise refused(self.opt.sd_version, "--use_cd (Custom Diffusion)")
         from customnerf_torch.guidance.custom_diffusion import load_cd_artifacts
         self.cd_kv, token_embeds = load_cd_artifacts(model_dir, self.text_encoder,
                                                      device=self.device)
@@ -212,7 +284,8 @@ class StableDiffusionGuidance:
 
     # ---------------------------------------------------------------- text
     def get_text_embeds(self, prompt, negative_prompt):
-        """[uncond; cond]: a tensor, or for xl a ``text.PooledText``."""
+        """[uncond; cond]: a tensor, or for xl a ``text.PooledText``; for
+        flux-dev the prompt's ``PooledText`` alone."""
         return self.text_encoder.get_text_embeds(prompt, negative_prompt)
 
     def added_cond(self, pooled):
@@ -228,8 +301,8 @@ class StableDiffusionGuidance:
 
     # --------------------------------------------------------------- image
     def encode_imgs(self, images, generator=None, noise=None):
-        """images [B, 3, H, W] in [0, 1] → latents [B, 4, H/8, W/8], with
-        the graph to the images."""
+        """images [B, 3, H, W] in [0, 1] → latents [B, C, H/8, W/8] (C the
+        VAE's latent channels: 4, FLUX's 16), with the graph to the images."""
         return self.vae.encode(2.0 * images - 1.0, generator=generator,
                                noise=noise)
 
@@ -237,11 +310,13 @@ class StableDiffusionGuidance:
     @torch.no_grad()
     def sds_grad(self, latents, text_embeddings, t, noise, pooled=None):
         """dL_sds/dlatents and the loss value 0.5·Σ grad², for latents
-        [1, 4, h, w], text_embeddings [uncond; cond] and noise ε, all f32, at
+        [1, C, h, w], text_embeddings [uncond; cond] and noise ε, all f32, at
         timestep ``t`` (a [1] int64 tensor on the latents' device, or an
-        int); for xl ``pooled`` [uncond; cond] [2, P]; the UNet casts its
-        inputs, and the gradient is formed in f32 from its f32 ε (the JAX
-        ``sds_loss_fn``).  Nothing here reads t on the host."""
+        int); for xl ``pooled`` [uncond; cond] [2, P]; for flux-dev the
+        prompt's context [1, T, 4096] and pooled [1, 768]; the denoiser
+        casts its inputs, and the gradient is formed in f32 from its f32
+        output (the JAX ``sds_loss_fn``).  Nothing here reads t on the
+        host."""
         grad, loss = self.sds_grad_batch(latents, text_embeddings[None], t, noise,
                                          None if pooled is None else pooled[None])
         return grad, loss[0]
@@ -255,6 +330,9 @@ class StableDiffusionGuidance:
         The UNet's batch is [all S noisy; all S noisy] against [all S
         uncond; all S cond].  Returns grad [S, 4, h, w] and the loss values
         [S]."""
+        if self.family == "flux":
+            return self.flow_grad_batch(latents, text_embeddings[:, 0], t, noise,
+                                        pooled[:, 0])
         S = latents.shape[0]
         t = torch.as_tensor(t, device=latents.device).reshape(-1).expand(S)
         noisy = self.scheduler.add_noise(latents, noise, t)
@@ -267,6 +345,23 @@ class StableDiffusionGuidance:
         eps_hat = eps_text + self.opt.cfg * (eps_text - eps_uncond)
         w = (1.0 - self.alphas.index_select(0, t)).reshape(S, 1, 1, 1)
         grad = torch.nan_to_num(w * (eps_hat.float() - noise) * self.opt.lambda_sd)
+        return grad, 0.5 * (grad ** 2).reshape(S, -1).sum(dim=1)
+
+    @torch.no_grad()
+    def flow_grad_batch(self, latents, context, t, noise, pooled):
+        """FLUX.1-dev's SDS gradient (module docstring) of S scenes in one
+        transformer call of batch S: latents and noise [S, C, h, w], context
+        [S, T, 4096], pooled [S, 768], t [S] int64 (or an int).  Returns
+        grad [S, C, h, w] and the loss values [S]."""
+        S, _, h, w = latents.shape
+        t = torch.as_tensor(t, device=latents.device).reshape(-1).expand(S)
+        sigma = flow_sigma(t, (h // 2) * (w // 2))
+        s = sigma.reshape(S, 1, 1, 1)
+        noisy = (1.0 - s) * latents + s * noise
+        v = self.unet(noisy, sigma, context, pooled, self.flux_guidance.expand(S))
+        eps_hat = noisy + (1.0 - s) * v.float()
+        weight = s * s / ((1.0 - s) ** 2 + s * s)
+        grad = torch.nan_to_num(weight * (eps_hat - noise) * self.opt.lambda_sd)
         return grad, 0.5 * (grad ** 2).reshape(S, -1).sum(dim=1)
 
     def sample_timestep(self, generator, global_step=None, t_ratio: float = 1.0):

@@ -38,6 +38,7 @@ adds one and installs its embedding row, growing the token table.
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -265,11 +266,16 @@ BIGG_PROJECTION = 1280
 
 
 def make_text_encoder(sd_version: str, weights_dir: Optional[str] = None, device=None,
-                      generator=None):
+                      generator=None, dtype: Optional[torch.dtype] = None):
     """The text encoder ``--sd_version`` takes: :class:`DualTextEncoder`
-    for xl, else :class:`TextEncoder`."""
-    if str(sd_version).lower() == "xl":
+    for xl, :class:`FluxTextEncoder` for flux-dev (T5 stored in ``dtype``),
+    else :class:`TextEncoder`."""
+    version = str(sd_version).lower()
+    if version == "xl":
         return DualTextEncoder(weights_dir=weights_dir, device=device, generator=generator)
+    if version == "flux-dev":
+        return FluxTextEncoder(weights_dir=weights_dir, device=device, generator=generator,
+                               t5_dtype=dtype)
     return TextEncoder(sd_version, weights_dir=weights_dir, device=device,
                        generator=generator)
 
@@ -318,8 +324,9 @@ class TextEncoder:
 
 
 class PooledText(NamedTuple):
-    """SDXL's embedding of prompts: the context [n, 77, 2048] and the
-    pooled embedding [n, 1280], which travel together."""
+    """SDXL's embedding of prompts, the context [n, 77, 2048] and the pooled
+    embedding [n, 1280], or FLUX's, T5's context [n, 512, 4096] and CLIP-L's
+    pooled state [n, 768]: the two travel together."""
     context: torch.Tensor
     pooled: torch.Tensor
 
@@ -377,6 +384,240 @@ class DualTextEncoder:
                          neg.pooled.masked_fill(empty[:, None], 0.0))
         return PooledText(torch.cat([neg.context, cond.context]),
                           torch.cat([neg.pooled, cond.pooled]))
+
+
+# ------------------------------------------------------------------- FLUX
+@dataclass(frozen=True)
+class T5Config:
+    """T5 v1.1 XXL's encoder (FLUX.1-dev's ``text_encoder_2/config.json``):
+    24 layers of d_model 4096, 64 heads of 64, a gated tanh-GELU MLP of
+    10240, RMS norms of ε 1e-6 and 32 bidirectional relative-position
+    buckets up to a distance of 128; prompts of ``max_length`` tokens."""
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    max_length: int = 512
+
+
+T5_PAD, T5_EOS = 0, 1
+
+
+class T5HashTokenizer:
+    """The stand-in for T5's SentencePiece model (its package is not part
+    of the port): word → stable md5 bucket past the specials, EOS after the
+    last word, padding to ``max_length`` with 0, as the published
+    tokenizer pads."""
+
+    def __init__(self, max_length: int = 512, vocab_size: int = 32128):
+        self.max_length, self.vocab_size = max_length, vocab_size
+
+    def __call__(self, prompts: List[str], **_):
+        ids = np.full((len(prompts), self.max_length), T5_PAD, dtype=np.int64)
+        for i, p in enumerate(prompts):
+            toks = [int(hashlib.md5(w.encode()).hexdigest(), 16) % (self.vocab_size - 3) + 3
+                    for w in p.lower().split()][: self.max_length - 1]
+            ids[i, : len(toks) + 1] = toks + [T5_EOS]
+        return ids
+
+
+class T5LayerNorm(nn.Module):
+    """T5's RMS norm: x·rsqrt(mean(x²) + ε) in f32, cast back, times the
+    weight (no bias, no mean)."""
+    unit_init = True
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        y = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)).to(x.dtype)
+        return self.weight.to(x.dtype) * y
+
+
+def relative_position_bucket(rel, num_buckets: int, max_distance: int):
+    """T5's bidirectional bucket of each key − query offset: half the
+    buckets a sign, exact up to a quarter of them, then logarithmic up to
+    ``max_distance``."""
+    half = num_buckets // 2
+    out = (rel > 0).long() * half
+    n = rel.abs()
+    exact = half // 2
+    large = exact + (torch.log(n.float().clamp(min=1) / exact) / math.log(max_distance / exact)
+                     * (half - exact)).long()
+    return out + torch.where(n < exact, n, large.clamp(max=half - 1))
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        inner = cfg.num_heads * cfg.d_kv
+        self.cfg = cfg
+        self.q = nn.Linear(cfg.d_model, inner, bias=False)
+        self.k = nn.Linear(cfg.d_model, inner, bias=False)
+        self.v = nn.Linear(cfg.d_model, inner, bias=False)
+        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        if has_bias:
+            self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets,
+                                                        cfg.num_heads)
+
+    def position_bias(self, n: int, device) -> torch.Tensor:
+        """[1, heads, n, n] f32: each head's bias of each key − query offset."""
+        pos = torch.arange(n, device=device)
+        buckets = relative_position_bucket(pos[None, :] - pos[:, None],
+                                           self.cfg.relative_attention_num_buckets,
+                                           self.cfg.relative_attention_max_distance)
+        return self.relative_attention_bias(buckets).float().permute(2, 0, 1)[None]
+
+    def forward(self, x, bias):
+        """No 1/√d on the logits (T5's scale sits in its weights); logits,
+        bias and softmax in f32, the probabilities in the values' dtype."""
+        b, n, _ = x.shape
+        h, d = self.cfg.num_heads, self.cfg.d_kv
+
+        def split(t):
+            return t.view(b, n, h, d).transpose(1, 2)
+        q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias
+        out = torch.matmul(scores.softmax(dim=-1).to(v.dtype), v)
+        return self.o(out.transpose(1, 2).reshape(b, n, h * d))
+
+
+class T5SelfAttentionLayer(nn.Module):
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        self.SelfAttention = T5Attention(cfg, has_bias)
+        self.layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
+
+
+class T5DenseGatedAct(nn.Module):
+    """wo(gelu_tanh(wi_0(x)) · wi_1(x))."""
+
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+
+    def forward(self, x):
+        return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
+
+
+class T5FFLayer(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.DenseReluDense = T5DenseGatedAct(cfg)
+        self.layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        self.layer = nn.ModuleList([T5SelfAttentionLayer(cfg, has_bias), T5FFLayer(cfg)])
+
+    def forward(self, x, bias):
+        att, ff = self.layer
+        x = x + att.SelfAttention(att.layer_norm(x), bias)
+        return x + ff.DenseReluDense(ff.layer_norm(x))
+
+
+class T5Stack(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.block = nn.ModuleList([T5Block(cfg, i == 0) for i in range(cfg.num_layers)])
+        self.final_layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
+
+
+class T5EncoderModel(nn.Module):
+    """Hugging Face's ``T5EncoderModel`` layout (``shared``,
+    ``encoder.block.<i>.layer.<0|1>``, ``encoder.final_layer_norm``); the
+    relative-position bias lives in block 0 and every block adds it.  No
+    attention mask: FLUX's pipelines run T5 on the whole padded prompt."""
+
+    def __init__(self, cfg: T5Config = T5Config()):
+        super().__init__()
+        self.cfg = cfg
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.encoder = T5Stack(cfg)
+
+    def forward(self, ids):
+        """ids [B, L] → the final-norm state [B, L, d_model]."""
+        x = self.shared(ids)
+        blocks = self.encoder.block
+        bias = blocks[0].layer[0].SelfAttention.position_bias(ids.shape[1], ids.device)
+        for block in blocks:
+            x = block(x, bias)
+        return self.encoder.final_layer_norm(x)
+
+
+class FluxTextTowers(nn.Module):
+    """FLUX.1-dev's towers under diffusers' directory names: CLIP ViT-L/14
+    (``text_encoder``, its pooled state) and T5 v1.1 XXL's encoder
+    (``text_encoder_2``, the context)."""
+
+    def __init__(self, clip_cfg: CLIPTextConfig = CLIPTextConfig(),
+                 t5_cfg: T5Config = T5Config()):
+        super().__init__()
+        self.text_encoder = CLIPTextModel(clip_cfg)
+        self.text_encoder_2 = T5EncoderModel(t5_cfg)
+
+
+def flux_text_towers(device=None, generator=None, t5_dtype=None,
+                     clip_cfg: CLIPTextConfig = CLIPTextConfig(),
+                     t5_cfg: T5Config = T5Config()) -> FluxTextTowers:
+    """The towers with seeded random weights, CLIP-L in f32 and T5 stored in
+    ``t5_dtype`` (drawn one tensor at a time, never whole in f32)."""
+    towers = build(FluxTextTowers, clip_cfg, t5_cfg, device="meta")
+    towers.text_encoder = build(CLIPTextModel, clip_cfg, device=device, generator=generator)
+    towers.text_encoder_2 = build(T5EncoderModel, t5_cfg, device=device, generator=generator,
+                                  dtype=t5_dtype)
+    return towers
+
+
+class FluxTextEncoder:
+    """FLUX's prompts: ``get_text_embeds`` gives a :class:`PooledText` of
+    T5's final state over the prompt padded to 512 tokens and CLIP-L's
+    pooled state (no negative prompt: the model is guidance-distilled and
+    runs no CFG batch).  The CLIP tokenizer is the BPE of
+    ``weights_dir/tokenizer`` where it loads, else :class:`HashTokenizer`;
+    T5's is :class:`T5HashTokenizer`.  ``model``: a :class:`FluxTextTowers`
+    (reduced widths in tests), else the full-width towers built on
+    ``device`` from ``generator``, T5 stored in ``t5_dtype``."""
+
+    def __init__(self, weights_dir: Optional[str] = None, device=None, generator=None,
+                 model: FluxTextTowers | None = None, t5_dtype=None):
+        self.tokenizer = _tokenizer(weights_dir, "tokenizer")
+        self.model = model if model is not None else flux_text_towers(device, generator,
+                                                                      t5_dtype)
+        t5 = self.model.text_encoder_2.cfg
+        self.tokenizer_2 = T5HashTokenizer(t5.max_length, t5.vocab_size)
+
+    @property
+    def width(self) -> int:
+        """The context's width: T5's d_model."""
+        return self.model.text_encoder_2.cfg.d_model
+
+    @torch.no_grad()
+    def encode(self, prompts: List[str]) -> PooledText:
+        """[n] prompts → (T5's context [n, 512, d_model] f32, CLIP-L's pooled
+        state [n, 768])."""
+        clip, t5 = self.model.text_encoder, self.model.text_encoder_2
+        dev = next(t5.parameters()).device
+        ids = torch.from_numpy(self.tokenizer_2(prompts)).to(dev)
+        clip_ids = torch.from_numpy(np.asarray(self.tokenizer(prompts, max_length=MAX_LEN),
+                                               dtype=np.int64)).to(dev)
+        return PooledText(t5(ids).float(), clip.text_model(clip_ids)[1])
+
+    def get_text_embeds(self, prompt: List[str], negative_prompt: List[str]) -> PooledText:
+        """The prompts' embedding; ``negative_prompt`` has no use here."""
+        return self.encode(prompt)
 
 
 @torch.no_grad()

@@ -5,7 +5,9 @@ Module names are diffusers' (``encoder.down_blocks.0.resnets.1``,
 ``encoder.mid_block.attentions.0.to_q``, ``quant_conv``).  SDS uses
 ``encode``: images in [-1, 1] → posterior sample × ``scaling_factor``
 (0.18215 for SD 1.x/2.x, reference ``nerf/sd.py:97-105``; 0.13025 for
-SDXL, whose VAE has the same layout); ``decode`` inverts it.
+SDXL, whose VAE has the same layout); ``decode`` inverts it.  FLUX.1-dev's
+VAE (``vae_config("flux-dev")`` in ``sds.py``) has 16 latent channels, no
+``quant_conv`` / ``post_quant_conv`` and latents (z − 0.1159)·0.3611.
 ``sample_size`` is the side of the square image the model encodes (512,
 SDXL's 1024): the editing step resizes its frame to it.
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +43,11 @@ class VAEConfig:
     norm_num_groups: int = 32
     sample_size: int = 512
     scaling_factor: float = 0.18215
+    # FLUX's VAE: no 1×1 convs around the latents, and latents shifted
+    # before they are scaled; SD's defaults keep its modules as they were
+    use_quant_conv: bool = True
+    use_post_quant_conv: bool = True
+    shift_factor: Optional[float] = None
     dtype: str = "float32"      # the compute dtype: "float32" | "bfloat16"
 
     @property
@@ -155,25 +162,38 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = Conv2d(2 * cfg.latent_channels,
-                                 2 * cfg.latent_channels, 1, f32=True)
-        self.post_quant_conv = Conv2d(cfg.latent_channels,
-                                      cfg.latent_channels, 1, f32=True)
+        if cfg.use_quant_conv:
+            self.quant_conv = Conv2d(2 * cfg.latent_channels,
+                                     2 * cfg.latent_channels, 1, f32=True)
+        if cfg.use_post_quant_conv:
+            self.post_quant_conv = Conv2d(cfg.latent_channels,
+                                          cfg.latent_channels, 1, f32=True)
 
     def moments(self, images):
         """images [B, 3, H, W] in [-1, 1] → (mean, logvar), each
-        [B, 4, H/8, W/8]."""
-        mean, logvar = self.quant_conv(self.encoder(images)).chunk(2, dim=1)
+        [B, latent_channels, H/8, W/8]."""
+        h = self.encoder(images)
+        if self.cfg.use_quant_conv:
+            h = self.quant_conv(h)
+        mean, logvar = h.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, images, generator=None, noise=None):
-        """Sample the posterior and scale.  The noise is ``noise`` when given,
-        else drawn from ``generator``."""
+        """Sample the posterior, shift (FLUX) and scale.  The noise is
+        ``noise`` when given, else drawn from ``generator``."""
         mean, logvar = self.moments(images)
         if noise is None:
             noise = torch.randn(mean.shape, generator=generator,
                                 device=mean.device, dtype=mean.dtype)
-        return (mean + torch.exp(0.5 * logvar) * noise) * self.cfg.scaling_factor
+        z = mean + torch.exp(0.5 * logvar) * noise
+        if self.cfg.shift_factor is not None:
+            z = z - self.cfg.shift_factor
+        return z * self.cfg.scaling_factor
 
     def decode(self, latents):
-        return self.decoder(self.post_quant_conv(latents / self.cfg.scaling_factor))
+        z = latents / self.cfg.scaling_factor
+        if self.cfg.shift_factor is not None:
+            z = z + self.cfg.shift_factor
+        if self.cfg.use_post_quant_conv:
+            z = self.post_quant_conv(z)
+        return self.decoder(z)

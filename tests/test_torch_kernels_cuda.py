@@ -250,14 +250,16 @@ def test_grid_encode_kernel_rejects_what_it_does_not_take(cuda, bad):
 
 
 # ---------------------------------------------------------------- attention
-# (b, n, heads, d, sharpness) of the UNet's attention calls on the main path:
+# (b, n, heads, d, sharpness) of the attention calls on the main path:
 # SD 1.5's four levels, SDXL's two attending levels (the mid block is level
-# 2's shape), a ragged n, multi-scene editing's batch 2S at S = 2, peaked
-# rows (logits ~ N(0, 9)), and every head width the kernel takes
+# 2's shape), FLUX.1-dev's joint attention (4,096 image + 512 text tokens,
+# 24 heads of 128), a ragged n, multi-scene editing's batch 2S at S = 2,
+# peaked rows (logits ~ N(0, 9)), and every head width the kernel takes
 ATTENTION_CASES = {
     "sd15_l0": (2, 4096, 8, 40, 1.0), "sd15_l1": (2, 1024, 8, 80, 1.0),
     "sd15_l2": (2, 256, 8, 160, 1.0), "sd15_l3": (2, 64, 8, 160, 1.0),
     "sdxl_l1": (2, 4096, 10, 64, 1.0), "sdxl_l2": (2, 1024, 20, 64, 1.0),
+    "flux_joint": (1, 4608, 24, 128, 1.0),
     "ragged_n": (2, 1000, 8, 40, 1.0), "scenes2": (4, 4096, 8, 40, 1.0),
     "peaked": (2, 1024, 8, 40, 3.0),
     **{f"d{d}": (1, 200, 2, d, 1.0) for d in range(8, 161, 8)},
@@ -450,6 +452,46 @@ def test_graphed_unet_call_launches_the_kernel_for_every_attention(cuda, version
     assert (d1[0] - d0[0], d1[1] - d0[1]) == (3 * per_call // 2, 3 * per_call // 2)
     assert spans.counters["attention_plain"] == plain0
     assert torch.equal(out, eager) and bool(torch.isfinite(out).all())
+
+
+def test_graphed_flux_call_launches_the_kernel_for_every_attention(cuda):
+    """The bf16 FLUX.1-dev transformer at published widths on the SDS call
+    (batch 1, 128² × 16 latents: 4,096 image tokens, 512 text tokens),
+    captured in a CUDA graph and replayed: one joint-attention launch a
+    block, 57 a call, each over 4,608 keys (whole 64-key tiles), none plain;
+    the replay equal to the eager call."""
+    from customnerf_torch.engine import spans
+    from customnerf_torch.guidance.flux import FluxConfig, FluxTransformer
+    from customnerf_torch.guidance.layers import build
+    from customnerf_torch.ops import kernels
+    cfg = FluxConfig(dtype="bfloat16")
+    model = build(FluxTransformer, cfg, device=cuda, dtype=torch.bfloat16,
+                  generator=torch.Generator(device=cuda).manual_seed(0))
+    model = model.eval().requires_grad_(False)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    args = (torch.randn(1, 16, 128, 128, device=cuda, generator=g),
+            torch.tensor([0.7], device=cuda),
+            torch.randn(1, 512, cfg.joint_attention_dim, device=cuda, generator=g),
+            torch.randn(1, cfg.pooled_projection_dim, device=cuda, generator=g),
+            torch.tensor([3.5], device=cuda))
+    plain0 = spans.counters["attention_plain"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        eager = model(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = model(*args)
+    d0 = kernels.device_launches("attention")
+    for _ in range(3):
+        graph.replay()
+    d1 = kernels.device_launches("attention")
+    assert (d1[0] - d0[0], d1[1] - d0[1]) == (3 * 57, 0)
+    assert spans.counters["attention_plain"] == plain0
+    assert torch.equal(out, eager) and bool(torch.isfinite(out).all())
+    del model, graph
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- group norm

@@ -65,10 +65,16 @@ def unet_parts(levels: int, text_time: bool = False) -> dict:
     return out
 
 
+# FLUX's transformer: the SDS call, its embedders, its two groups of blocks
+DIT = {"dit_graphed_ms": (("dit",), ()), "dit_embed_graphed_ms": (("dit.embed",), ()),
+       "dit_double_graphed_ms": (("dit.double",), ()),
+       "dit_single_graphed_ms": (("dit.single",), ())}
+
 # per-layer readings of the split, by job: (device spans summed, host spans summed)
 READINGS = {
     "edit": {**EDIT, **unet_parts(4)},
     "edit_xl": {**EDIT, **unet_parts(3, text_time=True)},
+    "edit_flux": {**{k: v for k, v in EDIT.items() if k != "unet_graphed_ms"}, **DIT},
     "recon": {
         "grid_encode_graphed_ms": (("grid_encode", "grid_encode.bwd"), ()),
         "grid_encode_backward_graphed_ms": (("grid_encode.bwd",), ()),
